@@ -1,0 +1,21 @@
+from whvi_tpu_torch.train.optim import (
+    decay_schedule,
+    decayed_adam,
+    mask_likelihood_grads,
+)
+from whvi_tpu_torch.train.trainer import (
+    TrainConfig,
+    Trainer,
+    TrainState,
+    batch_layout,
+)
+
+__all__ = [
+    "TrainConfig",
+    "TrainState",
+    "Trainer",
+    "batch_layout",
+    "decay_schedule",
+    "decayed_adam",
+    "mask_likelihood_grads",
+]
