@@ -6,7 +6,8 @@ Phases, each of which raises on failure:
 
 1. Probe: torch and CUDA versions, the card's name and power limit
    (nvidia-smi), nvcc, triton; TF32 off. Exits non-zero without a GPU.
-2. Build: nvcc compiles whvi_tpu_torch/csrc/*.cu for sm_90a.
+2. Build: nvcc compiles each of whvi_tpu_torch/csrc/*.cu for sm_90a, all
+   at once, and links them into one library.
 3. Kernels vs their plain PyTorch versions on the card, forward with and
    without residuals, backward through autograd, and the bare FWHT
    forward and backward, from D=2 to 16384 and at the flagship's
@@ -20,6 +21,16 @@ Phases, each of which raises on failure:
    launched by that run. The trained net's loss, predictions and
    gradients on the card (kernels) are held against a CPU copy (plain
    versions) on the same noise.
+5. The large-D kernel-diagnosis path (whvi_tpu_torch/ops/kron_cuda.py):
+   each of its 13 kernels against its plain version at B=512, row tiles
+   of 4 and 32 and D = 128, 1024, 8192, 16384 (shapes first, then values;
+   tolerances kron_cuda.tol), the full-product variants also against the
+   fp32 product (BF16_TOL); device times (CUDA graph replay) of kernel and
+   plain at D=16384, B=512, TB=4. Then the path itself: the three entry
+   points kernel_diag (and --floors), kernel_tune and kernel_check at
+   their default sizes with few iterations; every one of the 13 kernels
+   must have been launched by that run, and the entry points' own error
+   columns are checked.
 
 Before the last line it prints one JSON object of the kernels and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -32,13 +43,14 @@ import copy
 import json
 import math
 import shutil
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from whvi_tpu_torch.utils.profiling import cuda_ms
 
 KERNEL_TOL = 1e-5  # fp32 butterflies: same adds as the plain version
 SLICE_TOL = 1e-5  # loss and predictions, card (kernels) vs CPU (plain)
@@ -68,23 +80,6 @@ def rel_err(got, want) -> float:
     check(got.shape == want.shape, f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     scale = want.abs().max().item()
     return (got - want).abs().max().item() / scale
-
-
-def cuda_ms(fn, reps: int = 20, rounds: int = 7) -> float:
-    """Median per-call milliseconds of ``fn`` on the card, warm."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
 
 
 # ------------------------------------------------------------------ 1. probe
@@ -342,6 +337,114 @@ def run_slice(fc, dev, seed) -> dict:
     return launches
 
 
+# ------------------------------------------------------- 5. large-D kernels
+
+_KRON = "whvi_tpu_torch/csrc/whvi_kron.cu"
+_PIPE = "whvi_tpu_torch/csrc/whvi_pipe.cu"
+_COPY = "whvi_tpu_torch/csrc/copy_floor.cu"
+KRON_KERNELS = {
+    # counter: (source, the TPU kernel it replaces)
+    "k_copy": (_KRON, "benchmarks/pallas_diag.py:73"),
+    "k_scale": (_KRON, "benchmarks/pallas_diag.py:77"),
+    "k_mm1": (_KRON, "benchmarks/pallas_diag.py:81"),
+    "k_mm2": (_KRON, "benchmarks/pallas_diag.py:88"),
+    "k_full": (_KRON, "benchmarks/pallas_diag.py:98"),
+    "emit_full": (_PIPE, "benchmarks/pallas_diag.py:120"),
+    "hbm_copy": (_COPY, "benchmarks/pallas_diag.py:269"),
+    "copy_2d": (_COPY, "benchmarks/pallas_diag.py:296"),
+    "emit_copy": (_PIPE, "benchmarks/pallas_diag.py:322"),
+    "k_cur": (_KRON, "benchmarks/pallas_tune.py:47"),
+    "k_swap": (_KRON, "benchmarks/pallas_tune.py:57"),
+    "k_flat": (_KRON, "benchmarks/pallas_tune.py:69"),
+    "k_onecast": (_KRON, "benchmarks/pallas_tune.py:85"),
+}
+KRON_B = 512
+KRON_TB = 4  # 128 row tiles of 4 rows: one block for most of the 132 SMs
+
+
+def _kron_operands(dev, gen, D):
+    s1, u, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(3))
+    return s1, u, s2, torch.randn(KRON_B, D, device=dev, generator=gen)
+
+
+def kron_vs_plain(kc, fc, dev, seed) -> dict:
+    """Max |kernel - plain| of each large-D kernel; raises past its
+    tolerance (kc.tol, normalized by max |plain|), and for the full
+    product past kc.BF16_TOL against the fp32 product."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    max_abs = dict.fromkeys(KRON_KERNELS, 0.0)
+    log(f"large-D kernels vs plain (B={KRON_B}; max |kernel - plain| / max |plain|, "
+        f"and for the full product vs the fp32 product, <= {kc.BF16_TOL:.2e}):")
+    for D in (128, 1024, 8192, 16384):
+        s1, u, s2, x = _kron_operands(dev, gen, D)
+        fp32 = fc.fused_plain(s1, u, s2, x, False)[0]
+        for tb in (KRON_TB, 32):
+            errs = {}
+            for name in KRON_KERNELS:
+                y = kc.VARIANTS[name](s1, u, s2, x, tb)
+                ref = kc.plain(name, s1, u, s2, x)
+                torch.cuda.synchronize()
+                err = rel_err(y, ref)
+                check(err <= kc.tol(name, D), f"{name} at D={D} tb={tb}: {err:.3e} > {kc.tol(name, D)}")
+                max_abs[name] = max(max_abs[name], (y - ref).abs().max().item())
+                errs[name] = err
+                if name in kc.FULL_PRODUCT:
+                    e32 = rel_err(y, fp32)
+                    check(e32 <= kc.BF16_TOL, f"{name} at D={D} tb={tb} vs fp32: {e32:.3e}")
+                    errs[name + "/fp32"] = e32
+            log(f"  D={D:<6} tb={tb:<3} " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+    return max_abs
+
+
+def kron_times(kc, dev, seed) -> dict:
+    """(kernel ms, plain ms) of each large-D kernel at D=16384, B=512: device
+    time of 20 calls in one CUDA graph (the benchmarks' time_us), so the
+    wrappers' host cost does not hide the copies' device time."""
+    from whvi_tpu_torch.bench.common import time_us
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s1, u, s2, x = _kron_operands(dev, gen, 16384)
+    times = {}
+    log(f"large-D times at D=16384, B={KRON_B}, TB={KRON_TB} (device ms per call, 20 calls "
+        "in a CUDA graph, median of 5 replays, plain/kernel/kernel/plain):")
+    for name, fn in kc.VARIANTS.items():
+        kernel = lambda: fn(s1, u, s2, x, KRON_TB)  # noqa: E731
+        plain = lambda: kc.plain(name, s1, u, s2, x)  # noqa: E731
+        p1, k1, k2, p2 = (time_us(f, 20) / 1e3 for f in (plain, kernel, kernel, plain))
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        log(f"  {name:<10} kernel {times[name][0]:.4f}  plain {times[name][1]:.4f}")
+    return times
+
+
+def run_diag_path(kc, seed) -> dict:
+    """The large-D diagnosis path through its entry points, at their
+    default sizes with few iterations; returns the launch counts."""
+    from whvi_tpu_torch.bench import kernel_check, kernel_diag, kernel_tune
+
+    s = ["--seed", str(seed)]
+    log("diagnosis path: kernel_diag, kernel_diag --floors, kernel_tune, kernel_check")
+    kc.reset_launches()
+    diag = kernel_diag.main(["--iters", "3", *s])
+    floors = kernel_diag.main(["--floors", "--iters", "3", *s])
+    tune = kernel_tune.main(["--iters", "3", *s])
+    kcheck = kernel_check.main(["--iters", "5", *s])
+    torch.cuda.synchronize()
+    launches = dict(kc.LAUNCHES)
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    for name in KRON_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the diagnosis path")
+    for row in diag + floors + tune:
+        check(math.isfinite(row["us"]) and row["us"] > 0, f"bad time in {row}")
+        if "rel_err" in row:
+            check(row["rel_err"] <= kc.BF16_TOL, f"product off the fp32 product: {row}")
+    check(len(diag) == 2 + 3 * 6 and len(floors) == 1 + 2 * 3 + 1 and len(tune) == 2 * (1 + 3 * 4 + 1),
+          "an entry point left out variants")
+    for row in kcheck:
+        check(row["rel_err_fp32"] <= KERNEL_TOL, f"K1 off the fp32 plain product: {row}")
+        check(row["rel_err_bf16"] <= kc.BF16_TOL, f"K1 off the bf16 Kronecker path: {row}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -349,12 +452,16 @@ def main() -> int:
 
     smi = probe()
     from whvi_tpu_torch.ops import fwht_cuda as fc
+    from whvi_tpu_torch.ops import kron_cuda as kc
 
     dev = torch.device("cuda", 0)
     build(fc)
     max_abs = kernels_vs_plain(fc, dev, args.seed)
     times = kernel_times(fc, dev, args.seed)
     launches = run_slice(fc, dev, args.seed)
+    max_abs.update(kron_vs_plain(kc, fc, dev, args.seed))
+    times.update(kron_times(kc, dev, args.seed))
+    launches.update(run_diag_path(kc, args.seed))
 
     kernels = [
         {
@@ -367,7 +474,7 @@ def main() -> int:
             "ms": times[name][0],
             "plain_ms": times[name][1],
         }
-        for name, (source, replaces) in KERNELS.items()
+        for name, (source, replaces) in {**KERNELS, **KRON_KERNELS}.items()
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

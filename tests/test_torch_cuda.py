@@ -7,15 +7,17 @@ out:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: ``max|kernel - plain| / max|plain| <= 1e-5`` (fp32; the
-butterflies add in the plain version's order, the backward's reductions
-sum in another).
+Tolerance of the flagship kernels: ``max|kernel - plain| / max|plain| <=
+1e-5`` (fp32; the butterflies add in the plain version's order, the
+backward's reductions sum in another). The large-D kernels' tolerances
+are stated below.
 """
 
 import pytest
 import torch
 
 from whvi_tpu_torch.ops import fwht_cuda as fc
+from whvi_tpu_torch.ops import kron_cuda as kc
 from whvi_tpu_torch.ops.whvi_op import whvi_mul
 
 pytestmark = pytest.mark.cuda
@@ -114,3 +116,73 @@ def test_mixed_devices_and_strided_rows_raise(dev):
         fc.fused_raw(d, d, d, torch.ones(16, 3, device=dev).t(), False)
     with pytest.raises(ValueError):
         fc.fwht_raw(torch.ones(16, 3, device=dev).t())
+
+
+# ------------------------------------------ the large-D diagnosis kernels
+#
+# Tolerances: kc.tol(name, D) against the plain version (0 for the
+# copies and the scale; the bf16 roundings of the products may land on
+# the other side of a rounding boundary when the fp32 sums run in another
+# order), kc.BF16_TOL for the full product against the fp32 whvi_mul.
+
+# (D, B, tb): every a = D / 128 regime, groups that the tile fills, part
+# fills (tb not a multiple of the 16384 / D rows a group holds) or
+# exceeds, and one block's tile of the whole batch
+KRON_SHAPES = [
+    (128, 320, 160),
+    (256, 64, 8),
+    (1024, 48, 24),
+    (2048, 32, 1),
+    (8192, 16, 4),
+    (16384, 8, 2),
+    (16384, 4, 4),
+]
+
+
+def _kron_operands(dev, D, B, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s1, u, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(3))
+    return s1, u, s2, torch.randn(B, D, device=dev, generator=gen)
+
+
+@pytest.mark.parametrize("shape", KRON_SHAPES, ids=lambda s: f"D{s[0]}-B{s[1]}-tb{s[2]}")
+@pytest.mark.parametrize("name", list(kc.VARIANTS))
+def test_kron_kernel_matches_plain(dev, name, shape):
+    D, B, tb = shape
+    s1, u, s2, x = _kron_operands(dev, D, B)
+    kc.reset_launches()
+    y = kc.VARIANTS[name](s1, u, s2, x, tb)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES[name] == 1 and sum(kc.LAUNCHES.values()) == 1
+    ref = kc.plain(name, s1, u, s2, x)
+    assert y.shape == ref.shape == x.shape and y.is_contiguous()
+    assert rel_err(y, ref) <= kc.tol(name, D)
+    if name in kc.FULL_PRODUCT:
+        assert rel_err(y, fc.fused_plain(s1, u, s2, x, False)[0]) <= kc.BF16_TOL
+
+
+def test_kron_kernels_refuse_what_they_do_not_take(dev):
+    s1, u, s2, x = _kron_operands(dev, 256, 12)
+    d64 = torch.ones(64, device=dev)
+    bad = [
+        ((s1, u, s2, x, 5), ValueError),  # B % tb
+        ((s1, u, s2, x, 0), ValueError),
+        ((d64, d64, d64, torch.ones(4, 64, device=dev), 2), ValueError),  # D < 128
+        ((s1, u, s2, torch.ones(4, 384, device=dev), 2), ValueError),  # not 2^k
+        ((s1, u, s2, x.double(), 4), TypeError),
+        ((s1, u, s2, torch.ones(512, 12, device=dev).t(), 4), ValueError),
+        ((s1, u, s2, x[:, None], 4), ValueError),
+    ]
+    kc.reset_launches()
+    for name, fn in kc.VARIANTS.items():
+        for args, err in bad:
+            if name == "hbm_copy" and args[4] in (5, 0):
+                continue  # untiled: tb is not read
+            with pytest.raises(err):
+                fn(*args)
+        if name not in ("hbm_copy", "copy_2d", "emit_copy"):
+            with pytest.raises(ValueError):
+                fn(s1[:128], u, s2, x, 4)  # a diagonal of the wrong length
+            with pytest.raises(ValueError):
+                fn(s1, u, s2.cpu(), x, 4)  # mixed devices
+    assert all(v == 0 for v in kc.LAUNCHES.values())

@@ -1,0 +1,87 @@
+"""What the kernel benchmarks share: seeded operands, the header line,
+rates and errors."""
+
+from __future__ import annotations
+
+import json
+import time
+
+import numpy as np
+import torch
+
+from whvi_tpu_torch.utils.profiling import H100_HBM_GBPS, card, cuda_ms, require_cuda
+
+__all__ = ["emit", "header", "operands", "rates", "rel_err", "time_us"]
+
+WARM_S = 0.2  # seconds of graph replays before timing
+
+
+def operands(D: int, B: int, seed: int = 0):
+    """``(s1, u, s2, x)`` on the card: standard normal ``(D,)`` diagonals
+    and a ``(B, D)`` input, float32, made with numpy from ``seed``."""
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(D) for _ in range(3)] + [rng.randn(B, D)]
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays]
+
+
+def rel_err(got, want) -> float:
+    """``max |got - want| / max |want|``; the shapes must agree."""
+    if got.shape != want.shape:
+        raise ValueError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def time_us(fn, iters: int) -> float:
+    """Device microseconds per call of ``fn``.
+
+    ``iters`` calls are captured into one CUDA graph and the graph is
+    timed (CUDA events, median of 5 replays), so the wrappers' host cost,
+    tens of microseconds a call, does not stand in for the kernels' time.
+    The graph first replays for WARM_S seconds: an idle card sits at a
+    low clock (345 MHz on the H100 before a run). What ``fn`` reads must
+    stay alive while the graph is in use.
+    """
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds, loads and warms off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    end = time.perf_counter() + WARM_S
+    while time.perf_counter() < end:
+        graph.replay()
+        torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps=1, rounds=5) * 1e3 / iters
+
+
+def rates(B: int, D: int, us: float) -> dict:
+    """The streaming rate of a call that reads x and writes y once
+    (``2 * B * D * 4`` bytes), and its share of the H100's 3.35 TB/s."""
+    gbps = 2 * B * D * 4 / (us * 1e-6) / 1e9
+    return {"GBps": gbps, "hbm_frac": gbps / H100_HBM_GBPS}
+
+
+def emit(row: dict) -> dict:
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def header(tool: str) -> dict:
+    """Refuse to run without a card, turn TF32 off (the plain versions'
+    fp32 matmuls stay fp32), and print and return the first line."""
+    require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return emit({
+        "tool": tool,
+        "card": card(),
+        "device": torch.cuda.get_device_name(0),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "allow_tf32": False,
+    })

@@ -17,10 +17,12 @@ go to the plain PyTorch version beside it (:func:`fused_plain`,
 :func:`fwht_plain`); CUDA tensors launch the kernel or raise. There is
 no fallback from one to the other.
 
-Build: at the first launch, ``nvcc`` compiles ``csrc/*.cu`` for
-``sm_90a`` into a shared library with a plain C interface under
-``build/whvi_tpu_torch/`` beside the package, and ``ctypes`` loads it.
-Nothing here is imported or built while the module is imported.
+Build: at the first launch, ``nvcc`` compiles each of ``SOURCES`` for
+``sm_90a``, all at once, and links them into one shared library with a
+plain C interface under ``build/whvi_tpu_torch/`` beside the package,
+which ``ctypes`` loads. The library also holds the kernels of the
+large-D diagnosis path (:mod:`whvi_tpu_torch.ops.kron_cuda`). Nothing
+here is imported or built while the module is imported.
 
 The autograd Functions are device-agnostic: their forward and backward
 call the raw wrappers, so on the CPU the backward algebra (the s1/s2 swap,
@@ -64,14 +66,13 @@ MAX_D = 16384
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("whvi_fused.cu", "fwht.cu")
-_HEADERS = ("fwht_core.cuh",)
+SOURCES = ("whvi_fused.cu", "fwht.cu", "whvi_kron.cu", "whvi_pipe.cu", "copy_floor.cu")
+_HEADERS = ("fwht_core.cuh", "kron_core.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "whvi_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libwhvi_kernels.so")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Kernel launches per wrapper since the last reset_launches().
@@ -108,26 +109,50 @@ def _nvcc() -> str:
     return path
 
 
-def build_kernels() -> str:
-    """Compile ``csrc/*.cu`` into :data:`LIB_PATH`; return nvcc's report
-    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = os.path.join(BUILD_DIR, f".libwhvi_kernels.{os.getpid()}.so")
-    cmd = [
-        _nvcc(),
-        *NVCC_FLAGS,
-        "-o",
-        tmp,
-        *(os.path.join(CSRC, s) for s in SOURCES),
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; return their output, or raise with the
+    output of those that failed. Every process has ended on return."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
     ]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [
+        f"exit code {p.returncode}: {' '.join(c)}\n{out}"
+        for c, p, out in zip(cmds, procs, outs)
+        if p.returncode != 0
+    ]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(outs)
+
+
+def build_kernels() -> str:
+    """Compile ``SOURCES`` (one nvcc each, all started together) and link
+    them into :data:`LIB_PATH`; return nvcc's report (``-Xptxas -v``:
+    registers, shared memory and spills per kernel)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
+    tmp = os.path.join(BUILD_DIR, f".libwhvi_kernels.{tag}.so")
+    try:
+        report = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+            for s, o in zip(SOURCES, objs)
+        ])
+        report += _run_all([[nvcc, *_ARCH, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, LIB_PATH)  # atomic: no process loads a half-written file
-    return proc.stdout + proc.stderr
+    return report
 
 
 def _stale() -> bool:
@@ -159,6 +184,16 @@ def load_library() -> ctypes.CDLL:
             lib.whvi_fused_f32.restype = ctypes.c_int
             lib.fwht_f32.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_int, vp]
             lib.fwht_f32.restype = ctypes.c_int
+            i32, i64 = ctypes.c_int, ctypes.c_int64
+            # the kernels of ops/kron_cuda.py
+            for name, args in (
+                ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
+                ("kron_pipe_f32", [vp] * 5 + [i64, i32, i32, i32, vp]),
+                ("copy_hbm_f32", [vp, vp, i64, vp]),
+                ("copy_2d_f32", [vp, vp, i64, i32, i32, vp]),
+            ):
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -5,18 +5,25 @@ Counterpart of :mod:`whvi_tpu.ops.hadamard` with the same conventions:
 matrix, ``H[i, j] = (-1)^popcount(i & j)``, ``H = H^T`` and
 ``H @ H = D * I``; ``fwht(x)`` applies ``H_D`` along the last axis.
 
-One precision mode is ported: true fp32 (``"fp32"``). The butterfly is
-adds and subtracts only, so nothing is rounded below the input dtype.
-The TPU's ``default``/``highest``/``bf16`` modes describe MXU operand
-rounding and have no counterpart here.
+Two transforms:
 
-:func:`fwht` is the plain version of the CUDA FWHT kernel
-(``ops/fwht_cuda.py``) and runs the same radix-2 stages in the same
-order.
+- :func:`fwht`, radix-2 butterflies: adds and subtracts only, so nothing
+  is rounded below the input dtype. It is the plain version of the CUDA
+  FWHT kernels (``ops/fwht_cuda.py``) and runs the same stages in the
+  same order.
+- :func:`fwht_kron`, the Kronecker-factor formulation
+  ``H_D = H_f0 (x) H_f1 (x) ...`` with factors of at most 128, as
+  ``whvi_tpu.ops.hadamard.fwht_kron``. Its precision modes are named by
+  what is multiplied: ``"fp32"`` (no operand rounding below the input
+  dtype; the JAX ``"highest"`` mode, which is also what JAX ``"default"``
+  is on a CPU) and ``"bf16"`` (the operand is rounded to bf16 before each
+  factor contraction; H is +-1 and exact; fp32 accumulation; one final
+  cast).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -26,9 +33,15 @@ __all__ = [
     "next_pow_of_2",
     "build_H",
     "build_H_rows",
+    "factor_H",
     "fwht",
+    "fwht_factors",
+    "fwht_kron",
     "kl_diag_normal",
+    "round_bf16",
 ]
+
+PRECISIONS = ("fp32", "bf16")
 
 
 def is_pow_of_2(n: int) -> bool:
@@ -88,6 +101,65 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
         x = torch.stack((a + b, a - b), dim=2)
         h *= 2
     return x.reshape(shape)
+
+
+def fwht_factors(D: int, max_factor: int = 128) -> tuple[int, ...]:
+    """Kronecker factorization of D into powers of two, each <= max_factor,
+    the first factor indexing the most-significant bits
+    (``H_{2^n} = H_2 (x) H_{2^{n-1}}``)."""
+    if not is_pow_of_2(D):
+        raise ValueError(f"FWHT length must be a power of 2, got {D}")
+    if not is_pow_of_2(max_factor):
+        raise ValueError("max_factor must be a power of 2")
+    factors = []
+    rem = D
+    while rem > 1:
+        f = min(rem, max_factor)
+        factors.append(f)
+        rem //= f
+    return tuple(factors) if factors else (1,)
+
+
+@functools.lru_cache(maxsize=64)
+def factor_H(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``H_n`` for a Kronecker factor, built once per (n, dtype, device):
+    :func:`build_H` synchronizes with the device, which a transform on
+    the card (or one captured into a CUDA graph) must not. Shared: do not
+    modify it in place."""
+    return build_H(n, dtype, device)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (nearest, ties to even), in ``x``'s dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def fwht_kron(
+    x: torch.Tensor, max_factor: int = 128, precision: str = "fp32"
+) -> torch.Tensor:
+    """FWHT along the last axis as Kronecker-factor contractions.
+
+    ``(..., D)`` is viewed as ``(..., f0, f1, ...)`` and each factor axis
+    is contracted with the dense ``H_fi``, most-significant first. The
+    intermediate stays in the accumulation dtype (float32, or the input's
+    if wider) across the chain, with one final cast. ``"bf16"`` rounds the
+    operand of every contraction to bfloat16 (see the module docstring).
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    D = x.shape[-1]
+    factors = fwht_factors(D, max_factor)
+    dtype = x.dtype
+    acc = dtype if dtype.itemsize > 4 else torch.float32
+    batch = x.shape[:-1]
+    t = x.to(acc).reshape(*batch, *factors)
+    nb = len(batch)
+    for i, f in enumerate(factors):
+        if precision == "bf16":
+            t = round_bf16(t)
+        H = factor_H(f, acc, x.device)
+        t = torch.movedim(torch.movedim(t, nb + i, -1) @ H, -1, nb + i)
+    return t.reshape(*batch, D).to(dtype)
 
 
 def kl_diag_normal(mu_q, sigma_q, mu_p, sigma_p) -> torch.Tensor:
