@@ -31,6 +31,22 @@ Phases, each of which raises on failure:
    their default sizes with few iterations; every one of the 13 kernels
    must have been launched by that run, and the entry points' own error
    columns are checked.
+6. The large-D scaling path in K1-K3's bf16 mode (the Pallas kernels'
+   default precision="bf16"): (a) each bf16 kernel against its bf16 plain
+   version (y, residuals, and the backward through autograd against the
+   plain backward, vjp_plain), at D = 4, 64, 1024, 2048, 4096, 16384 with
+   (D,) diagonals and at the scaling path's shapes, u (8, 1, D) over x
+   (256, D) expanded to (8, 256, D), D = 1024, 4096; tolerance
+   fwht_cuda.bf16_tol, 2^-6/sqrt(f), f the last contraction after the last
+   rounding; y also against the fp32 product (kron_cuda.BF16_TOL). (b)
+   Device times (CUDA graph replay) of each bf16 kernel, its plain version
+   and the fp32 kernel at D = 4096, 2048 rows. (c) The path itself:
+   run_scaling.main at --sizes 4096 (its 50 steps a run: fewer are within
+   the host clock's noise), train and --predict, fp32 and bf16; its rows
+   must be finite, and the three bf16 kernels and K4 must have been
+   launched by that run. Then the bf16 scaling net on the
+   card against a CPU copy on the same weights and noise (loss, MNLL and
+   predictions within kron_cuda.BF16_TOL; the gradients' error printed).
 
 Before the last line it prints one JSON object of the kernels and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -58,13 +74,19 @@ SLICE_TOL = 1e-5  # loss and predictions, card (kernels) vs CPU (plain)
 # with cancellation between rows.
 SLICE_GRAD_TOL = 1e-4
 
+_FUSED = "whvi_tpu_torch/csrc/whvi_fused.cu"
 KERNELS = {
-    # counter: (source, the TPU kernel it replaces)
-    "fused_y": ("whvi_tpu_torch/csrc/whvi_fused.cu", "whvi_tpu/ops/fwht_pallas.py:124"),
-    "fused_res": ("whvi_tpu_torch/csrc/whvi_fused.cu", "whvi_tpu/ops/fwht_pallas.py:113"),
-    "fused_bwd": ("whvi_tpu_torch/csrc/whvi_fused.cu", "whvi_tpu/ops/fwht_pallas.py:403"),
+    # counter (fwht_cuda.LAUNCHES): (source, the TPU kernel it replaces)
+    "fused_y": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
+    "fused_res": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
+    "fused_bwd": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
     "fwht": ("whvi_tpu_torch/csrc/fwht.cu", "whvi_tpu/ops/fwht_pallas.py:191"),
+    "fused_y_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
+    "fused_res_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
+    "fused_bwd_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
 }
+FLAGSHIP_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")  # phases 3-4
+BF16_KERNELS = ("fused_y_bf16", "fused_res_bf16", "fused_bwd_bf16")  # phase 6
 
 
 def log(*parts) -> None:
@@ -201,7 +223,7 @@ def kernels_vs_plain(fc, dev, seed) -> dict:
     for D in (2, 4, 16, 128, 1024, 2048, 16384):
         compare_fused(fc, dev, gen, "(D,) diagonals, 64 rows", D, (), (), (64,))
         compare_fwht(fc, dev, gen, "fwht 64 rows", (64, D))
-    max_abs = dict.fromkeys(KERNELS, 0.0)
+    max_abs = dict.fromkeys(FLAGSHIP_KERNELS, 0.0)
     for label, D, s_lead, u_lead, x_lead in FLAGSHIP_SHAPES:
         for k, v in compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead).items():
             max_abs[k] = max(max_abs[k], v)
@@ -301,7 +323,7 @@ def run_slice(fc, dev, seed) -> dict:
         f"({warm_epochs} epochs in {warm_s:.3f} s)")
     log("  eval: " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
     log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
-    for name in KERNELS:
+    for name in FLAGSHIP_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the slice")
     check(all(math.isfinite(e["loss"]) for e in logs), "non-finite training loss")
     check(logs[-1]["loss"] < logs[0]["loss"], "the loss did not fall")
@@ -445,6 +467,178 @@ def run_diag_path(kc, seed) -> dict:
     return launches
 
 
+# ---------------------------------------------- 6. the large-D scaling path
+
+SCALING_D, SCALING_S, SCALING_B = 4096, 8, 256  # run_scaling.py's cell
+
+
+def compare_bf16(fc, kc, dev, gen, label, D, u_lead, x_rows, samples=None) -> dict:
+    """Errors of K1-K3 in bf16 mode against the bf16 plain version on one
+    shape: (D,) s1 and s2, u (*u_lead, D), x (x_rows, D), expanded to
+    (samples, x_rows, D) when samples is given. Tolerances fc.bf16_tol
+    (the first transform's for i1 and the u gradient); y also within
+    kc.BF16_TOL of the fp32 product. Returns the max abs errors."""
+    def randn(*lead):
+        return torch.randn(*lead, D, device=dev, generator=gen)
+
+    s1, s2, u, x0 = randn(), randn(), randn(*u_lead), randn(x_rows)
+    x = x0 if samples is None else x0.expand(samples, x_rows, D)
+    tol1, tol2 = fc.bf16_tol(D, transform=1), fc.bf16_tol(D)
+    errs, abs_errs = {}, {}
+
+    def record(name, triples):
+        for got, want, tol in triples:
+            err = rel_err(got, want)
+            check(err <= tol, f"{name} at {label} D={D}: error {err:.3e} > {tol:.3e}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            abs_errs[name] = max(abs_errs.get(name, 0.0), (got - want).abs().max().item())
+
+    y_ref, i1_ref, i2_ref = fc.fused_plain(s1, u, s2, x, True, "bf16")
+    y = fc.fused_raw(s1, u, s2, x, False, "bf16")[0]
+    record("fused_y_bf16", [(y, y_ref, tol2)])
+    res = fc.fused_raw(s1, u, s2, x, True, "bf16")
+    record("fused_res_bf16", zip(res, (y_ref, i1_ref, i2_ref), (tol2, tol1, tol2)))
+    leaves = [a.clone().requires_grad_() for a in (s1, u, s2, x0)]
+    x_leaf = leaves[3] if samples is None else leaves[3].expand(samples, x_rows, D)
+    out = fc.WhviMulFunction.apply(*leaves[:3], x_leaf, "bf16")
+    g = torch.randn(out.shape, device=dev, generator=gen)
+    grads = torch.autograd.grad(out, leaves, g)
+    ref = [r.sum_to_size(a.shape) for r, a in zip(fc.vjp_plain(s1, u, s2, x, g, "bf16"), grads)]
+    record("fused_bwd_bf16", zip(grads, ref, (tol2, tol1, tol2, tol2)))
+    e32 = rel_err(y, fc.fused_plain(s1, u, s2, x, False)[0])
+    check(e32 <= kc.BF16_TOL, f"bf16 y at {label} D={D} vs the fp32 product: {e32:.3e}")
+    torch.cuda.synchronize()
+    log(f"  {label:<30} D={D:<6} " + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+        + f" y/fp32={e32:.2e}")
+    return abs_errs
+
+
+def bf16_vs_plain(fc, kc, dev, seed) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log("bf16 kernels vs plain (max |kernel - plain| / max |plain| <= 2^-6/sqrt(f)), "
+        f"y vs the fp32 product <= {kc.BF16_TOL:.2e}:")
+    max_abs = dict.fromkeys(BF16_KERNELS, 0.0)
+    shapes = [("(D,) diagonals, 64 rows", D, (), 64, None) for D in (4, 64, 1024, 2048, 4096, 16384)]
+    shapes += [
+        (f"u ({SCALING_S},1,D), x ({SCALING_S},{SCALING_B},D)", D, (SCALING_S, 1), SCALING_B, SCALING_S)
+        for D in (1024, SCALING_D)
+    ]
+    for label, D, u_lead, x_rows, samples in shapes:
+        for k, v in compare_bf16(fc, kc, dev, gen, label, D, u_lead, x_rows, samples).items():
+            max_abs[k] = max(max_abs[k], v)
+    return max_abs
+
+
+def bf16_times(fc, dev, seed) -> dict:
+    """(kernel ms, plain ms) of each bf16 kernel at the scaling path's shape
+    (D=4096, u (8,1,D), x (8,256,D) expanded: 2048 rows): device time of 20
+    calls in one CUDA graph. The fp32 kernel's time at that shape is
+    logged beside it."""
+    from whvi_tpu_torch.bench.common import time_us
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D, S, B = SCALING_D, SCALING_S, SCALING_B
+    s1, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(2))
+    u = torch.randn(S, 1, D, device=dev, generator=gen)
+    x = torch.randn(B, D, device=dev, generator=gen).expand(S, B, D)
+    g = torch.randn(S, B, D, device=dev, generator=gen)
+    times = {}
+    log(f"times at D={D}, u ({S},1,D), x ({S},{B},D) (device ms per call, 20 calls in a "
+        "CUDA graph, median of 5 replays, plain/kernel/kernel/plain):")
+    for precision in ("bf16", "fp32"):
+        for name, kernel, plain in (
+            ("fused_y", lambda: fc.fused_raw(s1, u, s2, x, False, precision),
+             lambda: fc.fused_plain(s1, u, s2, x, False, precision)),
+            ("fused_res", lambda: fc.fused_raw(s1, u, s2, x, True, precision),
+             lambda: fc.fused_plain(s1, u, s2, x, True, precision)),
+            ("fused_bwd", lambda: fc.fused_bwd_raw(s1, u, s2, g, precision),
+             lambda: fc.fused_plain(s2, u, s1, g, True, precision)),
+        ):
+            p1, k1, k2, p2 = (time_us(f, 20) / 1e3 for f in (plain, kernel, kernel, plain))
+            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            log(f"  {precision} {name:<10} kernel {k_ms:.4f}  plain {p_ms:.4f}")
+            if precision == "bf16":
+                times[name + "_bf16"] = (k_ms, p_ms)
+    return times
+
+
+def scaling_net_vs_cpu(dev, seed) -> None:
+    """The bf16 scaling net on the card (kernels) against a CPU copy (plain
+    versions) on the same weights, data and noise: loss, MNLL and
+    predictions within kron_cuda.BF16_TOL. The kernels sum in butterfly
+    order and the plain version in matmul order, and the elementwise ops
+    differ in the last fp32 bit, so a rounding may flip. A flip perturbs
+    its row downstream, the next layer's roundings of that row flip by the
+    thousand, and within two layers the two nets differ as independent
+    roundings would, about as far as the bf16 product from the fp32 one (a
+    one-ulp change of the noise alone moves the predictions by 2.3e-3 to
+    2.6e-3 on the CPU). The gradients, sums over 2048 rows that mostly
+    cancel, move by up to 8.6e-3 under that one-ulp change: their error is
+    printed, not held."""
+    from whvi_tpu_torch.experiments import run_scaling
+    from whvi_tpu_torch.models import WHVILinear
+    from whvi_tpu_torch.ops import kron_cuda as kc
+    from whvi_tpu_torch.ops import set_whvi_mul_precision
+
+    D, S, B = SCALING_D, SCALING_S, SCALING_B
+    net = run_scaling.build_net(D, S, dev)
+    net.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    cpu_net = copy.deepcopy(net).cpu()
+    X, y = run_scaling.data(D, B, seed, "cpu")
+    rng = np.random.RandomState(seed + 3)
+    eps = [
+        torch.from_numpy(rng.randn(S, 1, *l.matrix.g_mu.shape).astype(np.float32))
+        if isinstance(l, WHVILinear) else None
+        for l in cpu_net.layers
+    ]
+    results = []
+    set_whvi_mul_precision("bf16")
+    try:
+        for model, d in ((net, dev), (cpu_net, torch.device("cpu"))):
+            e = [None if a is None else a.to(d) for a in eps]
+            loss, aux = model.loss(X.to(d), y.to(d), B, eps=e)
+            loss.backward()
+            with torch.no_grad():
+                pred = model.predict(X.to(d), S, eps=e)
+            grads = [p.grad.detach().cpu() for p in model.parameters()]
+            results.append((loss.detach().cpu(), aux["mnll"].detach().cpu(), pred.cpu(), grads))
+    finally:
+        set_whvi_mul_precision("fp32")
+    (l_k, m_k, y_k, g_k), (l_p, m_p, y_p, g_p) = results
+    errs = {"loss": rel_err(l_k, l_p), "mnll": rel_err(m_k, m_p), "predictions": rel_err(y_k, y_p)}
+    grad_err = max(rel_err(a, b) for a, b in zip(g_k, g_p))
+    log(f"  bf16 net D={D} card vs CPU on the same noise: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (<= {kc.BF16_TOL:.2e}); gradients {grad_err:.2e} (not held)")
+    check(max(errs.values()) <= kc.BF16_TOL, "the bf16 scaling net disagrees with its CPU copy")
+
+
+def run_scaling_path(fc, dev, seed) -> dict:
+    """run_scaling at D=4096, train and predict, fp32 and bf16, through its
+    entry point; returns the launch counts of that run."""
+    from whvi_tpu_torch.experiments import run_scaling
+
+    log(f"scaling path: run_scaling --sizes {SCALING_D}, train and predict, fp32 and bf16")
+    fc.reset_launches()
+    rows = []
+    for precision in ("fp32", "bf16"):
+        for predict in ([], ["--predict"]):
+            rows += run_scaling.main([
+                "--sizes", str(SCALING_D), "--seed", str(seed),
+                "--precision", precision, *predict,
+            ])
+    torch.cuda.synchronize()
+    launches = dict(fc.LAUNCHES)
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(len(rows) == 4, f"run_scaling gave {len(rows)} rows, not 4")
+    for row in rows:
+        check(run_scaling.finite(row), f"non-finite row {row}")
+    for name in (*BF16_KERNELS, "fwht", "fused_y", "fused_res", "fused_bwd"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the scaling path")
+    scaling_net_vs_cpu(dev, seed)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -462,6 +656,10 @@ def main() -> int:
     max_abs.update(kron_vs_plain(kc, fc, dev, args.seed))
     times.update(kron_times(kc, dev, args.seed))
     launches.update(run_diag_path(kc, args.seed))
+    max_abs.update(bf16_vs_plain(fc, kc, dev, args.seed))
+    times.update(bf16_times(fc, dev, args.seed))
+    scaling = run_scaling_path(fc, dev, args.seed)
+    launches.update({name: scaling[name] for name in BF16_KERNELS})
 
     kernels = [
         {

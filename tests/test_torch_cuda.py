@@ -9,8 +9,8 @@ out:
 
 Tolerance of the flagship kernels: ``max|kernel - plain| / max|plain| <=
 1e-5`` (fp32; the butterflies add in the plain version's order, the
-backward's reductions sum in another). The large-D kernels' tolerances
-are stated below.
+backward's reductions sum in another). The tolerances of their bf16 mode
+and of the large-D kernels are stated below.
 """
 
 import pytest
@@ -81,7 +81,7 @@ def test_whvi_mul_backward_matches_plain_autograd(dev, shape):
     y = whvi_mul(*mine)
     g = torch.randn_like(y)
     y.backward(g)
-    assert fc.LAUNCHES == {"fused_y": 0, "fused_res": 1, "fused_bwd": 1, "fwht": 0}
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res": 1, "fused_bwd": 1}
     fc.fused_plain(*ref, False)[0].backward(g)
     for a, b in zip(mine, ref):
         assert a.grad.shape == b.shape
@@ -106,6 +106,83 @@ def test_fwht_forward_and_backward_match_plain(dev, shape):
     y.backward(g)
     assert rel_err(x.grad, fc.fwht_plain(g)) <= TOL
     assert fc.LAUNCHES["fwht"] == 2
+
+
+# ------------------------------------------------ K1-K3 in their bf16 mode
+#
+# Tolerance fc.bf16_tol(D, transform): the kernel sums in butterfly order,
+# the plain version in matmul order, so a bf16 rounding may flip; the
+# first transform's (i1, the u gradient) and the second's (y, i2, the
+# others). y also within kc.BF16_TOL of the fp32 product.
+
+# (D, u lead, x rows, samples x is expanded over): (D,) diagonals over the
+# bf16 mode's range, then the scaling path's u (8, 1, D) over x (256, D)
+# expanded to (8, 256, D)
+BF16_SHAPES = [
+    *((D, (), 64, None) for D in (4, 64, 1024, 2048, 4096, 16384)),
+    (1024, (8, 1), 256, 8),
+    (4096, (8, 1), 256, 8),
+]
+
+
+def _bf16_operands(dev, D, u_lead, rows, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s1, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(2))
+    u = torch.randn(*u_lead, D, device=dev, generator=gen)
+    x0 = torch.randn(rows, D, device=dev, generator=gen)
+    return s1, u, s2, x0
+
+
+def _expand(x0, samples):
+    return x0 if samples is None else x0.expand(samples, *x0.shape)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: f"D{s[0]}-{s[1]}")
+def test_bf16_forward_matches_plain(dev, shape):
+    D, u_lead, rows, samples = shape
+    s1, u, s2, x0 = _bf16_operands(dev, *shape[:3])
+    x = _expand(x0, samples)
+    tols = (fc.bf16_tol(D), fc.bf16_tol(D, transform=1), fc.bf16_tol(D))
+    fc.reset_launches()
+    for want_residuals in (False, True):
+        got = fc.fused_raw(s1, u, s2, x, want_residuals, "bf16")
+        ref = fc.fused_plain(s1, u, s2, x, want_residuals, "bf16")
+        for a, b, tol in zip(got, ref, tols):
+            if b is None:
+                assert a is None
+            else:
+                assert a.shape == b.shape == got[0].shape and a.is_contiguous()
+                assert rel_err(a, b) <= tol
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_y_bf16": 1, "fused_res_bf16": 1}
+    fp32 = fc.fused_plain(s1, u, s2, x, False)[0]
+    assert rel_err(got[0], fp32) <= kc.BF16_TOL
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: f"D{s[0]}-{s[1]}")
+def test_bf16_backward_matches_plain(dev, shape):
+    D, u_lead, rows, samples = shape
+    ops = _bf16_operands(dev, *shape[:3], seed=1)
+    leaves = [a.clone().requires_grad_() for a in ops]
+    fc.reset_launches()
+    y = whvi_mul(*leaves[:3], _expand(leaves[3], samples), precision="bf16")
+    g = torch.randn_like(y)
+    y.backward(g)
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res_bf16": 1, "fused_bwd_bf16": 1}
+    s1, u, s2, x0 = ops
+    ref = fc.vjp_plain(s1, u, s2, _expand(x0, samples), g, "bf16")
+    for i, (leaf, r) in enumerate(zip(leaves, ref)):
+        r = r.sum_to_size(leaf.shape)
+        assert leaf.grad.shape == r.shape
+        assert rel_err(leaf.grad, r) <= fc.bf16_tol(D, transform=1 if i == 1 else 2)
+
+
+def test_bf16_mode_refuses_widths_outside_the_kernel(dev):
+    fc.reset_launches()
+    for D in (2, 2 * fc.MAX_D):
+        d = torch.ones(D, device=dev)
+        with pytest.raises(ValueError):
+            fc.fused_raw(d, d, d, torch.ones(3, D, device=dev), False, "bf16")
+    assert all(v == 0 for v in fc.LAUNCHES.values())
 
 
 def test_mixed_devices_and_strided_rows_raise(dev):

@@ -7,7 +7,9 @@
 //
 // The TPU kernels run the transform as one or two dense MXU matmuls.
 // Here it is log2 D radix-2 butterfly stages on one row in shared memory
-// (fwht_core.cuh): adds and subtracts only, true fp32, D from 2 to 16384.
+// (fwht_core.cuh): adds and subtracts only, D from 2 to 16384. Nothing is
+// rounded below fp32, which is fwht_pallas's own default,
+// precision="fp32" (H stored fp32, Precision.HIGHEST).
 //
 // What bounds it on an H100: memory. One read and one write of 4 bytes
 // per element against log2 D adds. Small D packs many rows into a block

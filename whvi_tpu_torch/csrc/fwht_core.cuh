@@ -36,14 +36,17 @@ __host__ __device__ inline int threads_per_row(int log2d) {
   return half < kBlockThreads ? half : kBlockThreads;
 }
 
-// log2d radix-2 stages over `row` in shared memory: stage s pairs element
-// j with j + 2^s inside every block of 2^(s+1), h = 1 first, the order of
-// the plain version (ops/hadamard.py:fwht). Every thread of the block
-// must call this; the caller syncs before the first stage.
+// Radix-2 stages s_begin .. s_end - 1 over `row` (2^log2d floats) in
+// shared memory: stage s pairs element j with j + 2^s inside every block
+// of 2^(s+1), h = 1 first, the order of the plain version
+// (ops/hadamard.py:fwht). Stages 0 .. k-1 apply H_(2^k) to the low k index
+// bits, stages k .. log2d-1 the Hadamard factor of the high bits, so a
+// range of stages is one Kronecker factor of H_D. Every thread of the
+// block must call this; the caller syncs before the first stage.
 __device__ __forceinline__ void butterflies(float* row, int log2d, int lane,
-                                            int tpr) {
+                                            int tpr, int s_begin, int s_end) {
   const int half = 1 << (log2d - 1);
-  for (int s = 0; s < log2d; ++s) {
+  for (int s = s_begin; s < s_end; ++s) {
     const int h = 1 << s;
     for (int p = lane; p < half; p += tpr) {
       const int i0 = ((p >> s) << (s + 1)) | (p & (h - 1));
@@ -54,6 +57,12 @@ __device__ __forceinline__ void butterflies(float* row, int log2d, int lane,
     }
     __syncthreads();
   }
+}
+
+// All log2d stages: H_D.
+__device__ __forceinline__ void butterflies(float* row, int log2d, int lane,
+                                            int tpr) {
+  butterflies(row, log2d, lane, tpr, 0, log2d);
 }
 
 }  // namespace whvi

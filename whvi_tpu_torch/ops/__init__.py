@@ -13,6 +13,8 @@ from whvi_tpu_torch.ops.hadamard import (
     next_pow_of_2,
 )
 from whvi_tpu_torch.ops.whvi_op import (
+    get_whvi_mul_precision,
+    set_whvi_mul_precision,
     whvi_dense,
     whvi_mul,
     whvi_mul_dense_oracle,
@@ -25,10 +27,12 @@ __all__ = [
     "build_H",
     "build_H_rows",
     "fwht",
+    "get_whvi_mul_precision",
     "is_pow_of_2",
     "kl_diag_normal",
     "next_pow_of_2",
     "reset_launches",
+    "set_whvi_mul_precision",
     "whvi_dense",
     "whvi_mul",
     "whvi_mul_dense_oracle",

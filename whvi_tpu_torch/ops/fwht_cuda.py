@@ -1,16 +1,35 @@
 """Hand-written CUDA kernels for the WHVI product and the FWHT.
 
 Counterpart of :mod:`whvi_tpu.ops.fwht_pallas`. Two kernels live in
-``whvi_tpu_torch/csrc/`` and are used four ways:
+``whvi_tpu_torch/csrc/`` and are used seven ways:
 
-==============  ==========================  ==================================
-launch counter  wrapper                     replaces (whvi_tpu/ops/fwht_pallas.py)
-==============  ==========================  ==================================
-``fused_y``     ``fused_raw(.., False)``    ``_kernel_1f_y`` / ``_kernel_2f_y``
-``fused_res``   ``fused_raw(.., True)``     ``_kernel_1f`` / ``_kernel_2f``
-``fused_bwd``   ``fused_bwd_raw``           the transform half of ``_bwd``
-``fwht``        ``fwht_raw``                ``_kernel_1f_t`` / ``_kernel_2f_t``
-==============  ==========================  ==================================
+===================  ====================================  ==================================
+launch counter       wrapper                               replaces (whvi_tpu/ops/fwht_pallas.py)
+===================  ====================================  ==================================
+``fused_y``          ``fused_raw(.., False)``              ``_kernel_1f_y`` / ``_kernel_2f_y``
+``fused_res``        ``fused_raw(.., True)``               ``_kernel_1f`` / ``_kernel_2f``
+``fused_bwd``        ``fused_bwd_raw``                     the transform half of ``_bwd``
+``fwht``             ``fwht_raw``                          ``_kernel_1f_t`` / ``_kernel_2f_t``
+``fused_y_bf16``     ``fused_raw(.., False, "bf16")``      ``_kernel_1f_y`` / ``_kernel_2f_y``
+``fused_res_bf16``   ``fused_raw(.., True, "bf16")``       ``_kernel_1f`` / ``_kernel_2f``
+``fused_bwd_bf16``   ``fused_bwd_raw(.., "bf16")``         the transform half of ``_bwd``
+===================  ====================================  ==================================
+
+Precision. The Pallas product takes ``precision="fp32" | "bf16"``, and
+``"bf16"`` is its default (``_fused_raw``, ``whvi_mul_pallas``) and the
+only mode the JAX main path reaches. The fused wrappers take the same
+argument (default ``"fp32"``):
+
+- ``"fp32"`` reproduces ``precision="fp32"`` (H stored fp32, the MXU at
+  ``Precision.HIGHEST``): the butterflies round nothing below fp32.
+- ``"bf16"`` reproduces ``precision="bf16"``: the operand of each factor
+  contraction is rounded to bf16 (round to nearest even) and the sums
+  stay fp32, at the Pallas bodies' points and in their order of factors
+  (:func:`fused_plain`). It takes ``4 <= D <= 16384``
+  (``pallas_supported``) and raises outside it, on every device.
+
+The bare FWHT (``fwht``) reproduces ``fwht_pallas``'s default,
+``precision="fp32"``.
 
 Each wrapper dispatches on the device of its tensors alone: CPU tensors
 go to the plain PyTorch version beside it (:func:`fused_plain`,
@@ -42,16 +61,20 @@ import threading
 import torch
 from torch.autograd.function import once_differentiable
 
+from whvi_tpu_torch.ops.hadamard import PRECISIONS, factor_H, is_pow_of_2, round_bf16
 from whvi_tpu_torch.ops.hadamard import fwht as fwht_plain
-from whvi_tpu_torch.ops.hadamard import is_pow_of_2
 
 __all__ = [
     "FwhtFunction",
     "LAUNCHES",
     "MAX_D",
+    "MIN_D_BF16",
+    "PRECISIONS",
     "WhviMulFunction",
+    "bf16_tol",
     "build_kernels",
     "check_kernel_args",
+    "check_precision",
     "fused_bwd_raw",
     "fused_plain",
     "fused_raw",
@@ -60,9 +83,13 @@ __all__ = [
     "fwht_raw",
     "load_library",
     "reset_launches",
+    "vjp_plain",
 ]
 
 MAX_D = 16384
+MIN_D_BF16 = 4  # pallas_supported: 4 <= D <= 16384
+LANE = 128  # H_128, the last Kronecker factor of the two-factor bodies
+ONE_FACTOR_MAX = 1024  # D <= 1024: one factor H_D (_factor_pair)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -76,7 +103,10 @@ NVCC_FLAGS = (
 )
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"fused_y": 0, "fused_res": 0, "fused_bwd": 0, "fwht": 0}
+LAUNCHES = {
+    "fused_y": 0, "fused_res": 0, "fused_bwd": 0, "fwht": 0,
+    "fused_y_bf16": 0, "fused_res_bf16": 0, "fused_bwd_bf16": 0,
+}
 
 
 def reset_launches() -> None:
@@ -176,6 +206,7 @@ def load_library() -> ctypes.CDLL:
             vp = ctypes.c_void_p
             lib.whvi_fused_f32.argtypes = [vp] * 7 + [
                 ctypes.c_int,
+                ctypes.c_int,
                 ctypes.c_int64,
                 ctypes.c_int,
                 ctypes.POINTER(_Geometry),
@@ -201,17 +232,95 @@ def load_library() -> ctypes.CDLL:
 # ------------------------------------------------------------ plain versions
 
 
-def fused_plain(s1, u, s2, x, want_residuals: bool):
+def check_precision(D: int, precision: str) -> None:
+    """Raise unless ``precision`` is a mode of the fused product and, for
+    ``"bf16"``, ``D`` a power of two in ``[4, 16384]`` (the range of
+    ``pallas_supported``, ``whvi_tpu/ops/fwht_pallas.py:71-72``)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if precision == "bf16" and not (is_pow_of_2(D) and MIN_D_BF16 <= D <= MAX_D):
+        raise ValueError(
+            f"the bf16 mode takes a power-of-two D in [{MIN_D_BF16}, {MAX_D}], got {D}"
+        )
+
+
+def bf16_tol(D: int, transform: int = 2) -> float:
+    """max |kernel - plain| / max |plain| of a bf16-mode output at width D,
+    kernel and plain version on the same inputs.
+
+    The kernel sums in butterfly order, the plain version in matmul order:
+    the same fp32 values in another order, so a sum can land on the other
+    side of a bf16 rounding boundary. One such flip moves that operand by
+    at most 2^-7 of it, and the contraction after it adds it into outputs
+    about sqrt(f) times larger, f its size; twice that is the tolerance,
+    2^-6 / sqrt(f) (``kron_cuda.tol``'s derivation). f is the last
+    contraction after the last rounding that can flip: H_D for D <= 1024;
+    for D >= 2048, H_128 in outputs of the second transform (``y``,
+    ``i2``; ``dx`` and the ``s1``/``s2`` gradients), H_a (``a = D / 128``)
+    in those of the first (``transform=1``: ``i1``, ``w1`` and the ``u``
+    gradient, which sums their products).
+    """
+    if D <= ONE_FACTOR_MAX:
+        f = D
+    else:
+        f = LANE if transform == 2 else D // LANE
+    return 2.0**-6 / math.sqrt(f)
+
+
+def _bf16_transform(t, high_first: bool):
+    """``H_D`` along the last axis with the Pallas bodies' bf16 roundings
+    (R, to nearest even; fp32 sums): ``H_D R(t)`` for ``D <= 1024``; for
+    ``D >= 2048`` two factor contractions, each of a rounded operand, over
+    ``t`` viewed as ``(..., a, 128)``: ``H_128`` (the low index bits) then
+    ``H_a`` (``_kernel_2f``'s first transform), or ``H_a`` first when
+    ``high_first`` (its second)."""
+    D = t.shape[-1]
+    if D <= ONE_FACTOR_MAX:
+        return round_bf16(t) @ factor_H(D, t.dtype, t.device)
+    lead, a = t.shape[:-1], D // LANE
+    Ha = factor_H(a, t.dtype, t.device)
+    Hb = factor_H(LANE, t.dtype, t.device)
+    t = t.reshape(*lead, a, LANE)
+    if high_first:
+        t = round_bf16(Ha @ round_bf16(t)) @ Hb
+    else:
+        t = Ha @ round_bf16(round_bf16(t) @ Hb)
+    return t.reshape(*lead, D)
+
+
+def fused_plain(s1, u, s2, x, want_residuals: bool, precision: str = "fp32"):
     """``(y, i1, i2)`` with ``i1 = H(s2*x)``, ``i2 = H(u*i1)``,
     ``y = s1*i2`` (``i1``/``i2`` None unless ``want_residuals``), all of
     the broadcast output shape, as the kernel writes them (``i1`` is an
-    expanded view where ``u`` or ``s1`` carry axes that ``s2*x`` lacks)."""
-    i1 = fwht_plain(s2 * x)
-    i2 = fwht_plain(u * i1)
+    expanded view where ``u`` or ``s1`` carry axes that ``s2*x`` lacks).
+
+    ``"fp32"``: radix-2 butterflies, the kernel's own adds in its order.
+    ``"bf16"``: the Pallas bodies' factor contractions of rounded operands
+    (:func:`_bf16_transform`), the second transform ``H_a`` first; ``i1``
+    and ``i2`` are the unrounded fp32 sums, in natural layout.
+    """
+    check_precision(x.shape[-1], precision)
+    if precision == "fp32":
+        i1 = fwht_plain(s2 * x)
+        i2 = fwht_plain(u * i1)
+    else:
+        i1 = _bf16_transform(s2 * x, high_first=False)
+        i2 = _bf16_transform(u * i1, high_first=True)
     y = s1 * i2
     if not want_residuals:
         return y, None, None
     return y, i1.expand(y.shape), i2.expand(y.shape)
+
+
+def vjp_plain(s1, u, s2, x, g, precision: str = "fp32"):
+    """``(ds1, du, ds2, dx)`` of ``y = s1 * H(u * H(s2 * x))`` for the
+    cotangent ``g``, each of its operand's shape: the backward of
+    :class:`WhviMulFunction` (and of the Pallas ``_bwd``) with the plain
+    product in place of the kernels. In ``"bf16"`` it rounds where the
+    kernels do, which autograd through :func:`fused_plain` does not."""
+    _, i1, i2 = fused_plain(s1, u, s2, x, True, precision)
+    dx, w1, t2 = fused_plain(s2, u, s1, g, True, precision)
+    return _input_grads((True,) * 4, s1, u, s2, x, g, i1, i2, dx, w1, t2)
 
 
 # ----------------------------------------------------------------- dispatch
@@ -267,7 +376,7 @@ def _geometry(lead: torch.Size, operands) -> _Geometry:
     return geom
 
 
-def _launch_fused(s1, u, s2, x, want_residuals: bool, counter: str):
+def _launch_fused(s1, u, s2, x, want_residuals: bool, precision: str, counter: str):
     D = x.shape[-1]
     for t in (s1, u, s2, x):
         check_kernel_args(t.shape[-1], t.dtype)
@@ -297,6 +406,7 @@ def _launch_fused(s1, u, s2, x, want_residuals: bool, counter: str):
             None if i1 is None else i1.data_ptr(),
             None if i2 is None else i2.data_ptr(),
             int(want_residuals),
+            int(precision == "bf16"),
             n_rows,
             int(math.log2(D)),
             ctypes.byref(geom),
@@ -308,29 +418,40 @@ def _launch_fused(s1, u, s2, x, want_residuals: bool, counter: str):
     return y, i1, i2
 
 
-def fused_raw(s1, u, s2, x, want_residuals: bool):
+def _counter(name: str, precision: str) -> str:
+    return name + "_bf16" if precision == "bf16" else name
+
+
+def fused_raw(s1, u, s2, x, want_residuals: bool, precision: str = "fp32"):
     """``(y, i1, i2)`` of ``y = s1 * H(u * H(s2 * x))``, no autograd.
 
     ``x (..., D)`` and the diagonals ``s1, u, s2 (..., D)`` broadcast over
     their leading axes; the outputs have the broadcast shape. K1
     (``want_residuals=False``: ``i1``, ``i2`` are None) or K2 on CUDA
-    tensors; :func:`fused_plain` on CPU tensors.
+    tensors, in ``precision`` (see the module docstring);
+    :func:`fused_plain` on CPU tensors.
     """
+    check_precision(x.shape[-1], precision)
     if _on_cpu(s1, u, s2, x):
-        return fused_plain(s1, u, s2, x, want_residuals)
+        return fused_plain(s1, u, s2, x, want_residuals, precision)
+    name = "fused_res" if want_residuals else "fused_y"
     return _launch_fused(
-        s1, u, s2, x, want_residuals, "fused_res" if want_residuals else "fused_y"
+        s1, u, s2, x, want_residuals, precision, _counter(name, precision)
     )
 
 
-def fused_bwd_raw(s1, u, s2, g):
+def fused_bwd_raw(s1, u, s2, g, precision: str = "fp32"):
     """``(dx, w1, t2)`` for the cotangent ``g`` of ``y = s1*H(u*H(s2*x))``:
     the fused product with ``s1`` and ``s2`` swapped, ``dx = s2*H(u*w1)``,
-    ``w1 = H(s1*g)``, ``t2 = H(u*w1)`` (H is self-adjoint). K3 on CUDA
+    ``w1 = H(s1*g)``, ``t2 = H(u*w1)`` (H is self-adjoint), rounded as the
+    forward in ``precision`` (as ``_bwd`` runs ``_fused_raw``). K3 on CUDA
     tensors; :func:`fused_plain` on CPU tensors."""
+    check_precision(g.shape[-1], precision)
     if _on_cpu(s1, u, s2, g):
-        return fused_plain(s2, u, s1, g, True)
-    return _launch_fused(s2, u, s1, g, True, "fused_bwd")
+        return fused_plain(s2, u, s1, g, True, precision)
+    return _launch_fused(
+        s2, u, s1, g, True, precision, _counter("fused_bwd", precision)
+    )
 
 
 def fwht_raw(x):
@@ -361,35 +482,43 @@ def fwht_raw(x):
 # ----------------------------------------------------------------- autograd
 
 
+def _input_grads(need, s1, u, s2, x, g, i1, i2, dx, w1, t2):
+    """``_bwd``'s batch reductions, each summed back to its operand's shape."""
+    return (
+        (g * i2).sum_to_size(s1.shape) if need[0] else None,
+        (w1 * i1).sum_to_size(u.shape) if need[1] else None,
+        (x * t2).sum_to_size(s2.shape) if need[2] else None,
+        dx.sum_to_size(x.shape) if need[3] else None,
+    )
+
+
 class WhviMulFunction(torch.autograd.Function):
-    """``y = s1 * H(u * H(s2 * x))`` with broadcast operands.
+    """``y = s1 * H(u * H(s2 * x))`` with broadcast operands, in
+    ``precision`` (``apply(s1, u, s2, x[, precision])``, default fp32).
 
     Forward: the fused product with residuals (K2). Backward
     (``whvi_tpu/ops/fwht_pallas.py:_bwd``): the product with ``s1`` and
-    ``s2`` swapped on the cotangent (K3), then the batch reductions
-    ``du = sum(w1*i1)``, ``ds1 = sum(g*i2)``, ``ds2 = sum(x*t2)`` and
-    ``dx`` summed back to each operand's shape. ``x`` usually broadcasts
-    over the stack axis, so its gradient is summed over it too.
+    ``s2`` swapped on the cotangent (K3), in the same precision, then the
+    batch reductions ``du = sum(w1*i1)``, ``ds1 = sum(g*i2)``,
+    ``ds2 = sum(x*t2)`` and ``dx`` summed back to each operand's shape.
+    ``x`` usually broadcasts over the stack axis, so its gradient is summed
+    over it too.
     """
 
     @staticmethod
-    def forward(ctx, s1, u, s2, x):
-        y, i1, i2 = fused_raw(s1, u, s2, x, want_residuals=True)
+    def forward(ctx, s1, u, s2, x, precision="fp32"):
+        y, i1, i2 = fused_raw(s1, u, s2, x, True, precision)
         ctx.save_for_backward(s1, u, s2, x, i1, i2)
+        ctx.precision = precision
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         s1, u, s2, x, i1, i2 = ctx.saved_tensors
-        dx, w1, t2 = fused_bwd_raw(s1, u, s2, g.contiguous())
-        need = ctx.needs_input_grad
-        return (
-            (g * i2).sum_to_size(s1.shape) if need[0] else None,
-            (w1 * i1).sum_to_size(u.shape) if need[1] else None,
-            (x * t2).sum_to_size(s2.shape) if need[2] else None,
-            dx.sum_to_size(x.shape) if need[3] else None,
-        )
+        dx, w1, t2 = fused_bwd_raw(s1, u, s2, g.contiguous(), ctx.precision)
+        grads = _input_grads(ctx.needs_input_grad, s1, u, s2, x, g, i1, i2, dx, w1, t2)
+        return (*grads, None)
 
 
 class FwhtFunction(torch.autograd.Function):

@@ -50,7 +50,7 @@ import math
 
 import torch
 
-from whvi_tpu_torch.ops.fwht_cuda import _on_cpu, load_library
+from whvi_tpu_torch.ops.fwht_cuda import LANE, _on_cpu, load_library
 from whvi_tpu_torch.ops.hadamard import factor_H, is_pow_of_2, round_bf16
 
 __all__ = [
@@ -81,8 +81,7 @@ __all__ = [
     "tol",
 ]
 
-LANE = 128  # the last Kronecker factor, H_128
-MIN_D = LANE
+MIN_D = LANE  # H_128, the last Kronecker factor
 MAX_D = 16384
 
 # stage and layout codes of csrc/whvi_kron.cu

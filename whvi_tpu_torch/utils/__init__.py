@@ -4,8 +4,12 @@ from whvi_tpu_torch.utils.profiling import (
     H100_PEAK_TF32_FLOPS,
     card,
     cuda_ms,
+    elbo_step_flops,
     fwht_flops,
+    net_train_step_flops,
     require_cuda,
+    whvi_layer_fwd_flops,
+    whvi_layer_train_flops,
     whvi_mul_flops,
 )
 
@@ -15,7 +19,11 @@ __all__ = [
     "H100_PEAK_TF32_FLOPS",
     "card",
     "cuda_ms",
+    "elbo_step_flops",
     "fwht_flops",
+    "net_train_step_flops",
     "require_cuda",
+    "whvi_layer_fwd_flops",
+    "whvi_layer_train_flops",
     "whvi_mul_flops",
 ]

@@ -2,8 +2,12 @@
 
 Counterpart of :mod:`whvi_tpu.utils.profiling`:
 
-- :func:`fwht_flops`, :func:`whvi_mul_flops`: the matmul flops of the
-  Kronecker-factor formulation, as the JAX package counts them;
+- :func:`fwht_flops`, :func:`whvi_mul_flops`, the layer and network
+  counts (:func:`whvi_layer_fwd_flops`, :func:`whvi_layer_train_flops`,
+  :func:`net_train_step_flops`, :func:`elbo_step_flops`): the matmul flops
+  of the Kronecker-factor formulation, as the JAX package counts them.
+  The butterfly kernels do other work (adds only), so a rate computed
+  from these counts is a flop-equivalent rate;
 - the H100's published peaks (NVIDIA's data sheet, SXM part, dense, at
   its 700 W limit). They are spec, not measurements, and a card set to a
   lower power limit runs below them;
@@ -22,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from whvi_tpu_torch.models.weights import SquarePow2Matrix, StackedMatrix
 from whvi_tpu_torch.ops.hadamard import fwht_factors
 
 __all__ = [
@@ -30,8 +35,12 @@ __all__ = [
     "H100_PEAK_TF32_FLOPS",
     "card",
     "cuda_ms",
+    "elbo_step_flops",
     "fwht_flops",
+    "net_train_step_flops",
     "require_cuda",
+    "whvi_layer_fwd_flops",
+    "whvi_layer_train_flops",
     "whvi_mul_flops",
 ]
 
@@ -53,6 +62,46 @@ def whvi_mul_flops(D: int, batch: int) -> int:
     """Matmul flops of one product ``s1 * H(u * H(s2 * x))`` of a
     ``(batch, D)`` operand: two FWHTs."""
     return 2 * fwht_flops(D, batch)
+
+
+def whvi_layer_fwd_flops(D: int, batch: int, stack: int = 1) -> int:
+    """Matmul flops of one forward pass through one WHVI layer, per MC
+    sample: one fused product of each of ``stack`` blocks. ``W_bar(u)`` is
+    linear in ``u``, so the LRT's mean and noise products merge into one
+    (``models/weights.py``): the LRT does not change the count, and the
+    JAX counters' ``lrt`` argument, which they ignore, is left out."""
+    return whvi_mul_flops(D, batch) * stack
+
+
+def whvi_layer_train_flops(D: int, batch: int, stack: int = 1) -> int:
+    """Matmul flops of one train step through one WHVI layer, per MC
+    sample: twice the forward (H is constant, so the backward is one more
+    product, on the swapped diagonals; the diagonals' gradients are
+    elementwise reductions)."""
+    return 2 * whvi_layer_fwd_flops(D, batch, stack)
+
+
+def net_train_step_flops(net, batch: int, n_samples: int | None = None) -> int:
+    """Matmul flops of one ELBO train step of a ``WHVINetwork``, from the
+    types of its layers' matrices: square and stacked matrices count,
+    column matrices (O(n), no matmul) and activations do not."""
+    S = net.train_samples if n_samples is None else n_samples
+    total = 0
+    for layer in net.layers:
+        m = getattr(layer, "matrix", None)
+        if isinstance(m, SquarePow2Matrix):
+            total += whvi_layer_train_flops(m.D, batch)
+        elif isinstance(m, StackedMatrix):
+            D_in, _, _, stack = m.dims
+            total += whvi_layer_train_flops(D_in, batch, stack)
+    return S * total
+
+
+def elbo_step_flops(square_dims, batch: int, n_samples: int) -> int:
+    """Matmul flops of one ELBO train step of a WHVI MLP whose Bayesian
+    layers are the square ``D x D`` of ``square_dims`` (the scaling
+    model); its column output layer is O(D) and not counted."""
+    return n_samples * sum(whvi_layer_train_flops(D, batch) for D in square_dims)
 
 
 def cuda_ms(fn: Callable[[], object], reps: int = 20, rounds: int = 7) -> float:
