@@ -23,10 +23,12 @@ Phases, each of which raises on failure:
    versions) on the same noise.
 5. The large-D kernel-diagnosis path (whvi_tpu_torch/ops/kron_cuda.py):
    each of its 13 kernels against its plain version at B=512, row tiles
-   of 4 and 32 and D = 128, 1024, 8192, 16384 (shapes first, then values;
-   tolerances kron_cuda.tol), the full-product variants also against the
-   fp32 product (BF16_TOL); device times (CUDA graph replay) of kernel and
-   plain at D=16384, B=512, TB=4. Then the path itself: the three entry
+   of 4 and 32 (and of 256, two tiles, for copy_2d and k_copy) and
+   D = 128, 1024, 8192, 16384 (shapes first, then values; tolerances
+   kron_cuda.tol), the full-product variants also against the fp32
+   product (BF16_TOL); device times (CUDA graph replay) of kernel and
+   plain at D=16384, B=512, TB=4, each with its share of HBM, and
+   copy_2d's also at TB = 64, 128, 256. Then the path itself: the three entry
    points kernel_diag (and --floors), kernel_tune and kernel_check at
    their default sizes with few iterations; every one of the 13 kernels
    must have been launched by that run, and the entry points' own error
@@ -382,6 +384,10 @@ KRON_KERNELS = {
 }
 KRON_B = 512
 KRON_TB = 4  # 128 row tiles of 4 rows: one block for most of the 132 SMs
+# the copies whose design holds at any tile: also checked at two tiles of
+# 256 rows, and copy_2d also timed at kernel_diag --floors' tiles
+WIDE_TILE_KERNELS = ("k_copy", "copy_2d")
+COPY_2D_TBS = (64, 128, 256)
 
 
 def _kron_operands(dev, gen, D):
@@ -400,9 +406,9 @@ def kron_vs_plain(kc, fc, dev, seed) -> dict:
     for D in (128, 1024, 8192, 16384):
         s1, u, s2, x = _kron_operands(dev, gen, D)
         fp32 = fc.fused_plain(s1, u, s2, x, False)[0]
-        for tb in (KRON_TB, 32):
+        for tb in (KRON_TB, 32, 256):
             errs = {}
-            for name in KRON_KERNELS:
+            for name in KRON_KERNELS if tb != 256 else WIDE_TILE_KERNELS:
                 y = kc.VARIANTS[name](s1, u, s2, x, tb)
                 ref = kc.plain(name, s1, u, s2, x)
                 torch.cuda.synchronize()
@@ -419,22 +425,31 @@ def kron_vs_plain(kc, fc, dev, seed) -> dict:
 
 
 def kron_times(kc, dev, seed) -> dict:
-    """(kernel ms, plain ms) of each large-D kernel at D=16384, B=512: device
-    time of 20 calls in one CUDA graph (the benchmarks' time_us), so the
-    wrappers' host cost does not hide the copies' device time."""
-    from whvi_tpu_torch.bench.common import time_us
+    """(kernel ms, plain ms) of each large-D kernel at D=16384, B=512,
+    TB=4: device time of 20 calls in one CUDA graph (the benchmarks'
+    time_us), so the wrappers' host cost does not hide the copies' device
+    time. Each is logged with its share of HBM (2 * B * D * 4 bytes a call
+    against 3.35 TB/s), and copy_2d also at the tiles of COPY_2D_TBS."""
+    from whvi_tpu_torch.bench.common import rates, time_us
 
+    D = 16384
     gen = torch.Generator(device=dev).manual_seed(seed)
-    s1, u, s2, x = _kron_operands(dev, gen, 16384)
+    s1, u, s2, x = _kron_operands(dev, gen, D)
     times = {}
-    log(f"large-D times at D=16384, B={KRON_B}, TB={KRON_TB} (device ms per call, 20 calls "
-        "in a CUDA graph, median of 5 replays, plain/kernel/kernel/plain):")
-    for name, fn in kc.VARIANTS.items():
-        kernel = lambda: fn(s1, u, s2, x, KRON_TB)  # noqa: E731
+    log(f"large-D times at D={D}, B={KRON_B}, TB={KRON_TB} (device ms per call, 20 calls "
+        "in a CUDA graph, median of 5 replays, plain/kernel/kernel/plain; share of HBM):")
+    runs = [(name, KRON_TB) for name in kc.VARIANTS] + [("copy_2d", tb) for tb in COPY_2D_TBS]
+    for name, tb in runs:
+        fn = kc.VARIANTS[name]
+        kernel = lambda: fn(s1, u, s2, x, tb)  # noqa: E731
         plain = lambda: kc.plain(name, s1, u, s2, x)  # noqa: E731
         p1, k1, k2, p2 = (time_us(f, 20) / 1e3 for f in (plain, kernel, kernel, plain))
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"  {name:<10} kernel {times[name][0]:.4f}  plain {times[name][1]:.4f}")
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        if tb == KRON_TB:
+            times[name] = (k_ms, p_ms)
+        k_frac, p_frac = (rates(KRON_B, D, ms * 1e3)["hbm_frac"] for ms in (k_ms, p_ms))
+        log(f"  {name:<10} TB={tb:<4} kernel {k_ms:.4f} ({k_frac:.3f})  "
+            f"plain {p_ms:.4f} ({p_frac:.3f})")
     return times
 
 

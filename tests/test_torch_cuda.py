@@ -204,7 +204,11 @@ def test_mixed_devices_and_strided_rows_raise(dev):
 
 # (D, B, tb): every a = D / 128 regime, groups that the tile fills, part
 # fills (tb not a multiple of the 16384 / D rows a group holds) or
-# exceeds, and one block's tile of the whole batch
+# exceeds, and one block's tile of the whole batch; then the edges of the
+# copies' designs: 4096 tiles of one 512-byte row (far more than the
+# persistent grid), 12 KB tiles (less than a 16 KB ring stage), 24 KB
+# tiles (a full chunk and a short one each), and two 8 MB tiles (two
+# blocks for k_copy, the whole grid for copy_2d)
 KRON_SHAPES = [
     (128, 320, 160),
     (256, 64, 8),
@@ -213,6 +217,10 @@ KRON_SHAPES = [
     (8192, 16, 4),
     (16384, 8, 2),
     (16384, 4, 4),
+    (128, 4096, 1),
+    (1024, 96, 3),
+    (2048, 48, 3),
+    (16384, 512, 256),
 ]
 
 
@@ -249,7 +257,11 @@ def test_kron_kernels_refuse_what_they_do_not_take(dev):
         ((s1, u, s2, x.double(), 4), TypeError),
         ((s1, u, s2, torch.ones(512, 12, device=dev).t(), 4), ValueError),
         ((s1, u, s2, x[:, None], 4), ValueError),
+        # contiguous, 4 bytes past a 16-byte boundary: a launch would fault
+        # with a misaligned float4 access or TMA bulk copy
+        ((s1, u, s2, torch.randn(12 * 256 + 1, device=dev)[1:].view(12, 256), 4), ValueError),
     ]
+    assert bad[-1][0][3].data_ptr() % kc.ALIGN == 4
     kc.reset_launches()
     for name, fn in kc.VARIANTS.items():
         for args, err in bad:
@@ -262,4 +274,7 @@ def test_kron_kernels_refuse_what_they_do_not_take(dev):
                 fn(s1[:128], u, s2, x, 4)  # a diagonal of the wrong length
             with pytest.raises(ValueError):
                 fn(s1, u, s2.cpu(), x, 4)  # mixed devices
+            with pytest.raises(ValueError):
+                fn(s1, torch.randn(257, device=dev)[1:], s2, x, 4)  # misaligned
     assert all(v == 0 for v in kc.LAUNCHES.values())
+    torch.cuda.synchronize()  # no launch faulted the context

@@ -193,6 +193,28 @@ def test_plain_matches_pallas_body(name, D):
         assert rel_err(got, fp32) <= kc.BF16_TOL
 
 
+# (D, B, tb) of the copy kernels' edges (tests/test_torch_cuda.py
+# KRON_SHAPES): tiles of one 512-byte row, far more than the grid; 12 KB
+# tiles, less than a ring stage; 24 KB tiles, a full chunk and a short
+# one; two tiles of 4 MB
+COPY_EDGE_SHAPES = [(128, 4096, 1), (1024, 96, 3), (2048, 48, 3), (16384, 128, 64)]
+
+
+@pytest.mark.parametrize("shape", COPY_EDGE_SHAPES, ids=lambda s: f"D{s[0]}-B{s[1]}-tb{s[2]}")
+@pytest.mark.parametrize("name", ["k_copy", "hbm_copy", "copy_2d", "emit_copy"])
+def test_copies_plain_at_the_kernels_edges(name, shape):
+    """The copies' CPU route is a fresh copy of x at every tiling, equal
+    to the Pallas k_copy body run over the same tiles (where the
+    interpreted grid is short)."""
+    D, B, tb = shape
+    s1, u, s2, x = (t(a) for a in _inputs(D, B=B, seed=3))
+    y = kc.VARIANTS[name](s1, u, s2, x, tb)
+    assert torch.equal(y, x) and y.data_ptr() != x.data_ptr() and y.is_contiguous()
+    if B // tb <= 32:
+        want = run_body(_DIAG.k_copy, *map(jnp.asarray, (s1, u, s2, x)), TB=tb)
+        assert rel_err(y.numpy(), want) == EXACT
+
+
 @pytest.mark.parametrize("D", [256, 2048])
 def test_pipelined_and_copy_floors_plain(D):
     """D2 (emit_full) computes k_full's body; D3 copies are the identity."""
@@ -232,7 +254,16 @@ def _bad_calls():
         ("float64", (s1, u, s2, x.double(), 4), TypeError),
         ("strided", (s1, u, s2, torch.ones(512, 12).t(), 4), ValueError),
         ("3-D", (s1, u, s2, x[:, None], 4), ValueError),
+        ("misaligned", (s1, u, s2, _misaligned(12, 256), 4), ValueError),
     ]
+
+
+def _misaligned(B, D):
+    """A contiguous (B, D) view that starts 4 bytes past a 16-byte
+    boundary: it passes every check but the alignment."""
+    x = torch.randn(B * D + 1)[1:].view(B, D)
+    assert x.is_contiguous() and x.data_ptr() % kc.ALIGN == 4
+    return x
 
 
 @pytest.mark.parametrize("name", list(kc.VARIANTS))
@@ -249,6 +280,27 @@ def test_wrappers_refuse(name):
             fn(s1[:128], u, s2, x, 4)
         with pytest.raises(TypeError):
             fn(s1, u.double(), s2, x, 4)
+
+
+@pytest.mark.parametrize("name", list(kc.VARIANTS))
+def test_wrappers_refuse_misaligned_operands(name):
+    """The kernels read x and the diagonals as float4 and by TMA bulk
+    copies: an operand off a 16-byte boundary is refused on every device,
+    before any launch."""
+    fn = kc.VARIANTS[name]
+    s1, u, s2, x = (t(a) for a in _inputs(256, B=8))
+    kc.reset_launches()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fn(s1, u, s2, _misaligned(8, 256), 4)
+    if name not in ("hbm_copy", "copy_2d", "emit_copy"):  # they read no diagonal
+        for i in range(3):
+            diags = [s1, u, s2]
+            diags[i] = torch.randn(257)[1:]
+            with pytest.raises(ValueError, match="16-byte boundary"):
+                fn(*diags, x, 4)
+    assert all(v == 0 for v in kc.LAUNCHES.values())
+    x = _misaligned(8, 256).clone()  # the same values, aligned: taken
+    assert fn(s1, u, s2, x, 4).shape == x.shape
 
 
 def test_cpu_path_never_loads_the_library(monkeypatch):

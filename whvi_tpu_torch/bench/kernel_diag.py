@@ -14,7 +14,8 @@ Kronecker-factor product up one stage at a time, each stage one kernel
   plain      the plain PyTorch Kronecker product (``kron_plain``)
 
 ``--floors`` measures the copies instead: ``hbm_copy`` (grid-stride),
-``copy2d/tbN`` (staged through shared memory), ``emit_copy/tbN`` (the
+``copy2d/tbN`` (staged through shared memory by a ring of TMA bulk
+copies on every SM, whatever the tile), ``emit_copy/tbN`` (the
 persistent ring without the compute) and ``copy3d/tbB-1step`` (``copy``
 with the whole batch as one tile).
 

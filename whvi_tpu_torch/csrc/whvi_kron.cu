@@ -32,8 +32,20 @@
 //            second buffer into (128, a) at a pitch of a + 1 floats (no
 //            bank conflicts), so H_a runs over the contiguous axis, then
 //            transposed back for the last H_128 (up to 192 KB).
-//   copy and scale stream the block's tile through registers, 16 bytes a
-//   thread, and use no shared memory.
+//   copy and scale stream the block's tile through registers, 16 bytes an
+//   access, and use no shared memory.
+//
+// The copy stage is the floor of the stage ladder (bench/kernel_diag.py):
+// every rung above it is read as cost beyond it, so it keeps their tiling
+// (one block of 256 threads a tile, B / tb blocks) and their route (x
+// through registers). What bounded it on an H100 was the bytes in flight
+// per SM, not HBM: the scale stage's loop, one 16-byte load and its store
+// a thread and iteration, reached 0.74 of HBM at TB = 4 (ptxas hoists
+// four loads, 16 KB a block). Here each thread issues kCopyUnroll = 8
+// independent streaming loads (ld.global.cs) before their 8 stores
+// (st.global.cs): 32 KB in flight a block, one block an SM at TB = 4,
+// where 128 tiles leave 4 of the 132 SMs idle. The scale stage keeps the
+// old loop.
 //
 // What bounds it on an H100: at D = 16384 the product moves 8 bytes an
 // element (x in, y out) against 2 * 2 * (128 + 128) = 1024 matmul flops
@@ -168,6 +180,8 @@ __device__ __forceinline__ void swap_group(float* buf, float* tr,
   store_scaled(buf, y, s1, n, dmask);
 }
 
+constexpr int kCopyUnroll = 8;  // 16-byte loads in flight a thread
+
 template <int kStage, int kLayout>
 __global__ void __launch_bounds__(kThreads)
     kron_kernel(const float* __restrict__ x, const float* __restrict__ s1,
@@ -179,15 +193,30 @@ __global__ void __launch_bounds__(kThreads)
   const float* xb = x + row0 * D;
   float* yb = y + row0 * D;
 
-  if constexpr (kStage == kCopy || kStage == kScale) {
+  if constexpr (kStage == kCopy) {
+    const float4* xs = reinterpret_cast<const float4*>(xb);
+    float4* ys = reinterpret_cast<float4*>(yb);
+    const int64_t n4 = ((int64_t)tb << log2d) >> 2;
+    for (int64_t q0 = threadIdx.x; q0 < n4; q0 += kThreads * kCopyUnroll) {
+      float4 v[kCopyUnroll];
+#pragma unroll
+      for (int k = 0; k < kCopyUnroll; ++k) {
+        const int64_t q = q0 + k * kThreads;
+        if (q < n4) v[k] = __ldcs(xs + q);
+      }
+#pragma unroll
+      for (int k = 0; k < kCopyUnroll; ++k) {
+        const int64_t q = q0 + k * kThreads;
+        if (q < n4) __stcs(ys + q, v[k]);
+      }
+    }
+  } else if constexpr (kStage == kScale) {
     const int64_t n4 = ((int64_t)tb << log2d) >> 2;
     const int dmask4 = (D >> 2) - 1;
     for (int64_t q = threadIdx.x; q < n4; q += kThreads) {
       float4 v = reinterpret_cast<const float4*>(xb)[q];
-      if constexpr (kStage == kScale) {
-        const float4 s = __ldg(reinterpret_cast<const float4*>(s1) + (q & dmask4));
-        v = make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w);
-      }
+      const float4 s = __ldg(reinterpret_cast<const float4*>(s1) + (q & dmask4));
+      v = make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w);
       reinterpret_cast<float4*>(yb)[q] = v;
     }
   } else {
@@ -241,7 +270,8 @@ cudaError_t launch(const float* x, const float* s1, const float* u,
 
 }  // namespace kron
 
-// x, y contiguous (B, D = 2^log2d) fp32; s1, u, s2 (D,) fp32 (the copy
+// x, y contiguous (B, D = 2^log2d) fp32 on 16-byte boundaries; s1, u, s2
+// (D,) fp32, likewise aligned (the copy
 // stage reads none of them, the scale stage only s1). stage: 0 copy,
 // 1 scale, 2 mm1, 3 mm2, 4 full; layout: 0 cur, 1 swap, 2 flat,
 // 3 onecast (the stages below full take the flat layout only). Returns
@@ -250,7 +280,9 @@ extern "C" int kron_stage_f32(const void* x, const void* s1, const void* u,
                               const void* s2, void* y, int64_t B, int log2d,
                               int tb, int stage, int layout, void* stream) {
   using namespace kron;
-  if (!valid_tiling(B, log2d, tb)) return (int)cudaErrorInvalidValue;
+  if (!valid_tiling(B, log2d, tb) || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const auto* fx = static_cast<const float*>(x);
   const auto* fs1 = static_cast<const float*>(s1);

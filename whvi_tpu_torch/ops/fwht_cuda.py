@@ -94,7 +94,7 @@ ONE_FACTOR_MAX = 1024  # D <= 1024: one factor H_D (_factor_pair)
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("whvi_fused.cu", "fwht.cu", "whvi_kron.cu", "whvi_pipe.cu", "copy_floor.cu")
-_HEADERS = ("fwht_core.cuh", "kron_core.cuh")
+_HEADERS = ("fwht_core.cuh", "kron_core.cuh", "tma.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "whvi_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libwhvi_kernels.so")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

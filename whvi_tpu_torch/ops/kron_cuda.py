@@ -30,11 +30,12 @@ Every wrapper takes ``(s1, u, s2, x, tb)`` like the TPU harness's
 ``fn(s1, u, s2, x)`` built for a tile of ``tb`` rows: ``x`` is a
 contiguous ``(B, D)`` float32 matrix with ``D`` a power of two in
 ``[128, 16384]`` and ``B % tb == 0``; the diagonals are ``(D,)``
-float32. The copies ignore the diagonals (the TPU functions ``del``
-them), and ``hbm_copy`` ignores ``tb`` as well. The wrappers check their
-arguments on every device; then CPU tensors go to the plain PyTorch
-version (:func:`kron_plain`, or a copy) and CUDA tensors launch the
-kernel or raise.
+float32. Every operand starts on a 16-byte boundary (:data:`ALIGN`): the
+kernels read it as ``float4`` or by TMA bulk copies. The copies ignore
+the diagonals (the TPU functions ``del`` them), and ``hbm_copy`` ignores
+``tb`` as well. The wrappers check their arguments on every device; then
+CPU tensors go to the plain PyTorch version (:func:`kron_plain`, or a
+copy) and CUDA tensors launch the kernel or raise.
 
 Where the rounding happens is part of what is computed. The TPU bodies
 contract ``H_128`` (the last axis) first and ``H_a`` second in the first
@@ -54,6 +55,7 @@ from whvi_tpu_torch.ops.fwht_cuda import LANE, _on_cpu, load_library
 from whvi_tpu_torch.ops.hadamard import factor_H, is_pow_of_2, round_bf16
 
 __all__ = [
+    "ALIGN",
     "BF16_TOL",
     "FULL_PRODUCT",
     "LANE",
@@ -83,6 +85,7 @@ __all__ = [
 
 MIN_D = LANE  # H_128, the last Kronecker factor
 MAX_D = 16384
+ALIGN = 16  # bytes: the kernels' float4 accesses and TMA bulk copies
 
 # stage and layout codes of csrc/whvi_kron.cu
 _STAGES = {"copy": 0, "scale": 1, "mm1": 2, "mm2": 3, "full": 4}
@@ -183,15 +186,25 @@ def plain(name: str, s1, u, s2, x):
 # ----------------------------------------------------------------- checks
 
 
+def _check_aligned(t, what: str) -> None:
+    if t.data_ptr() % ALIGN:
+        raise ValueError(
+            f"{what} must start on a {ALIGN}-byte boundary, got address "
+            f"{t.data_ptr():#x} (a view at an offset of {t.storage_offset()} elements)"
+        )
+
+
 def check_kron_args(x, tb, *diagonals) -> None:
     """Raise unless the kernels take ``x`` in tiles of ``tb`` rows (``tb``
-    None: untiled) with the given ``(D,)`` diagonals."""
+    None: untiled) with the given ``(D,)`` diagonals, every operand
+    starting on a 16-byte boundary."""
     if x.dtype != torch.float32:
         raise TypeError(f"the kernels take float32 tensors, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(
             f"x must be a contiguous (B, D) matrix, got shape {tuple(x.shape)}"
         )
+    _check_aligned(x, "x")
     B, D = x.shape
     if not (is_pow_of_2(D) and MIN_D <= D <= MAX_D):
         raise ValueError(
@@ -206,6 +219,7 @@ def check_kron_args(x, tb, *diagonals) -> None:
             raise ValueError(
                 f"diagonals must be contiguous ({D},), got {tuple(d.shape)}"
             )
+        _check_aligned(d, "a diagonal")
 
 
 # ----------------------------------------------------------------- launches
@@ -261,7 +275,8 @@ def _pipe(name: str, compute: bool, s1, u, s2, x, tb):
 
 
 def k_copy(s1, u, s2, x, tb):
-    """``y = x`` in tiles of ``tb`` rows: the tiling's streaming floor."""
+    """``y = x`` in tiles of ``tb`` rows through registers, one block a
+    tile: the streaming floor of the stage ladder's tiling."""
     return _product("k_copy", "copy", "flat", s1, u, s2, x, tb)
 
 
@@ -337,7 +352,9 @@ def hbm_copy(s1, u, s2, x, tb=None):
 
 
 def copy_2d(s1, u, s2, x, tb):
-    """``y = x`` in ``(tb, D)`` tiles staged through shared memory."""
+    """``y = x`` in ``(tb, D)`` tiles staged through shared memory: a
+    persistent grid streams each tile's chunks through a ring of TMA bulk
+    copies."""
     check_kron_args(x, tb)
     if _on_cpu(x):
         return plain("copy_2d", s1, u, s2, x)
