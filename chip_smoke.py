@@ -10,15 +10,20 @@ Phases, each of which raises on failure:
    at once, and links them into one library.
 3. Kernels vs their plain PyTorch versions on the card, forward with and
    without residuals, backward through autograd, and the bare FWHT
-   forward and backward, from D=2 to 16384 and at the flagship's
-   broadcast shapes; max |kernel - plain| / max |plain| <= 1e-5. Times
-   (CUDA events, warm, median of 7 rounds of 20 calls) of each kernel and
-   its plain version at the flagship's shapes.
+   forward and backward, from D=2 to 16384, at the flagship's broadcast
+   shapes and at the scaling path's (u (8,1,4096) over x (256,4096)
+   expanded to (8,256,4096); the column head (8,1,1,4096)); max |kernel -
+   plain| / max |plain| <= 1e-5, and every forward equal to the plain
+   version bit for bit. Times
+   (CUDA events, warm, median of 7 rounds of 20 calls, host cost
+   included) of each kernel and its plain version at the flagship's
+   shapes, logged.
 4. The slice: the flagship WHVI MLP 13 -> 128 -> 128 -> 1 (4 MC samples
    in training, 64 in evaluation, batch 64) on random weights from
    --seed trains two-phase for 2 + 20 epochs on synthetic regression data
    of Boston's split sizes and is evaluated; every kernel must have been
-   launched by that run. The trained net's loss, predictions and
+   launched by that run, and no operand copied for alignment
+   (fwht_cuda.REALIGNED). The trained net's loss, predictions and
    gradients on the card (kernels) are held against a CPU copy (plain
    versions) on the same noise.
 5. The large-D kernel-diagnosis path (whvi_tpu_torch/ops/kron_cuda.py):
@@ -27,7 +32,7 @@ Phases, each of which raises on failure:
    D = 128, 1024, 8192, 16384 (shapes first, then values; tolerances
    kron_cuda.tol), the full-product variants also against the fp32
    product (BF16_TOL); device times (CUDA graph replay) of kernel and
-   plain at D=16384, B=512, TB=4, each with its share of HBM, and
+   plain at D=16384, B=512, TB=4, each with its share of HBM and bound, and
    copy_2d's also at TB = 64, 128, 256. Then the path itself: the three entry
    points kernel_diag (and --floors), kernel_tune and kernel_check at
    their default sizes with few iterations; every one of the 13 kernels
@@ -41,17 +46,25 @@ Phases, each of which raises on failure:
    (256, D) expanded to (8, 256, D), D = 1024, 4096; tolerance
    fwht_cuda.bf16_tol, 2^-6/sqrt(f), f the last contraction after the last
    rounding; y also against the fp32 product (kron_cuda.BF16_TOL). (b)
-   Device times (CUDA graph replay) of each bf16 kernel, its plain version
-   and the fp32 kernel at D = 4096, 2048 rows. (c) The path itself:
+   Device times (CUDA graph replay) of K1-K3 in both precisions and their
+   plain versions at D = 4096, 2048 rows, each beside its bound (bytes
+   read once and written once over 3.35 TB/s, or operations over the
+   peak); K1 also at D=16384, B=512; K4 at the scaling path's column head
+   beside torch.matmul(x, H_D). (c) The path itself:
    run_scaling.main at --sizes 4096 (its 50 steps a run: fewer are within
    the host clock's noise), train and --predict, fp32 and bf16; its rows
-   must be finite, and the three bf16 kernels and K4 must have been
-   launched by that run. Then the bf16 scaling net on the
+   must be finite, the three bf16 kernels and K4 must have been
+   launched by that run, and no operand copied for alignment. Then the
+   bf16 scaling net on the
    card against a CPU copy on the same weights and noise (loss, MNLL and
    predictions within kron_cuda.BF16_TOL; the gradients' error printed).
 
-Before the last line it prints one JSON object of the kernels and the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+Before the last line it prints one JSON object of the kernels (each with
+its launches on the main path, max abs error, ms, plain_ms, bound_ms,
+bound_by and library_ms; the error and the times both at the scaling
+path's shapes for K1-K4, at D=16384, B=512, TB=4 for the large-D
+kernels) and the nvidia-smi line; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -163,25 +176,35 @@ def _operands(dev, gen, D, s_lead, u_lead, x_lead):
     return randn(*s_lead), randn(*u_lead), randn(*s_lead), randn(*x_lead)
 
 
-def compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead) -> dict:
+def compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead, samples=None) -> dict:
     """Normalized and absolute errors of K1, K2, K3 against the plain
-    version on one shape."""
-    s1, u, s2, x = _operands(dev, gen, D, s_lead, u_lead, x_lead)
+    version on one shape; x (*x_lead, D), expanded to (samples, *x_lead, D)
+    when samples is given. The forward (y, and y, i1, i2 with residuals)
+    must equal the plain version bit for bit."""
+    s1, u, s2, x0 = _operands(dev, gen, D, s_lead, u_lead, x_lead)
+    x = x0 if samples is None else x0.expand(samples, *x0.shape)
     errs, abs_errs = {}, {}
     y, _, _ = fc.fused_raw(s1, u, s2, x, want_residuals=False)
     y_ref, i1_ref, i2_ref = fc.fused_plain(s1, u, s2, x, True)
+    check(torch.equal(y, y_ref), f"fused_y at {label} D={D} is not the plain y bit for bit")
     errs["fused_y"] = rel_err(y, y_ref)
     abs_errs["fused_y"] = (y - y_ref).abs().max().item()
     res = fc.fused_raw(s1, u, s2, x, want_residuals=True)
+    check(all(torch.equal(a, b) for a, b in zip(res, (y_ref, i1_ref, i2_ref))),
+          f"fused_res at {label} D={D} is not the plain y, i1, i2 bit for bit")
     errs["fused_res"] = max(rel_err(a, b) for a, b in zip(res, (y_ref, i1_ref, i2_ref)))
     abs_errs["fused_res"] = max(
         (a - b).abs().max().item() for a, b in zip(res, (y_ref, i1_ref, i2_ref))
     )
-    inputs = [a.clone().requires_grad_() for a in (s1, u, s2, x)]
-    ref_inputs = [a.clone().requires_grad_() for a in (s1, u, s2, x)]
+    leaves = [a.clone().requires_grad_() for a in (s1, u, s2, x0)]
+    ref_leaves = [a.clone().requires_grad_() for a in (s1, u, s2, x0)]
+    inputs, ref_inputs = (
+        [*l[:3], l[3] if samples is None else l[3].expand(samples, *x0.shape)]
+        for l in (leaves, ref_leaves)
+    )
     g = torch.randn(y.shape, device=dev, generator=gen)
-    grads = torch.autograd.grad(fc.WhviMulFunction.apply(*inputs), inputs, g)
-    ref = torch.autograd.grad(fc.fused_plain(*ref_inputs, False)[0], ref_inputs, g)
+    grads = torch.autograd.grad(fc.WhviMulFunction.apply(*inputs), leaves, g)
+    ref = torch.autograd.grad(fc.fused_plain(*ref_inputs, False)[0], ref_leaves, g)
     errs["fused_bwd"] = max(rel_err(a, b) for a, b in zip(grads, ref))
     abs_errs["fused_bwd"] = max((a - b).abs().max().item() for a, b in zip(grads, ref))
     torch.cuda.synchronize()
@@ -195,9 +218,13 @@ def compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead) -> dict:
 
 
 def compare_fwht(fc, dev, gen, label, shape) -> float:
+    """Errors of K4 forward and backward against the plain version; the
+    forward must equal it bit for bit. Returns the forward's max abs error."""
     x = torch.randn(*shape, device=dev, generator=gen)
-    err_f = rel_err(fc.fwht_raw(x), fc.fwht_plain(x))
-    abs_f = (fc.fwht_raw(x) - fc.fwht_plain(x)).abs().max().item()
+    y, y_ref = fc.fwht_raw(x), fc.fwht_plain(x)
+    check(torch.equal(y, y_ref), f"fwht at {label} is not the plain version bit for bit")
+    err_f = rel_err(y, y_ref)
+    abs_f = (y - y_ref).abs().max().item()
     xg = x.clone().requires_grad_()
     g = torch.randn(shape, device=dev, generator=gen)
     (dx,) = torch.autograd.grad(fc.FwhtFunction.apply(xg), xg, g)
@@ -220,25 +247,31 @@ FLAGSHIP_SHAPES = [
 
 
 def kernels_vs_plain(fc, dev, seed) -> dict:
+    """K1-K4 in fp32 against their plain versions over D = 2..16384, at the
+    flagship's shapes and at the scaling path's, where the kernels line
+    times them (fused_times, fwht_times). Returns the max abs errors at the
+    scaling path's shapes."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    log(f"kernels vs plain (max |kernel - plain| / max |plain| <= {KERNEL_TOL}):")
-    for D in (2, 4, 16, 128, 1024, 2048, 16384):
+    log(f"kernels vs plain (max |kernel - plain| / max |plain| <= {KERNEL_TOL}; "
+        "forward bit for bit):")
+    for D in (2, 4, 16, 128, 1024, 2048, 4096, 8192, 16384):
         compare_fused(fc, dev, gen, "(D,) diagonals, 64 rows", D, (), (), (64,))
         compare_fwht(fc, dev, gen, "fwht 64 rows", (64, D))
-    max_abs = dict.fromkeys(FLAGSHIP_KERNELS, 0.0)
     for label, D, s_lead, u_lead, x_lead in FLAGSHIP_SHAPES:
-        for k, v in compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead).items():
-            max_abs[k] = max(max_abs[k], v)
+        compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead)
     for label, shape in (("column head train", (4, 1, 1, 128)), ("column head eval", (64, 1, 1, 128))):
-        max_abs["fwht"] = max(max_abs["fwht"], compare_fwht(fc, dev, gen, label, shape))
+        compare_fwht(fc, dev, gen, label, shape)
+    S, B, D = SCALING_S, SCALING_B, SCALING_D
+    max_abs = compare_fused(fc, dev, gen, f"u ({S},1,D), x ({S},{B},D)", D, (), (S, 1), (B,), S)
+    max_abs["fwht"] = compare_fwht(fc, dev, gen, "scaling column head", (S, 1, 1, D))
     return max_abs
 
 
-def kernel_times(fc, dev, seed) -> dict:
-    """(kernel ms, plain ms) at the flagship's shapes; the first shape of
-    each kernel is the one reported in the kernels line."""
+def kernel_times(fc, dev, seed) -> None:
+    """Logs kernel and plain ms a call at the flagship's shapes, eager, the
+    wrappers' host cost included. The kernels line takes device times at
+    the scaling path's shapes instead (fused_times, fwht_times)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    times = {}
     log("times at the flagship's shapes (ms per call, CUDA events, median of 7 x 20):")
     for name, label, shape in (
         ("fused_y", "square128 eval", FLAGSHIP_SHAPES[5]),
@@ -261,7 +294,6 @@ def kernel_times(fc, dev, seed) -> dict:
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
         log(f"  {name:<9} {label:<26} kernel {k_ms:.4f}  plain {p_ms:.4f}")
-        times.setdefault(name, (k_ms, p_ms))
     for label, shape in (("column head train", (4, 1, 1, 128)), ("column head eval", (64, 1, 1, 128))):
         x = torch.randn(*shape, device=dev, generator=gen)
         p1, k1, k2, p2 = (
@@ -269,8 +301,6 @@ def kernel_times(fc, dev, seed) -> dict:
             cuda_ms(lambda: fc.fwht_raw(x)), cuda_ms(lambda: fc.fwht_plain(x)),
         )
         log(f"  fwht      {label:<26} kernel {(k1 + k2) / 2:.4f}  plain {(p1 + p2) / 2:.4f}")
-        times.setdefault("fwht", ((k1 + k2) / 2, (p1 + p2) / 2))
-    return times
 
 
 # ------------------------------------------------------------------ 4. slice
@@ -318,6 +348,7 @@ def run_slice(fc, dev, seed) -> dict:
     metrics = trainer.evaluate(Xt, yt, torch.Generator(device=dev).manual_seed(seed + 1))
     torch.cuda.synchronize()
     launches = dict(fc.LAUNCHES)
+    check(fc.REALIGNED == 0, f"the slice copied {fc.REALIGNED} misaligned operands")
 
     warm_epochs = logs[-1]["epoch"] - logs[0]["epoch"]
     warm_s = logs[-1]["seconds"] - logs[0]["seconds"]
@@ -396,11 +427,12 @@ def _kron_operands(dev, gen, D):
 
 
 def kron_vs_plain(kc, fc, dev, seed) -> dict:
-    """Max |kernel - plain| of each large-D kernel; raises past its
+    """Each large-D kernel against its plain version; raises past its
     tolerance (kc.tol, normalized by max |plain|), and for the full
-    product past kc.BF16_TOL against the fp32 product."""
+    product past kc.BF16_TOL against the fp32 product. Returns max
+    |kernel - plain| at D=16384, TB=4, where kron_times times them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    max_abs = dict.fromkeys(KRON_KERNELS, 0.0)
+    max_abs = {}
     log(f"large-D kernels vs plain (B={KRON_B}; max |kernel - plain| / max |plain|, "
         f"and for the full product vs the fp32 product, <= {kc.BF16_TOL:.2e}):")
     for D in (128, 1024, 8192, 16384):
@@ -414,7 +446,8 @@ def kron_vs_plain(kc, fc, dev, seed) -> dict:
                 torch.cuda.synchronize()
                 err = rel_err(y, ref)
                 check(err <= kc.tol(name, D), f"{name} at D={D} tb={tb}: {err:.3e} > {kc.tol(name, D)}")
-                max_abs[name] = max(max_abs[name], (y - ref).abs().max().item())
+                if D == 16384 and tb == KRON_TB:
+                    max_abs[name] = (y - ref).abs().max().item()
                 errs[name] = err
                 if name in kc.FULL_PRODUCT:
                     e32 = rel_err(y, fp32)
@@ -424,13 +457,31 @@ def kron_vs_plain(kc, fc, dev, seed) -> dict:
     return max_abs
 
 
+def kron_ops(name: str, B: int, D: int) -> tuple[float, float]:
+    """(operations, peak rate) of a large-D kernel on (B, D): each factor
+    contraction 2 B D f multiply-adds on the bf16 tensor cores (f = 128 for
+    H_128, a = D / 128 for H_a), a diagonal product B D fp32 operations."""
+    from whvi_tpu_torch.utils.profiling import H100_PEAK_BF16_FLOPS, H100_PEAK_FP32_FLOPS
+
+    a = D // 128
+    contractions = {"k_mm1": 128, "k_mm2": 128 + a}.get(name, 2 * (128 + a))
+    if name in ("k_copy", "hbm_copy", "copy_2d", "emit_copy"):
+        return 0.0, H100_PEAK_FP32_FLOPS
+    if name == "k_scale":
+        return float(B * D), H100_PEAK_FP32_FLOPS
+    return 2.0 * B * D * contractions, H100_PEAK_BF16_FLOPS
+
+
 def kron_times(kc, dev, seed) -> dict:
-    """(kernel ms, plain ms) of each large-D kernel at D=16384, B=512,
+    """Kernel, plain and bound of each large-D kernel at D=16384, B=512,
     TB=4: device time of 20 calls in one CUDA graph (the benchmarks'
     time_us), so the wrappers' host cost does not hide the copies' device
     time. Each is logged with its share of HBM (2 * B * D * 4 bytes a call
-    against 3.35 TB/s), and copy_2d also at the tiles of COPY_2D_TBS."""
-    from whvi_tpu_torch.bench.common import rates, time_us
+    against 3.35 TB/s), and copy_2d also at the tiles of COPY_2D_TBS. The
+    copies' and the scale's plain version is one PyTorch call (x.clone(),
+    x * s1), which is also their library call; the products have none (no
+    one call rounds to bf16 between the factors)."""
+    from whvi_tpu_torch.bench.common import bound_ms, rates, time_us
 
     D = 16384
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -446,7 +497,12 @@ def kron_times(kc, dev, seed) -> dict:
         p1, k1, k2, p2 = (time_us(f, 20) / 1e3 for f in (plain, kernel, kernel, plain))
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
         if tb == KRON_TB:
-            times[name] = (k_ms, p_ms)
+            diagonals = {"k_scale": (s1,), "k_mm1": (s2,), "k_mm2": (s2,)}.get(
+                name, () if name in ("k_copy", "hbm_copy", "copy_2d", "emit_copy") else (s1, u, s2))
+            bound, by = bound_ms((x, *diagonals), (x,), *kron_ops(name, KRON_B, D))
+            one_call = name in ("k_copy", "hbm_copy", "copy_2d", "emit_copy", "k_scale")
+            times[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                           "library_ms": p_ms if one_call else None}
         k_frac, p_frac = (rates(KRON_B, D, ms * 1e3)["hbm_frac"] for ms in (k_ms, p_ms))
         log(f"  {name:<10} TB={tb:<4} kernel {k_ms:.4f} ({k_frac:.3f})  "
             f"plain {p_ms:.4f} ({p_frac:.3f})")
@@ -529,27 +585,58 @@ def compare_bf16(fc, kc, dev, gen, label, D, u_lead, x_rows, samples=None) -> di
 
 
 def bf16_vs_plain(fc, kc, dev, seed) -> dict:
+    """Returns the max abs errors at the scaling path's shape (D=4096),
+    where the kernels line times the bf16 kernels."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     log("bf16 kernels vs plain (max |kernel - plain| / max |plain| <= 2^-6/sqrt(f)), "
         f"y vs the fp32 product <= {kc.BF16_TOL:.2e}:")
-    max_abs = dict.fromkeys(BF16_KERNELS, 0.0)
     shapes = [("(D,) diagonals, 64 rows", D, (), 64, None) for D in (4, 64, 1024, 2048, 4096, 16384)]
     shapes += [
         (f"u ({SCALING_S},1,D), x ({SCALING_S},{SCALING_B},D)", D, (SCALING_S, 1), SCALING_B, SCALING_S)
         for D in (1024, SCALING_D)
     ]
     for label, D, u_lead, x_rows, samples in shapes:
-        for k, v in compare_bf16(fc, kc, dev, gen, label, D, u_lead, x_rows, samples).items():
-            max_abs[k] = max(max_abs[k], v)
-    return max_abs
+        abs_errs = compare_bf16(fc, kc, dev, gen, label, D, u_lead, x_rows, samples)
+    return abs_errs  # the last shape: the scaling path's at D=4096
 
 
-def bf16_times(fc, dev, seed) -> dict:
-    """(kernel ms, plain ms) of each bf16 kernel at the scaling path's shape
-    (D=4096, u (8,1,D), x (8,256,D) expanded: 2048 rows): device time of 20
-    calls in one CUDA graph. The fp32 kernel's time at that shape is
-    logged beside it."""
+def fused_ops(D: int, rows: int) -> int:
+    """Operations of one fused product over ``rows`` rows: two transforms of
+    D log2 D adds and three diagonal products an element (fp32 CUDA cores;
+    the bf16 mode's roundings are conversions, not operations)."""
+    return rows * (2 * D * int(math.log2(D)) + 3 * D)
+
+
+def _timed(kernel, plain, bound, library=None) -> dict:
+    """Device ms a call (20 calls in a CUDA graph, median of 5 replays) of
+    kernel and plain version in turns (plain, kernel, kernel, plain), and
+    of the library call after them, with the bound beside them."""
     from whvi_tpu_torch.bench.common import time_us
+
+    p1, k1, k2, p2 = (time_us(f, 20) / 1e3 for f in (plain, kernel, kernel, plain))
+    return {
+        "ms": (k1 + k2) / 2,
+        "plain_ms": (p1 + p2) / 2,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None if library is None else time_us(library, 20) / 1e3,
+    }
+
+
+def _log_time(label: str, t: dict) -> None:
+    lib = "" if t["library_ms"] is None else f"  library {t['library_ms']:.4f}"
+    log(f"  {label:<18} kernel {t['ms']:.4f}  plain {t['plain_ms']:.4f}  bound {t['bound_ms']:.4f} "
+        f"({t['bound_by']}; share {t['bound_ms'] / t['ms']:.3f}){lib}")
+
+
+def fused_times(fc, dev, seed) -> dict:
+    """K1-K3 in both precisions at the scaling path's shape (D=4096,
+    u (8,1,D), x (256,D) expanded to (8,256,D): 2048 rows), each with its
+    bound (bytes: x, u, s1, s2 read once, the outputs written once), and
+    K1 at D=16384, B=512 (PERF.md's large-D shape). Returns the kernels
+    line's entries of the six kernels at the scaling shape."""
+    from whvi_tpu_torch.bench.common import bound_ms
+    from whvi_tpu_torch.utils.profiling import H100_PEAK_FP32_FLOPS as PEAK
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, S, B = SCALING_D, SCALING_S, SCALING_B
@@ -557,24 +644,57 @@ def bf16_times(fc, dev, seed) -> dict:
     u = torch.randn(S, 1, D, device=dev, generator=gen)
     x = torch.randn(B, D, device=dev, generator=gen).expand(S, B, D)
     g = torch.randn(S, B, D, device=dev, generator=gen)
+    ops = fused_ops(D, S * B)
     times = {}
     log(f"times at D={D}, u ({S},1,D), x ({S},{B},D) (device ms per call, 20 calls in a "
-        "CUDA graph, median of 5 replays, plain/kernel/kernel/plain):")
-    for precision in ("bf16", "fp32"):
-        for name, kernel, plain in (
+        "CUDA graph, median of 5 replays, plain/kernel/kernel/plain; bound and its share):")
+    for precision in ("fp32", "bf16"):
+        for name, kernel, plain, ins, n_out in (
             ("fused_y", lambda: fc.fused_raw(s1, u, s2, x, False, precision),
-             lambda: fc.fused_plain(s1, u, s2, x, False, precision)),
+             lambda: fc.fused_plain(s1, u, s2, x, False, precision), (x, u, s1, s2), 1),
             ("fused_res", lambda: fc.fused_raw(s1, u, s2, x, True, precision),
-             lambda: fc.fused_plain(s1, u, s2, x, True, precision)),
+             lambda: fc.fused_plain(s1, u, s2, x, True, precision), (x, u, s1, s2), 3),
             ("fused_bwd", lambda: fc.fused_bwd_raw(s1, u, s2, g, precision),
-             lambda: fc.fused_plain(s2, u, s1, g, True, precision)),
+             lambda: fc.fused_plain(s2, u, s1, g, True, precision), (g, u, s1, s2), 3),
         ):
-            p1, k1, k2, p2 = (time_us(f, 20) / 1e3 for f in (plain, kernel, kernel, plain))
-            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            log(f"  {precision} {name:<10} kernel {k_ms:.4f}  plain {p_ms:.4f}")
-            if precision == "bf16":
-                times[name + "_bf16"] = (k_ms, p_ms)
+            t = _timed(kernel, plain, bound_ms(ins, [g] * n_out, ops, PEAK))
+            key = name if precision == "fp32" else name + "_bf16"
+            _log_time(f"{precision} {name}", t)
+            times[key] = t
+    D, B = 16384, KRON_B
+    s1, u, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(3))
+    x = torch.randn(B, D, device=dev, generator=gen)
+    log(f"K1 at D={D}, B={B}:")
+    for precision in ("fp32", "bf16"):
+        t = _timed(lambda: fc.fused_raw(s1, u, s2, x, False, precision),
+                   lambda: fc.fused_plain(s1, u, s2, x, False, precision),
+                   bound_ms((x, u, s1, s2), (x,), fused_ops(D, B), PEAK))
+        _log_time(f"{precision} fused_y", t)
     return times
+
+
+def fwht_times(fc, dev, seed) -> dict:
+    """K4 at the scaling path's column head, (8, 1, 1, 4096), beside
+    torch.matmul(x, H_D) with H_D built once (TF32 off): the one PyTorch
+    call that computes the same transform, timed as a yardstick only."""
+    from whvi_tpu_torch.bench.common import bound_ms
+    from whvi_tpu_torch.ops.hadamard import factor_H
+    from whvi_tpu_torch.utils.profiling import H100_PEAK_FP32_FLOPS as PEAK
+
+    D = SCALING_D
+    x = torch.randn(SCALING_S, 1, 1, D, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    H = factor_H(D, torch.float32, dev)
+    t = _timed(lambda: fc.fwht_raw(x), lambda: fc.fwht_plain(x),
+               bound_ms((x,), (x,), x.numel() * int(math.log2(D)), PEAK),
+               library=lambda: torch.matmul(x, H))
+    log(f"K4 at the scaling path's column head, x {tuple(x.shape)} (library: x @ H_D):")
+    _log_time("fwht", t)
+    for rows, D in ((2048, SCALING_D), (KRON_B, 16384)):  # where its bytes dominate
+        xb = torch.randn(rows, D, device=dev)
+        tb = _timed(lambda: fc.fwht_raw(xb), lambda: fc.fwht_plain(xb),
+                    bound_ms((xb,), (xb,), xb.numel() * int(math.log2(D)), PEAK))
+        _log_time(f"fwht ({rows}, {D})", tb)
+    return {"fwht": t}
 
 
 def scaling_net_vs_cpu(dev, seed) -> None:
@@ -644,7 +764,9 @@ def run_scaling_path(fc, dev, seed) -> dict:
             ])
     torch.cuda.synchronize()
     launches = dict(fc.LAUNCHES)
-    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f"; operands realigned {fc.REALIGNED}")
+    check(fc.REALIGNED == 0, "the scaling path copied misaligned operands")
     check(len(rows) == 4, f"run_scaling gave {len(rows)} rows, not 4")
     for row in rows:
         check(run_scaling.finite(row), f"non-finite row {row}")
@@ -666,13 +788,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     build(fc)
     max_abs = kernels_vs_plain(fc, dev, args.seed)
-    times = kernel_times(fc, dev, args.seed)
+    kernel_times(fc, dev, args.seed)
     launches = run_slice(fc, dev, args.seed)
     max_abs.update(kron_vs_plain(kc, fc, dev, args.seed))
-    times.update(kron_times(kc, dev, args.seed))
+    times = kron_times(kc, dev, args.seed)
     launches.update(run_diag_path(kc, args.seed))
     max_abs.update(bf16_vs_plain(fc, kc, dev, args.seed))
-    times.update(bf16_times(fc, dev, args.seed))
+    times.update(fused_times(fc, dev, args.seed))
+    times.update(fwht_times(fc, dev, args.seed))
     scaling = run_scaling_path(fc, dev, args.seed)
     launches.update({name: scaling[name] for name in BF16_KERNELS})
 
@@ -684,8 +807,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max_abs[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
+            **times[name],
         }
         for name, (source, replaces) in {**KERNELS, **KRON_KERNELS}.items()
     ]

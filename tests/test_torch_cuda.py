@@ -8,9 +8,10 @@ out:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance of the flagship kernels: ``max|kernel - plain| / max|plain| <=
-1e-5`` (fp32; the butterflies add in the plain version's order, the
-backward's reductions sum in another). The tolerances of their bf16 mode
-and of the large-D kernels are stated below.
+1e-5`` (fp32; the backward's reductions sum in another order). Their fp32
+forward adds in the plain version's order with the diagonal products
+never fused into an add, so it is also held bit for bit. The tolerances
+of their bf16 mode and of the large-D kernels are stated below.
 """
 
 import pytest
@@ -24,13 +25,15 @@ pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
 
+# every width the kernels take: each register round and exchange boundary
+# of csrc/fwht_core.cuh is crossed, and row counts that leave part of the
+# last block idle
+WIDTHS = [2**k for k in range(1, 15)]
+
 # (D, s1/s2 lead, u lead, x lead): (D,) diagonals over the whole range,
 # then the flagship's stacked and square broadcast shapes
 SHAPES = [
-    (2, (), (), (33,)),
-    (4, (), (), (33,)),
-    (1024, (), (), (5,)),
-    (16384, (), (), (3,)),
+    *((D, (), (), (33 if D <= 1024 else 3,)) for D in WIDTHS),
     (16, (8,), (4, 1, 8), (4, 64, 1)),
     (16, (8,), (4, 64, 8), (64, 1)),
     (128, (), (4, 1), (4, 64)),
@@ -69,7 +72,7 @@ def test_fused_forward_matches_plain(dev, shape):
             else:
                 assert a.shape == b.shape == got[0].shape
                 assert a.is_contiguous()
-                assert rel_err(a, b) <= TOL
+                assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"D{s[0]}-{s[2]}")
@@ -88,8 +91,31 @@ def test_whvi_mul_backward_matches_plain_autograd(dev, shape):
         assert rel_err(a.grad, b.grad) <= TOL
 
 
+def test_fp32_at_the_scaling_shape(dev):
+    """run_scaling's product: u (8, 1, 4096) over x (256, 4096) expanded to
+    (8, 256, 4096), never materialised. Forward bit for bit, backward
+    within TOL of the plain version's autograd."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    D, S, B = 4096, 8, 256
+    s1, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(2))
+    u = torch.randn(S, 1, D, device=dev, generator=gen)
+    x0 = torch.randn(B, D, device=dev, generator=gen)
+    x = x0.expand(S, B, D)
+    for a, b in zip(fc.fused_raw(s1, u, s2, x, True), fc.fused_plain(s1, u, s2, x, True)):
+        assert torch.equal(a, b)
+    mine, ref = ([a.clone().requires_grad_() for a in (s1, u, s2, x0)] for _ in range(2))
+    fc.reset_launches()
+    y = whvi_mul(*mine[:3], mine[3].expand(S, B, D))
+    g = torch.randn(y.shape, device=dev, generator=gen)
+    y.backward(g)
+    assert fc.LAUNCHES["fused_res"] == 1 and fc.LAUNCHES["fused_bwd"] == 1 and fc.REALIGNED == 0
+    fc.fused_plain(*ref[:3], ref[3].expand(S, B, D), False)[0].backward(g)
+    for a, b in zip(mine, ref):
+        assert rel_err(a.grad, b.grad) <= TOL
+
+
 def test_no_grad_product_is_the_y_only_launch(dev):
-    s1, u, s2, x = _operands(dev, *SHAPES[4])
+    s1, u, s2, x = _operands(dev, *SHAPES[len(WIDTHS)])
     fc.reset_launches()
     with torch.no_grad():
         whvi_mul(s1.requires_grad_(), u, s2, x)
@@ -108,6 +134,32 @@ def test_fwht_forward_and_backward_match_plain(dev, shape):
     assert fc.LAUNCHES["fwht"] == 2
 
 
+@pytest.mark.parametrize("D", WIDTHS)
+def test_fwht_forward_is_the_plain_version_bit_for_bit(dev, D):
+    x = torch.randn(37 if D <= 1024 else 3, D, device=dev)
+    assert torch.equal(fc.fwht_raw(x), fc.fwht_plain(x))
+
+
+def test_misaligned_operands_are_copied_once(dev):
+    """x 4 bytes past a 16-byte boundary and a diagonal read through an odd
+    leading stride: each copied to an aligned allocation (REALIGNED), then
+    one launch that matches the plain version."""
+    D, B = 256, 7
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(B * D + 1, device=dev, generator=gen)[1:].view(B, D)
+    u = torch.randn(B, D + 3, device=dev, generator=gen)[:, :D]  # row stride 259
+    s1, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(2))
+    assert not fc.vector_aligned(x, 16) and not fc.vector_aligned(u, 16)
+    fc.reset_launches()
+    got = fc.fused_raw(s1, u, s2, x, True)
+    assert fc.REALIGNED == 2 and fc.LAUNCHES["fused_res"] == 1
+    for a, b in zip(got, fc.fused_plain(s1, u, s2, x, True)):
+        assert torch.equal(a, b)
+    y = fc.fwht_raw(x)
+    assert fc.REALIGNED == 3 and torch.equal(y, fc.fwht_plain(x))
+    torch.cuda.synchronize()  # no launch faulted the context
+
+
 # ------------------------------------------------ K1-K3 in their bf16 mode
 #
 # Tolerance fc.bf16_tol(D, transform): the kernel sums in butterfly order,
@@ -119,7 +171,7 @@ def test_fwht_forward_and_backward_match_plain(dev, shape):
 # bf16 mode's range, then the scaling path's u (8, 1, D) over x (256, D)
 # expanded to (8, 256, D)
 BF16_SHAPES = [
-    *((D, (), 64, None) for D in (4, 64, 1024, 2048, 4096, 16384)),
+    *((D, (), 64 if D <= 4096 else 5, None) for D in WIDTHS if D >= fc.MIN_D_BF16),
     (1024, (8, 1), 256, 8),
     (4096, (8, 1), 256, 8),
 ]

@@ -344,6 +344,7 @@ def test_spec_constants_are_the_h100_data_sheet():
     assert profiling.H100_HBM_GBPS == 3350.0
     assert profiling.H100_PEAK_BF16_FLOPS == 989e12
     assert profiling.H100_PEAK_TF32_FLOPS == 495e12
+    assert profiling.H100_PEAK_FP32_FLOPS == 67e12
 
 
 @pytest.mark.parametrize("module", ["kernel_diag", "kernel_tune", "kernel_check"])

@@ -306,3 +306,52 @@ def test_cuda_wrappers_raise_before_launch(cuda_device):
         with pytest.raises((ValueError, TypeError)):
             fc.fwht_raw(x)
     assert all(v == 0 for v in fc.LAUNCHES.values())
+
+
+# ------------------------------------------------ the kernels' alignment
+
+
+def test_vector_bytes():
+    assert fc.vector_bytes(2) == 8
+    for D in (4, 16, 4096, fc.MAX_D):
+        assert fc.vector_bytes(D) == 16
+
+
+def _f32(n):
+    return torch.zeros(n, dtype=torch.float32)
+
+
+# (name, tensor, width, aligned): offset views, strided leading axes,
+# stride-0 broadcasts and size-1 axes, whose strides are never read
+ALIGN_CASES = [
+    ("contiguous", lambda: _f32(5 * 16).view(5, 16), 16, True),
+    ("offset 1 float", lambda: _f32(5 * 16 + 1)[1:].view(5, 16), 16, False),
+    ("offset 4 floats", lambda: _f32(5 * 16 + 4)[4:].view(5, 16), 16, True),
+    ("row stride 17", lambda: _f32(5 * 17).view(5, 17)[:, :16], 16, False),
+    ("row stride 20", lambda: _f32(5 * 20).view(5, 20)[:, :16], 16, True),
+    ("stride-0 rows", lambda: _f32(16).expand(5, 16), 16, True),
+    ("stride-0 over odd rows", lambda: _f32(3 * 17).view(3, 17)[:, :16].expand(2, 3, 16), 16, False),
+    ("stride-0 off base", lambda: _f32(17)[1:].expand(5, 16), 16, False),
+    ("size-1 axis, odd stride", lambda: _f32(17).view(1, 17)[:, :16], 16, True),
+    ("D=2, row stride 3", lambda: _f32(15).view(5, 3)[:, :2], 8, False),
+    ("D=2, row stride 4", lambda: _f32(20).view(5, 4)[:, :2], 8, True),
+    ("D=2, offset 2 floats", lambda: _f32(12)[2:].view(5, 2), 8, True),
+]
+
+
+@pytest.mark.parametrize("case", ALIGN_CASES, ids=lambda c: c[0])
+def test_vector_aligned(case):
+    _, make, width, aligned = case
+    tensor = make()
+    assert fc.vector_aligned(tensor, width) is aligned
+    fc.reset_launches()
+    got = fc._aligned(tensor, width)
+    assert fc.REALIGNED == (0 if aligned else 1)
+    assert (got is tensor) is aligned
+    assert fc.vector_aligned(got, width)
+    assert torch.equal(got, tensor)
+    # broadcast axes stay broadcast: nothing is materialized per row
+    for n, s_in, s_out in zip(tensor.shape, tensor.stride(), got.stride()):
+        assert (s_in == 0) == (s_out == 0) or n == 1
+    fc.reset_launches()
+    assert fc.REALIGNED == 0

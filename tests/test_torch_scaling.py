@@ -45,12 +45,15 @@ from whvi_tpu.models import WHVILinear as JaxWHVILinear
 from whvi_tpu.models import WHVIRegression as JaxWHVIRegression
 from whvi_tpu.models import mlp_layers as jax_mlp_layers
 from whvi_tpu.models import relu as jax_relu
+from whvi_tpu.models.weights import SquarePow2Matrix as JaxSquarePow2Matrix
+from whvi_tpu.models.weights import StackedMatrix as JaxStackedMatrix
 from whvi_tpu.ops.fwht_pallas import _fused_raw, whvi_mul_pallas
 from whvi_tpu.utils import profiling as jax_profiling
 
 from whvi_tpu_torch.convert import load_jax_params
 from whvi_tpu_torch.experiments import run_scaling
 from whvi_tpu_torch.models import WHVILinear, WHVIRegression, mlp_layers, relu
+from whvi_tpu_torch.models.weights import SquarePow2Matrix, StackedMatrix
 from whvi_tpu_torch.ops import fwht_cuda as fc
 from whvi_tpu_torch.ops import kron_cuda as kc
 from whvi_tpu_torch.ops import (
@@ -224,10 +227,16 @@ def test_bf16_mode_refuses_widths_outside_the_kernel(D):
         lambda: fc.fused_raw(d, d, d, x, True, "bf16"),
         lambda: fc.fused_bwd_raw(d, d, d, x, "bf16"),
         lambda: fc.fused_plain(d, d, d, x, False, "bf16"),
-        lambda: whvi_mul(d, d, d, x, precision="bf16"),
     ):
         with pytest.raises(ValueError):
             call()
+    # whvi_mul's bf16 mode computes fp32 there, as JAX's "pallas" backend
+    # sends such widths to XLA
+    if fc.is_pow_of_2(D):
+        assert torch.equal(whvi_mul(d, d, d, x, precision="bf16"), whvi_mul(d, d, d, x))
+    else:
+        with pytest.raises(ValueError):
+            whvi_mul(d, d, d, x, precision="bf16")
     with pytest.raises(ValueError):
         fc.fused_raw(torch.ones(16), torch.ones(16), torch.ones(16), torch.ones(2, 16), False, "fp16")
     fc.check_precision(fc.MIN_D_BF16, "bf16")
@@ -246,6 +255,80 @@ def test_cpu_bf16_path_never_loads_the_library(monkeypatch, steady_clock):
     )
     assert run_scaling.finite(rows[0])
     assert all(v == 0 for v in fc.LAUNCHES.values())
+
+
+# --------------------------- products the "pallas" backend leaves to XLA
+
+
+def _layer_case(name):
+    """(JAX matrix, port matrix, x, g) of a layer whose products JAX's
+    "pallas" backend sends to XLA in fp32: stacked (stack, D) diagonals,
+    a per-example-noise u (B, D), and D = 2 (below pallas_supported)."""
+    rng = np.random.RandomState(7)
+    B = 6
+    if name == "stacked13x128":
+        jm, pm = JaxStackedMatrix(13, 128), StackedMatrix(13, 128)
+        lead, n_in, g_lead = (8,), 13, (8,)
+    elif name == "square64_per_example":
+        jm, pm = JaxSquarePow2Matrix(64), SquarePow2Matrix(64)
+        lead, n_in, g_lead = (), 64, (B,)
+    else:
+        jm, pm = JaxSquarePow2Matrix(2), SquarePow2Matrix(2)
+        lead, n_in, g_lead = (), 2, ()
+    D = pm.s1.shape[-1]
+    params = {k: rng.randn(*lead, D).astype(np.float32) for k in ("s1", "s2", "g_mu", "g_rho")}
+    with torch.no_grad():
+        for k, v in params.items():
+            getattr(pm, k).copy_(t(v))
+    x = rng.randn(B, n_in).astype(np.float32)
+    g = rng.randn(*g_lead, D).astype(np.float32)
+    return jm, pm, params, x, g
+
+
+@pytest.mark.parametrize("name", ["stacked13x128", "square64_per_example", "d2"])
+def test_bf16_mode_leaves_xla_products_in_fp32(name, bf16_backends):
+    """Under the bf16 mode the port rounds only where the JAX "pallas"
+    backend reaches its kernel: these layers' products compute fp32 on
+    both sides and agree within 1e-5."""
+    jm, pm, params, x, g = _layer_case(name)
+    want = jm.apply_given_g(jax.tree.map(jnp.asarray, params), jnp.asarray(x), jnp.asarray(g))
+    with torch.no_grad():
+        got = pm.apply_given_g(t(x), t(g))
+    assert rel_err(got.numpy(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("layer", ["square64", "stacked13x128"])
+def test_bf16_mode_leaves_per_example_noise_at_batch_1_in_fp32(layer, bf16_backends):
+    """A per-example-noise layer at batch 1: JAX's u (1, D) is 2-D, so its
+    "pallas" backend sends the product to XLA in fp32. The port's u
+    (S, 1, D) has the shape of a shared u; the layer tells whvi_mul that it
+    was drawn per example, and the product computes fp32 too. Given as
+    shared noise, the same u is rounded."""
+    rng = np.random.RandomState(13)
+    S = 3
+    if layer == "square64":
+        jm, pm = JaxSquarePow2Matrix(64), SquarePow2Matrix(64)
+        lead, n_in = (), 64
+    else:
+        jm, pm = JaxStackedMatrix(13, 128), StackedMatrix(13, 128)
+        lead, n_in = (8,), 13
+    D = pm.s1.shape[-1]
+    params = {k: rng.randn(*lead, D).astype(np.float32) for k in ("s1", "s2", "g_mu", "g_rho")}
+    with torch.no_grad():
+        for k, v in params.items():
+            getattr(pm, k).copy_(t(v))
+    x = rng.randn(S, 1, n_in).astype(np.float32)
+    eps = t(rng.randn(*pm.noise_shape(t(x), True)).astype(np.float32))
+    with torch.no_grad():
+        u = (pm.g_mu + pm.g_sigma() * eps).numpy()
+        got = pm(t(x), eps=eps, per_example_noise=True).numpy()
+        shared = pm.apply_given_g(t(x), t(u)).numpy()
+    jparams = jax.tree.map(jnp.asarray, params)
+    want = np.stack([np.asarray(jm.apply_given_g(jparams, jnp.asarray(x[s]), jnp.asarray(u[s])))
+                     for s in range(S)])
+    assert rel_err(got, want) <= 1e-5
+    if layer == "square64":
+        assert rel_err(shared, want) > 1e-4
 
 
 # ------------------------------------------------- the whole scaling net

@@ -4,6 +4,7 @@ rates and errors."""
 from __future__ import annotations
 
 import json
+import math
 import time
 
 import numpy as np
@@ -11,7 +12,9 @@ import torch
 
 from whvi_tpu_torch.utils.profiling import H100_HBM_GBPS, card, cuda_ms, require_cuda
 
-__all__ = ["emit", "header", "operands", "rates", "rel_err", "time_us"]
+__all__ = [
+    "bound_ms", "emit", "header", "operands", "rates", "rel_err", "time_us", "unique_bytes",
+]
 
 WARM_S = 0.2  # seconds of graph replays before timing
 
@@ -64,6 +67,22 @@ def rates(B: int, D: int, us: float) -> dict:
     (``2 * B * D * 4`` bytes), and its share of the H100's 3.35 TB/s."""
     gbps = 2 * B * D * 4 / (us * 1e-6) / 1e9
     return {"GBps": gbps, "hbm_frac": gbps / H100_HBM_GBPS}
+
+
+def unique_bytes(t: torch.Tensor) -> int:
+    """Bytes of the distinct elements of ``t``: an expanded (stride-0) axis
+    is one copy, as a kernel that reads each input once reads it."""
+    return t.element_size() * math.prod(n for n, s in zip(t.shape, t.stride()) if s != 0)
+
+
+def bound_ms(inputs, outputs, ops: float, peak_flops: float) -> tuple[float, str]:
+    """The least time an H100 could take for a call, and what sets it: the
+    larger of its bytes (each input read once, each output written once)
+    over 3.35 TB/s and its ``ops`` over ``peak_flops``."""
+    nbytes = sum(unique_bytes(t) for t in (*inputs, *outputs))
+    t_bytes = nbytes / (H100_HBM_GBPS * 1e9) * 1e3
+    t_ops = ops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def emit(row: dict) -> dict:

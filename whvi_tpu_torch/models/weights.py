@@ -124,7 +124,7 @@ class _WHVIMatrix(nn.Module):
                 device=x.device,
                 dtype=x.dtype,
             )
-        return self.apply_given_g(x, self.g_mu + self.g_sigma() * eps)
+        return self.apply_given_g(x, self.g_mu + self.g_sigma() * eps, per_example_noise)
 
 
 class SquarePow2Matrix(_WHVIMatrix):
@@ -147,9 +147,10 @@ class SquarePow2Matrix(_WHVIMatrix):
     def n_out(self) -> int:
         return self.D
 
-    def apply_given_g(self, x, g):
-        """``x @ W_bar(g)^T``; ``g`` broadcasts against ``x``'s leading axes."""
-        return whvi_mul(self.s1, g, self.s2, x)
+    def apply_given_g(self, x, g, per_example_noise: bool = False):
+        """``x @ W_bar(g)^T``; ``g`` broadcasts against ``x``'s leading axes
+        (one row per batch row with ``per_example_noise``)."""
+        return whvi_mul(self.s1, g, self.s2, x, per_example=per_example_noise)
 
 
 class StackedMatrix(_WHVIMatrix):
@@ -168,12 +169,12 @@ class StackedMatrix(_WHVIMatrix):
         D_in, _, _, stack = self.dims
         super().__init__((stack, D_in), lambda_, s_init, device, dtype)
 
-    def apply_given_g(self, x, g):
+    def apply_given_g(self, x, g, per_example_noise: bool = False):
         """``(..., n_in) -> (..., n_out)``; ``g (..., stack, D_in)``
         broadcasts against ``x``'s leading axes."""
         padding = self.dims[2]
         xp = F.pad(x, (0, padding)) if padding else x
-        out = whvi_mul(self.s1, g, self.s2, xp[..., None, :])
+        out = whvi_mul(self.s1, g, self.s2, xp[..., None, :], per_example=per_example_noise)
         out = out.reshape(out.shape[:-2] + (-1,))
         return out[..., : self.n_out]
 
@@ -228,7 +229,8 @@ class ColumnMatrix(_WHVIMatrix):
         """``sample_shape + (n,)`` column samples."""
         return self.column_given_g(self.sample_g(sample_shape, generator))
 
-    def apply_given_g(self, x, g):
+    def apply_given_g(self, x, g, per_example_noise: bool = False):
+        del per_example_noise  # one explicit column per sample
         col = self.column_given_g(g)
         if self.transposed:
             return torch.sum(x * col, dim=-1, keepdim=True)

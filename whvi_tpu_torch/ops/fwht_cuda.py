@@ -36,6 +36,15 @@ go to the plain PyTorch version beside it (:func:`fused_plain`,
 :func:`fwht_plain`); CUDA tensors launch the kernel or raise. There is
 no fallback from one to the other.
 
+Alignment. The kernels hold a row in registers and move it to and from
+device memory in ``min(D, 4)``-float vectors (:func:`vector_bytes`: 16
+bytes for ``D >= 4``). Before a launch every operand is checked
+(:func:`vector_aligned`): its base pointer and every leading stride it
+is read through must be multiples of that width. An operand that is not
+is copied into a fresh allocation (PyTorch's are 512-byte aligned),
+stride-0 axes kept, and :data:`REALIGNED` counts the copy. The main
+path's operands never need one.
+
 Build: at the first launch, ``nvcc`` compiles each of ``SOURCES`` for
 ``sm_90a``, all at once, and links them into one shared library with a
 plain C interface under ``build/whvi_tpu_torch/`` beside the package,
@@ -70,6 +79,7 @@ __all__ = [
     "MAX_D",
     "MIN_D_BF16",
     "PRECISIONS",
+    "REALIGNED",
     "WhviMulFunction",
     "bf16_tol",
     "build_kernels",
@@ -83,6 +93,8 @@ __all__ = [
     "fwht_raw",
     "load_library",
     "reset_launches",
+    "vector_aligned",
+    "vector_bytes",
     "vjp_plain",
 ]
 
@@ -108,10 +120,16 @@ LAUNCHES = {
     "fused_y_bf16": 0, "fused_res_bf16": 0, "fused_bwd_bf16": 0,
 }
 
+# Operands copied to an aligned allocation before a launch, since the
+# last reset_launches(); not a kernel launch.
+REALIGNED = 0
+
 
 def reset_launches() -> None:
+    global REALIGNED
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    REALIGNED = 0
 
 
 class _Geometry(ctypes.Structure):
@@ -348,6 +366,37 @@ def check_kernel_args(D: int, dtype: torch.dtype) -> None:
         )
 
 
+def vector_bytes(D: int) -> int:
+    """Bytes a kernel thread moves in one access for rows of ``D`` floats:
+    a ``float4`` for ``D >= 4``, a ``float2`` for ``D = 2``."""
+    return 4 * min(D, 4)
+
+
+def vector_aligned(t: torch.Tensor, width: int) -> bool:
+    """Whether every row of ``t`` starts on a ``width``-byte boundary: the
+    base pointer and each leading stride the kernel reads through (axes
+    of size 1 and stride-0 broadcast axes are not) are multiples of it."""
+    if t.data_ptr() % width:
+        return False
+    return all(
+        (s * t.element_size()) % width == 0
+        for n, s in zip(t.shape[:-1], t.stride()[:-1])
+        if n > 1 and s != 0
+    )
+
+
+def _aligned(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` itself, or a copy in a fresh allocation whose rows start on a
+    ``width``-byte boundary (stride-0 axes stay broadcast), counted in
+    :data:`REALIGNED`."""
+    global REALIGNED
+    if vector_aligned(t, width):
+        return t
+    REALIGNED += 1
+    base = t[tuple(slice(0, 1) if s == 0 else slice(None) for s in t.stride())]
+    return base.clone(memory_format=torch.contiguous_format).expand(t.shape)
+
+
 def _geometry(lead: torch.Size, operands) -> _Geometry:
     """Leading sizes and per-operand element strides over ``lead``,
     size-1 dims dropped and mergeable neighbours merged, left-padded to
@@ -387,6 +436,7 @@ def _launch_fused(s1, u, s2, x, want_residuals: bool, precision: str, counter: s
             )
         if t.stride(-1) != 1:
             raise ValueError("the last axis of every operand must be contiguous")
+    s1, u, s2, x = (_aligned(t, vector_bytes(D)) for t in (s1, u, s2, x))
     lead = torch.broadcast_shapes(
         x.shape[:-1], s1.shape[:-1], u.shape[:-1], s2.shape[:-1]
     )
@@ -456,13 +506,15 @@ def fused_bwd_raw(s1, u, s2, g, precision: str = "fp32"):
 
 def fwht_raw(x):
     """FWHT along the last axis, no autograd. K4 on a CUDA tensor (which
-    must be contiguous); :func:`fwht_plain` on a CPU tensor."""
+    must be contiguous; copied first if it starts off the kernel's vector
+    width); :func:`fwht_plain` on a CPU tensor."""
     if _on_cpu(x):
         return fwht_plain(x)
     D = x.shape[-1]
     check_kernel_args(D, x.dtype)
     if not x.is_contiguous():
         raise ValueError("fwht_raw takes a contiguous CUDA tensor")
+    x = _aligned(x, vector_bytes(D))
     y = torch.empty_like(x)
     lib = load_library()
     with torch.cuda.device(x.device):

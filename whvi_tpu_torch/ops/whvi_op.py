@@ -17,10 +17,17 @@ from __future__ import annotations
 
 import torch
 
-from whvi_tpu_torch.ops.fwht_cuda import PRECISIONS, WhviMulFunction, fused_raw
-from whvi_tpu_torch.ops.hadamard import build_H
+from whvi_tpu_torch.ops.fwht_cuda import (
+    MAX_D,
+    MIN_D_BF16,
+    PRECISIONS,
+    WhviMulFunction,
+    fused_raw,
+)
+from whvi_tpu_torch.ops.hadamard import build_H, is_pow_of_2
 
 __all__ = [
+    "bf16_eligible",
     "get_whvi_mul_precision",
     "set_whvi_mul_precision",
     "whvi_dense",
@@ -49,7 +56,30 @@ def get_whvi_mul_precision() -> str:
     return _PRECISION
 
 
-def whvi_mul(s1, u, s2, x, precision: str | None = None):
+def bf16_eligible(s1, u, s2, x, per_example: bool = False) -> bool:
+    """Whether the JAX ``"pallas"`` backend sends this product to its bf16
+    kernel (``whvi_tpu/ops/whvi_op.py:150-176``): ``(D,)`` diagonals ``s1``
+    and ``s2``; a ``u`` that varies only over sample axes (1-D, or its row
+    axis, the second-to-last, of size 1: the 1-D ``u`` of JAX's vmap over
+    samples) and is not drawn per example; ``D`` a power of two in
+    ``[4, 16384]``.
+
+    ``per_example`` says that ``u`` has one row per batch row. JAX decides
+    by ``u``'s rank, and its per-example ``u (B, D)`` is 2-D even at
+    ``B = 1``; here a batch of one gives ``u (..., 1, D)``, the shape of a
+    shared ``u``, so the caller that drew it per example has to say so."""
+    D = x.shape[-1]
+    return (
+        not per_example
+        and s1.dim() == 1
+        and s2.dim() == 1
+        and (u.dim() == 1 or u.shape[-2] == 1)
+        and is_pow_of_2(D)
+        and MIN_D_BF16 <= D <= MAX_D
+    )
+
+
+def whvi_mul(s1, u, s2, x, precision: str | None = None, per_example: bool = False):
     """Compute ``x @ W_bar(u)^T`` with ``W_bar(u) = S1 H diag(u) H S2``.
 
     ``s1, u, s2`` are diagonals of shape ``(D,)`` or any shape whose
@@ -58,12 +88,12 @@ def whvi_mul(s1, u, s2, x, precision: str | None = None):
     ``u (S, B, D)``). Returns the broadcast ``(..., D)``.
 
     ``precision`` (None: :func:`get_whvi_mul_precision`) is ``"fp32"`` or
-    ``"bf16"``; ``"bf16"`` takes ``4 <= D <= 16384`` and raises outside
-    it. One divergence from the JAX package: under its ``"pallas"``
-    backend only products with ``(D,)`` diagonals reach the bf16 kernel
-    (``whvi_tpu/ops/whvi_op.py:150-175``), while stacked ``(stack, D)`` and
-    per-row products go through XLA in the module-default precision. Here
-    the mode applies to every product, stacked ones included.
+    ``"bf16"``. As under the JAX ``"pallas"`` backend, ``"bf16"`` rounds
+    only the products its kernel takes (:func:`bf16_eligible`): square
+    ``(D,)`` diagonals with a shared-noise ``u``, ``4 <= D <= 16384``.
+    Stacked ``(stack, D)`` products, per-example-noise ``u (..., B, D)``
+    (``per_example``, which also covers ``B = 1``) and other widths
+    compute fp32, as JAX sends them to XLA.
 
     With a gradient to record this is :class:`WhviMulFunction` (the
     kernel with residuals forward, the swapped kernel backward);
@@ -71,6 +101,8 @@ def whvi_mul(s1, u, s2, x, precision: str | None = None):
     """
     if precision is None:
         precision = _PRECISION
+    if precision == "bf16" and not bf16_eligible(s1, u, s2, x, per_example):
+        precision = "fp32"
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (s1, u, s2, x)
     ):

@@ -48,6 +48,7 @@ __all__ = [
 H100_HBM_GBPS = 3350.0  # HBM3, GB/s
 H100_PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 H100_PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
+H100_PEAK_FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 
 
 def fwht_flops(D: int, batch: int) -> int:
