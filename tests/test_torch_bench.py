@@ -1,15 +1,20 @@
 """The port's kernel-design tools without a card: the parsers of
-``bench/kernel_sass.py`` on sample ptxas and cuobjdump output, and the
-bounds of ``bench/common.py``.
+``bench/kernel_sass.py`` on sample ptxas and cuobjdump output, the bounds
+of ``bench/common.py``, and the source edits of ``bench/kron_variants.py``
+against the shipped sources.
 """
+
+import os
 
 import pytest
 import torch
 
-from whvi_tpu_torch.bench import common, kernel_sass
+from whvi_tpu_torch.bench import common, kernel_sass, kron_variants
+from whvi_tpu_torch.ops.fwht_cuda import CSRC
 
 FUSED_12 = "_ZN4whvi17whvi_fused_kernelILi12ELb1ELb0EEEvPKfS2_S2_S2_PfS3_S3_lNS_8GeometryE"
 FWHT_14 = "_ZN4whvi11fwht_kernelILi14EEEvPKfPfl"
+EMIT_COPY = "_ZN4kron16emit_copy_kernelEPKcPclll"
 
 PTXAS = f"""\
 ptxas info    : Compiling entry function '{FUSED_12}' for 'sm_90a'
@@ -36,6 +41,17 @@ SASS = f"""\
         /*0010*/                   STL [R1], R2 ;
         /*0020*/                   LDL R2, [R1] ;
         /*0030*/                   BAR.SYNC 0x0 ;
+        Function : {EMIT_COPY}
+        /*03a0*/                   SYNCS.EXCH.64 URZ, [UR8+0x18000], UR4 ;
+        /*0450*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*08a0*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P3, [R2+URZ+0x18000], R9 ;
+        /*1120*/              @!P0 SYNCS.ARRIVE.TRANS64.A1T0 RZ, [R2+URZ+0x18020], RZ ;
+        /*1910*/                   SYNCS.ARRIVE.TRANS64 RZ, [R6+URZ+0x18000], R5 ;
+        /*1a10*/                   UBLKCP.S.G [UR18], [UR16], UR4 ;
+        /*1a20*/                   LDS.128 R4, [R3] ;
+        /*1a30*/                   STG.E.EF.128 desc[UR4][R10.64], R4 ;
+        /*1a40*/                   LDG.E.EF.128 R4, desc[UR4][R2.64] ;
+        /*12f0*/                   UBLKCP.G.S [UR16], [UR5], UR4 ;
 """
 
 
@@ -59,6 +75,43 @@ def test_sass_counts_every_form_of_an_op_once():
         "LDG.E.128": 2, "STS": 2, "BAR.SYNC": 1, "LDS": 1, "STG.E.128": 1,
     }
     assert dict(counts[FWHT_14]) == {"STL": 1, "LDL": 1, "BAR.SYNC": 1}
+    assert dict(counts[EMIT_COPY]) == {
+        "BAR.SYNC": 1, "SYNCS.PHASECHK.TRANS64.TRYWAIT": 1, "SYNCS.ARRIVE.TRANS64": 2,
+        "UBLKCP.S.G": 1, "UBLKCP.G.S": 1, "LDS": 1, "STG.E.EF.128": 1, "LDG.E.EF.128": 1,
+    }
+
+
+@pytest.mark.parametrize("symbol, kernel", [
+    ("_ZN4kron11kron_kernelILi0ELi2EEEvPKfS2_S2_S2_Pfii", "k_copy"),
+    ("_ZN4kron11kron_kernelILi1ELi2EEEvPKfS2_S2_S2_Pfii", "k_scale"),
+    ("_ZN4kron11pipe_kernelEPKfS1_S1_S1_Pflii", "emit_full"),
+    (EMIT_COPY, "emit_copy"),
+    ("_ZN4kron11kron_kernelILi4ELi2EEEvPKfS2_S2_S2_Pfii", None),  # k_full: not reported
+    ("_ZN9kron_copy14copy_2d_kernelEPKcPclll", None),
+])
+def test_large_d_instances_are_named_after_their_wrappers(symbol, kernel):
+    want = None if kernel is None else {"kernel": kernel}
+    assert kernel_sass._instance(symbol) == want
+
+
+@pytest.mark.parametrize("name", list(kron_variants.VARIANTS))
+def test_kron_variants_edit_the_shipped_sources(name, tmp_path):
+    """Every variant's edits match the shipped source exactly once, and
+    only the shipped designs build it unchanged."""
+    path = kron_variants.make_source(name, str(tmp_path))
+    with open(path) as f, open(os.path.join(CSRC, os.path.basename(path))) as g:
+        edited, shipped = f.read(), g.read()
+    assert (edited == shipped) == (name in ("k_scale", "emit_copy"))
+
+
+def test_kron_variants_refuse_an_edit_that_does_not_match():
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        kron_variants._edit("abc", "xyz", "", "v", "f.cu")
+    with pytest.raises(ValueError, match="occurs 2 times"):
+        kron_variants._edit("a a", "a", "", "v", "f.cu")
+    with pytest.raises(ValueError, match="out of order"):
+        kron_variants._edit("[b] [a]", ("[a]", "[b]"), "", "v", "f.cu")
+    assert kron_variants._edit("x [a] y [b] z", ("[a]", "[b]"), "-", "v", "f.cu") == "x - z"
 
 
 def test_unique_bytes_counts_a_broadcast_axis_once():

@@ -260,7 +260,10 @@ def test_mixed_devices_and_strided_rows_raise(dev):
 # copies' designs: 4096 tiles of one 512-byte row (far more than the
 # persistent grid), 12 KB tiles (less than a 16 KB ring stage), 24 KB
 # tiles (a full chunk and a short one each), and two 8 MB tiles (two
-# blocks for k_copy, the whole grid for copy_2d)
+# blocks for k_copy, the whole grid for copy_2d); 2048 chunks of 16 KB
+# (emit_copy's blocks each around their ring of 4 stages more than once);
+# the smoke's shape, 128 tiles (fewer than the SMs) of 16 chunks; one tile
+# of the whole batch, less than a stage
 KRON_SHAPES = [
     (128, 320, 160),
     (256, 64, 8),
@@ -273,6 +276,9 @@ KRON_SHAPES = [
     (1024, 96, 3),
     (2048, 48, 3),
     (16384, 512, 256),
+    (1024, 8192, 8),
+    (16384, 512, 4),
+    (256, 8, 8),
 ]
 
 
@@ -294,6 +300,8 @@ def test_kron_kernel_matches_plain(dev, name, shape):
     ref = kc.plain(name, s1, u, s2, x)
     assert y.shape == ref.shape == x.shape and y.is_contiguous()
     assert rel_err(y, ref) <= kc.tol(name, D)
+    if kc.tol(name, D) == 0:  # the copies and the scale
+        assert torch.equal(y, ref)
     if name in kc.FULL_PRODUCT:
         assert rel_err(y, fc.fused_plain(s1, u, s2, x, False)[0]) <= kc.BF16_TOL
 
@@ -330,3 +338,35 @@ def test_kron_kernels_refuse_what_they_do_not_take(dev):
                 fn(s1, torch.randn(257, device=dev)[1:], s2, x, 4)  # misaligned
     assert all(v == 0 for v in kc.LAUNCHES.values())
     torch.cuda.synchronize()  # no launch faulted the context
+
+
+def test_pipe_entry_refuses_misaligned_operands(dev):
+    """kron_pipe_f32 itself refuses x or y off a 16-byte boundary, and with
+    the compute a diagonal too (its bulk copies and float4 reads would
+    fault there): cudaErrorInvalidValue, nothing launched, the context
+    intact. The wrappers refuse such operands before they reach it."""
+    lib = fc.load_library()
+    s1, u, s2, x = _kron_operands(dev, 256, 8)
+    y = torch.zeros_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    X, Y, S1, U, S2 = (a.data_ptr() for a in (x, y, s1, u, s2))
+
+    def call(xp, yp, diagonals=None):
+        compute = diagonals is not None
+        return lib.kron_pipe_f32(xp, *(diagonals or (None, None, None)), yp, 8, 8, 4,
+                                 int(compute), stream)
+
+    invalid_value = 1  # cudaErrorInvalidValue
+    for off in (4, 8, 12):
+        assert call(X + off, Y) == invalid_value
+        assert call(X, Y + off) == invalid_value
+        assert call(X + off, Y, (S1, U, S2)) == invalid_value
+        for i in range(3):
+            diagonals = [S1, U, S2]
+            diagonals[i] += off
+            assert call(X, Y, diagonals) == invalid_value
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.zeros_like(x))  # nothing was written
+    assert call(X, Y) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, x)

@@ -196,8 +196,14 @@ def test_plain_matches_pallas_body(name, D):
 # (D, B, tb) of the copy kernels' edges (tests/test_torch_cuda.py
 # KRON_SHAPES): tiles of one 512-byte row, far more than the grid; 12 KB
 # tiles, less than a ring stage; 24 KB tiles, a full chunk and a short
-# one; two tiles of 4 MB
-COPY_EDGE_SHAPES = [(128, 4096, 1), (1024, 96, 3), (2048, 48, 3), (16384, 128, 64)]
+# one; two tiles of 4 MB; 2048 chunks of 16 KB, every block of the
+# persistent grid around its ring more than once; 128 tiles (fewer than
+# the 132 SMs) of 16 chunks each; one tile of the whole batch, less than a
+# stage
+COPY_EDGE_SHAPES = [
+    (128, 4096, 1), (1024, 96, 3), (2048, 48, 3), (16384, 128, 64),
+    (1024, 8192, 8), (16384, 512, 4), (256, 8, 8),
+]
 
 
 @pytest.mark.parametrize("shape", COPY_EDGE_SHAPES, ids=lambda s: f"D{s[0]}-B{s[1]}-tb{s[2]}")
@@ -212,6 +218,26 @@ def test_copies_plain_at_the_kernels_edges(name, shape):
     assert torch.equal(y, x) and y.data_ptr() != x.data_ptr() and y.is_contiguous()
     if B // tb <= 32:
         want = run_body(_DIAG.k_copy, *map(jnp.asarray, (s1, u, s2, x)), TB=tb)
+        assert rel_err(y.numpy(), want) == EXACT
+
+
+# (D, B, tb) of k_scale's edges: one-row tiles (32, and far more than
+# the SMs); tiles that are not a multiple of a block's 8 x 256 float4s a
+# round (3 rows of 1024 and of 2048); one tile of the whole batch
+SCALE_EDGE_SHAPES = [(128, 32, 1), (128, 4096, 1), (1024, 96, 3), (2048, 48, 3), (16384, 8, 8)]
+
+
+@pytest.mark.parametrize("shape", SCALE_EDGE_SHAPES, ids=lambda s: f"D{s[0]}-B{s[1]}-tb{s[2]}")
+def test_scale_plain_at_the_kernels_edges(shape):
+    """k_scale's CPU route is x * s1 bit for bit at every tiling, equal to
+    the Pallas k_scale body run over the same tiles (where the interpreted
+    grid is short)."""
+    D, B, tb = shape
+    s1, u, s2, x = (t(a) for a in _inputs(D, B=B, seed=4))
+    y = kc.k_scale(s1, u, s2, x, tb)
+    assert torch.equal(y, x * s1) and y.is_contiguous()
+    if B // tb <= 32:
+        want = run_body(_DIAG.k_scale, *map(jnp.asarray, (s1, u, s2, x)), TB=tb)
         assert rel_err(y.numpy(), want) == EXACT
 
 

@@ -32,6 +32,7 @@ import importlib
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -98,9 +99,10 @@ def _natural(i1, D):
 @pytest.fixture
 def steady_clock(monkeypatch):
     """``run_scaling``'s timer replaced by one that runs ``fn(k)`` once and
-    takes ``k`` ms: a CPU run of a step or two is too short for the host
-    clock to tell N steps from 2N, which ``run`` refuses to report."""
-    monkeypatch.setattr(run_scaling, "_least_time", lambda fn, k: (k * 1e-3, fn(k)))
+    takes ``k`` ms for N = k steps and ``2k`` for 2N: a CPU run of a step
+    or two is too short for the host clock to tell N steps from 2N, which
+    ``run`` refuses to report."""
+    monkeypatch.setattr(run_scaling, "_least_times", lambda fn, k: (k * 1e-3, 2 * k * 1e-3, fn(k)))
 
 
 @pytest.fixture
@@ -482,10 +484,25 @@ def test_run_scaling_rows_on_the_cpu(D, steady_clock):
 
 def test_run_scaling_refuses_a_time_it_cannot_resolve(monkeypatch):
     """2N steps no slower than N: host noise, not a rate to print."""
-    monkeypatch.setattr(run_scaling, "_least_time", lambda fn, k: (0.5, fn(k)))
+    monkeypatch.setattr(run_scaling, "_least_times", lambda fn, k: (0.5, 0.5, fn(k)))
     with pytest.raises(RuntimeError, match="host timing noise"):
         run_scaling.run(64, device="cpu", batch=4, samples=2, steps=1)
     assert get_whvi_mul_precision() == "fp32"
+
+
+def test_run_scaling_times_n_and_2n_steps_in_turns(monkeypatch):
+    """A slow spell of the host or the card (here the first two runs)
+    falls on both N and 2N: each is the least of its TRIALS runs."""
+    calls, clock = [], iter([0.0, 9.0, 9.0, 18.0] + [0.0, 1.0, 1.0, 3.0] * (run_scaling.TRIALS - 1))
+
+    def fn(k):
+        calls.append(k)
+        return k
+
+    monkeypatch.setattr(run_scaling, "time", types.SimpleNamespace(perf_counter=lambda: next(clock)))
+    t1, t2, value = run_scaling._least_times(fn, 5)
+    assert calls == [5, 10] * run_scaling.TRIALS
+    assert (t1, t2, value) == (1.0, 2.0, 10)
 
 
 def test_run_scaling_refuses_without_a_card():

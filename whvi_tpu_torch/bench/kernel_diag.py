@@ -15,9 +15,10 @@ Kronecker-factor product up one stage at a time, each stage one kernel
 
 ``--floors`` measures the copies instead: ``hbm_copy`` (grid-stride),
 ``copy2d/tbN`` (staged through shared memory by a ring of TMA bulk
-copies on every SM, whatever the tile), ``emit_copy/tbN`` (the
-persistent ring without the compute) and ``copy3d/tbB-1step`` (``copy``
-with the whole batch as one tile).
+copies on every SM, whatever the tile), ``emit_copy/tbN`` (the TPU's
+``emit_pipeline`` copy: TMA bulk loads into a ring on every SM, stored by
+consumer warps) and ``copy3d/tbB-1step`` (``copy`` with the whole batch
+as one tile).
 
 One JSON row per variant: ``D, variant, TB, us, GBps, hbm_frac``, where
 ``GBps`` counts ``2 * B * D * 4`` bytes (x read once, y written once) and

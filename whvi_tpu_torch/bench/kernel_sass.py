@@ -1,17 +1,27 @@
-"""What nvcc made of the Walsh-Hadamard kernels K1-K4: per instance, the
-ptxas report and counts of the SASS instructions that show the design.
+"""What nvcc made of the Walsh-Hadamard kernels K1-K4 and of the large-D
+copies and scale: per instance, the ptxas report and counts of the SASS
+instructions that show the design.
 
 Builds the kernels' library (``fwht_cuda.build_kernels``, ``-Xptxas -v``)
 and disassembles it with ``cuobjdump -sass``. One JSON row per instance of
 ``whvi_fused_kernel`` (K1-K3: ``L`` = log2 D, ``residuals``, ``bf16``) and
-``fwht_kernel`` (K4) at the widths asked for: ``registers``, ``stack``
-bytes, ``spill_stores`` / ``spill_loads`` bytes, and the counts of
-``BAR.SYNC`` (block barriers: one an exchange of the row through shared
-memory), ``LDG.E.128`` / ``STG.E.128`` (16-byte device-memory accesses),
-``LDS`` / ``STS`` (shared memory) and ``LDL`` / ``STL`` (local memory:
-spills). Needs ``nvcc`` and ``cuobjdump``, no card.
+``fwht_kernel`` (K4) at the widths asked for, and one each for
+``kron_kernel<kCopy, kFlat>`` (``k_copy``), ``kron_kernel<kScale, kFlat>``
+(``k_scale``), ``pipe_kernel`` (``emit_full``) and ``emit_copy_kernel``
+(``emit_copy``): ``registers``, ``stack`` bytes, ``spill_stores`` /
+``spill_loads`` bytes, and the counts of ``BAR.SYNC`` (block and named
+barriers: in K1-K4 one an exchange of the row through shared memory),
+``LDG.E.128`` / ``STG.E.128`` (16-byte device-memory accesses; the
+``.EF`` forms are the streaming ones, ``ld``/``st.global.cs``), ``LDS`` /
+``STS`` (shared memory), ``LDL`` / ``STL`` (local memory: spills),
+``LDGSTS`` (``cp.async``), ``UBLKCP.S.G`` / ``UBLKCP.G.S`` (TMA bulk
+copies into and out of shared memory), ``SYNCS.ARRIVE.TRANS64`` (mbarrier
+arrivals, with or without expected bytes) and
+``SYNCS.PHASECHK.TRANS64.TRYWAIT`` (mbarrier waits). Needs ``nvcc`` and
+``cuobjdump``, no card.
 
 Run: python -m whvi_tpu_torch.bench.kernel_sass [--log2d 4 7 12 13 14]
+(--log2d picks the K1-K4 widths; the large-D rows are always printed)
 """
 
 from __future__ import annotations
@@ -25,12 +35,23 @@ import subprocess
 from whvi_tpu_torch.bench.common import emit
 from whvi_tpu_torch.ops import fwht_cuda as fc
 
-OPS = ("BAR.SYNC", "LDG.E.128", "STG.E.128", "LDS", "STS", "LDL", "STL")
+OPS = ("BAR.SYNC", "LDG.E.128", "LDG.E.EF.128", "STG.E.128", "STG.E.EF.128", "LDS", "STS",
+       "LDL", "STL", "LDGSTS", "UBLKCP.S.G", "UBLKCP.G.S", "SYNCS.ARRIVE.TRANS64",
+       "SYNCS.PHASECHK.TRANS64.TRYWAIT")
 _KERNEL = re.compile(r"_ZN4whvi(?:17whvi_fused_kernel|11fwht_kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?")
+# kron_kernel<stage, kFlat> of the copy (0) and the scale (1), pipe_kernel,
+# emit_copy_kernel
+_KRON = re.compile(r"_ZN4kron(?:11kron_kernelILi([01])ELi2EE|11pipe_kernelE|16emit_copy_kernelE)")
 
 
 def _instance(symbol: str) -> dict | None:
-    """``{"kernel", "L", "residuals", "bf16"}`` of a K1-K4 symbol, else None."""
+    """``{"kernel", "L", "residuals", "bf16"}`` of a K1-K4 symbol,
+    ``{"kernel"}`` (the wrapper's name) of a large-D copy or scale, else
+    None."""
+    if m := _KRON.search(symbol):
+        if m.group(1) is not None:
+            return {"kernel": ("k_copy", "k_scale")[int(m.group(1))]}
+        return {"kernel": "emit_full" if "pipe_kernel" in symbol else "emit_copy"}
     m = _KERNEL.search(symbol)
     if m is None:
         return None
@@ -85,7 +106,7 @@ def main(argv=None) -> None:
     print(f"nvcc {fc._nvcc()}; library {os.path.basename(fc.LIB_PATH)}", flush=True)
     for symbol in sorted(counts.keys() | regs.keys()):
         inst = _instance(symbol)
-        if inst is None or inst["L"] not in args.log2d:
+        if inst is None or ("L" in inst and inst["L"] not in args.log2d):
             continue
         emit({**inst, **regs.get(symbol, {}), **{op: counts[symbol][op] for op in OPS}})
 

@@ -1,0 +1,281 @@
+"""``k_scale`` and ``emit_copy`` built from variants of their CUDA sources
+and timed side by side on one card: what each choice of their designs is
+worth.
+
+A variant is a copy of ``whvi_tpu_torch/csrc/`` with named edits
+(``VARIANTS``): a ring's shape changed, or another body put in. Each edit
+is a piece of source text that must occur exactly once in its file, so a
+variant never times the shipped source by mistake; a change to those
+lines needs the variant edited too. ``k_scale`` and ``emit_copy`` name the
+shipped designs (no edit).
+
+Each variant's edited source alone is compiled into its own library, all
+at once, and called through its C entry (``kron_stage_f32`` or
+``kron_pipe_f32``) with ``ctypes``. Every variant is first held bit for
+bit against its plain version (``x * s1``, ``x``) at D=16384, B=512 and
+at the ring's edges (``EDGES``).
+
+JSON rows: first the card and its power limit; then per variant the
+ptxas report of its kernel (registers, spill bytes); then the device ms a
+call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) at
+D=16384, B=512, with the bound (x read once, s1 once, y written once,
+over 3.35 TB/s) and its share: the scale variants at TB=4, the copy
+variants at TB = 4, 64, 128, 256. The yardsticks, one PyTorch call
+(``x * s1``, ``x.clone()``) and the package's ``k_copy`` and ``copy_2d``,
+run first and last, so that drift of the card's clock shows.
+
+Run from the repository root on the card:
+python -m whvi_tpu_torch.bench.kron_variants [k_scale emit_copy out_ring_x2 ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import os
+import shutil
+
+import torch
+
+from whvi_tpu_torch.bench.common import bound_ms, emit, header, time_us
+from whvi_tpu_torch.bench.kernel_sass import _instance, ptxas
+from whvi_tpu_torch.ops import fwht_cuda as fc
+from whvi_tpu_torch.ops import kron_cuda as kc
+
+KRON, PIPE = "whvi_kron.cu", "whvi_pipe.cu"
+D, B = 16384, 512
+COPY_TBS = (4, 64, 128, 256)
+SCALE_TBS = (4,)
+# (D, B, tb) checked bit for bit beside (D, B, 4): one-row tiles, far
+# more chunks than the grid; tiles of less than a stage; a full chunk and
+# a short one; every block around its ring more than once; two tiles
+EDGES = [(128, 4096, 1), (1024, 96, 3), (2048, 48, 3), (1024, 8192, 8), (16384, 512, 256)]
+
+# s1 staged in shared memory once a block, then read from there
+_SMEM_S1 = [
+    ("    const int dmask4 = (D >> 2) - 1;\n    for (int64_t q0",
+     "    const int dmask4 = (D >> 2) - 1;\n"
+     "    float4* s_tile = reinterpret_cast<float4*>(smem);\n"
+     "    for (int q = threadIdx.x; q <= dmask4; q += kThreads) s_tile[q] = __ldg(ss + q);\n"
+     "    __syncthreads();\n"
+     "    for (int64_t q0"),
+    ("if (q < n4) s[k] = __ldg(ss + (q & dmask4));", "if (q < n4) s[k] = s_tile[q & dmask4];"),
+    ("  if (stage == kCopy || stage == kScale) return 0;\n",
+     "  if (stage == kCopy) return 0;\n  if (stage == kScale) return sizeof(float) << log2d;\n"),
+]
+
+# emit_copy's consumers copying each stage into a second ring in shared
+# memory (kCopyOutStages stages after the in-ring), which thread 0
+# bulk-stores once the consumers have met on a named barrier: the skeleton
+# a compute body would fit into. It replaces the shipped consumers' body,
+# from the first marker through the second.
+_OUT_RING = [
+    ("constexpr size_t kCopyRingBytes = (size_t)kCopyInStages * kCopyStageBytes;",
+     "constexpr int kCopyOutStages = 2;\n"
+     "constexpr size_t kCopyRingBytes = (size_t)(kCopyInStages + kCopyOutStages) * kCopyStageBytes;"),
+    (("  // the consumers: chunk j from stage j % kCopyInStages\n",
+            "    if (lane == 0) tma::barrier_arrive(&empty[s]);\n  }\n"),
+     """  // the consumers: chunk j from in-stage j % kCopyInStages through
+  // out-stage j % kCopyOutStages
+  static_assert(kCopyOutStages >= 2, "a store drains while the next chunk is copied");
+  unsigned char* out = smem + (size_t)kCopyInStages * kCopyStageBytes;
+  for (int64_t j = 0; j < mine; ++j) {
+    const int s = (int)(j % kCopyInStages);
+    uint32_t bytes;
+    const int64_t off = chunk(j, bytes);
+    const float4* src = reinterpret_cast<const float4*>(in + (size_t)s * kCopyStageBytes);
+    float4* dst = reinterpret_cast<float4*>(out + (size_t)(j % kCopyOutStages) * kCopyStageBytes);
+    tma::wait_parity(&full[s], (uint32_t)((j / kCopyInStages) & 1));
+    for (int q = threadIdx.x; q < (int)(bytes / 16); q += kCopyConsumers) dst[q] = src[q];
+    __syncwarp();
+    if (lane == 0) tma::barrier_arrive(&empty[s]);
+    tma::fence_proxy_async();
+    // the store of chunk j + 1 - kCopyOutStages has read chunk j + 1's out-stage
+    if (threadIdx.x == 0) tma::bulk_wait_read<kCopyOutStages - 2>();
+    asm volatile("bar.sync 1, %0;\\n" ::"n"(kCopyConsumers) : "memory");  // consumers only
+    if (threadIdx.x == 0) {
+      tma::bulk_store(y + off, dst, bytes);
+      tma::bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) tma::bulk_wait_all();
+"""),
+]
+
+
+def _ring(stage_kb=None, ins=None, outs=None, per_sm=None, warps=None) -> list:
+    """Edits of emit_copy's ring constants (``outs`` after ``_OUT_RING``)."""
+    out = []
+    for name, value, shipped in (
+        ("kCopyStageBytes", stage_kb and f"{stage_kb} * 1024", "16 * 1024"),
+        ("kCopyInStages", ins, 6),
+        ("kCopyOutStages", outs, 2),
+        ("kCopyBlocksPerSm", per_sm, 2),
+        ("kCopyConsumerWarps", warps, 4),
+    ):
+        if value is not None:
+            out.append((f"constexpr int {name} = {shipped};", f"constexpr int {name} = {value};"))
+    return out
+
+
+# name -> (kernel, edits of its file: whvi_kron.cu for the scale,
+# whvi_pipe.cu for the copy); the shipped emit_copy: 6 stages of 16 KB, two
+# blocks an SM, 4 consumer warps storing from the ring
+VARIANTS = {
+    "k_scale": ("scale", []),
+    "scale_smem_s1": ("scale", _SMEM_S1),
+    "emit_copy": ("copy", []),
+    "direct_4in_x2": ("copy", _ring(ins=4)),
+    "direct_4in_x3": ("copy", _ring(ins=4, per_sm=3)),
+    "direct_12in_x1": ("copy", _ring(ins=12, per_sm=1)),
+    "direct_32k_3in_x2": ("copy", _ring(stage_kb=32, ins=3)),
+    "direct_8k_12in_x2": ("copy", _ring(stage_kb=8, ins=12)),
+    "direct_2warps": ("copy", _ring(warps=2)),
+    "out_ring_x2": ("copy", _OUT_RING + _ring(ins=4)),
+    "out_ring_6in_3out_x1": ("copy", _OUT_RING + _ring(outs=3, per_sm=1)),
+    "out_ring_8in_4out_x1": ("copy", _OUT_RING + _ring(ins=8, outs=4, per_sm=1)),
+    "out_ring_32k_x1": ("copy", _OUT_RING + _ring(stage_kb=32, ins=4, per_sm=1)),
+    "out_ring_8k_x2": ("copy", _OUT_RING + _ring(stage_kb=8, ins=8, outs=4)),
+}
+
+
+def _edit(text: str, old, new: str, name: str, f: str) -> str:
+    """``old`` replaced by ``new``; ``old`` a (first, last) pair of
+    markers stands for the text from the first through the last."""
+    for marker in old if isinstance(old, tuple) else (old,):
+        if text.count(marker) != 1:
+            raise ValueError(f"variant {name}: {marker!r} occurs {text.count(marker)} times in {f}")
+    if isinstance(old, tuple):
+        start, end = text.index(old[0]), text.index(old[1]) + len(old[1])
+        if end <= start:
+            raise ValueError(f"variant {name}: the markers of {f} are out of order")
+        return text[:start] + new + text[end:]
+    return text.replace(old, new)
+
+
+def make_source(name: str, root: str) -> str:
+    """``root/name/csrc/<file>``, the variant's edited source beside copies
+    of the headers; raises if an edit does not match exactly once."""
+    kernel, edits = VARIANTS[name]
+    f = KRON if kernel == "scale" else PIPE
+    d = os.path.join(root, name, "csrc")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(fc.CSRC, d)
+    path = os.path.join(d, f)
+    with open(path) as fh:
+        text = fh.read()
+    for old, new in edits:
+        text = _edit(text, old, new, name, f)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def build(names, root: str) -> tuple[dict, dict]:
+    """Each variant's library and nvcc's report, all compiled at once."""
+    nvcc = fc._nvcc()
+    libs = {n: os.path.join(root, n, "lib.so") for n in names}
+    cmds = {n: [nvcc, *fc.NVCC_FLAGS, "-shared", "-o", libs[n], make_source(n, root)] for n in names}
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        reports = dict(zip(names, pool.map(lambda n: fc._run_all([cmds[n]]), names)))
+    return libs, reports
+
+
+def load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for fn, args in (
+        ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
+        ("kron_pipe_f32", [vp] * 5 + [i64, i32, i32, i32, vp]),
+    ):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def caller(lib, kernel: str, s1, x, y, tb):
+    """A call of the variant's kernel on the current stream: y = x * s1
+    (``scale``) or y = x (``copy``)."""
+    log2d = x.shape[1].bit_length() - 1
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        if kernel == "scale":
+            p = s1.data_ptr()
+            err = lib.kron_stage_f32(x.data_ptr(), p, p, p, y.data_ptr(), x.shape[0], log2d, tb,
+                                     kc._STAGES["scale"], kc._LAYOUTS["flat"], stream)
+        else:
+            err = lib.kron_pipe_f32(x.data_ptr(), None, None, None, y.data_ptr(), x.shape[0],
+                                    log2d, tb, 0, stream)
+        if err:
+            raise RuntimeError(f"{kernel} variant launch failed: cudaError_t {err}")
+        return y
+
+    return call
+
+
+def check(name: str, lib, dev) -> None:
+    kernel = VARIANTS[name][0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for d, b, tb in [(D, B, 4), *EDGES]:
+        s1 = torch.randn(d, device=dev, generator=gen)
+        x = torch.randn(b, d, device=dev, generator=gen)
+        y = torch.full_like(x, float("nan"))
+        caller(lib, kernel, s1, x, y, tb)()
+        want = x * s1 if kernel == "scale" else x
+        if not torch.equal(y, want):
+            raise AssertionError(f"variant {name}: D={d} B={b} tb={tb} is wrong")
+
+
+def _row(label, tb, ms, bound) -> dict:
+    return emit({"variant": label, "D": D, "B": B, "TB": tb, "ms": ms,
+                 "bound_ms": bound, "share": bound / ms})
+
+
+def yardsticks(s1, x) -> None:
+    scale_bound = bound_ms((x, s1), (x,), 0.0, 1.0)[0]
+    copy_bound = bound_ms((x,), (x,), 0.0, 1.0)[0]
+    _row("x * s1", None, time_us(lambda: x * s1, 20) / 1e3, scale_bound)
+    _row("x.clone()", None, time_us(x.clone, 20) / 1e3, copy_bound)
+    _row("k_copy (package)", 4, time_us(lambda: kc.k_copy(s1, s1, s1, x, 4), 20) / 1e3, copy_bound)
+    for tb in COPY_TBS:
+        ms = time_us(lambda: kc.copy_2d(s1, s1, s1, x, tb), 20) / 1e3
+        _row("copy_2d (package)", tb, ms, copy_bound)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="*", help=f"of {', '.join(VARIANTS)} (default: all)")
+    ap.add_argument("--root", default=os.path.join(fc.BUILD_DIR, "kron_variants"))
+    args = ap.parse_args(argv)
+    if unknown := set(args.variants) - set(VARIANTS):
+        ap.error(f"unknown variants {sorted(unknown)}")
+    header("kron_variants")
+    names = args.variants or list(VARIANTS)
+    libs, reports = build(names, args.root)
+    for name in names:
+        for symbol, row in sorted(ptxas(reports[name]).items()):
+            inst = _instance(symbol)
+            if inst and inst["kernel"] in ("k_scale", "emit_copy"):
+                emit({"variant": name, "ptxas": True, **inst, **row})
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s1 = torch.randn(D, device=dev, generator=gen)
+    x = torch.randn(B, D, device=dev, generator=gen)
+    y = torch.empty_like(x)
+    yardsticks(s1, x)
+    for name in names:
+        lib = load(libs[name])
+        check(name, lib, dev)
+        kernel = VARIANTS[name][0]
+        ins = (x, s1) if kernel == "scale" else (x,)
+        bound = bound_ms(ins, (x,), 0.0, 1.0)[0]
+        for tb in SCALE_TBS if kernel == "scale" else COPY_TBS:
+            _row(name, tb, time_us(caller(lib, kernel, s1, x, y, tb), 20) / 1e3, bound)
+    yardsticks(s1, x)
+
+
+if __name__ == "__main__":
+    main()

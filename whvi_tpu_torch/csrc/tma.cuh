@@ -7,11 +7,16 @@
 // (bulk_load), which counts those bytes off the barrier as they land. A
 // waiter spins on the barrier's phase parity (wait_parity): phase k of a
 // barrier armed once per fill completes when the k-th fill has landed, so
-// the k-th wait passes parity k & 1. A store (bulk_store) goes into the
-// issuing thread's current bulk group; bulk_commit closes the group, and
-// bulk_wait_read<N> returns once at most N committed groups still read
-// shared memory, so a stage may be refilled; bulk_wait_all once every
-// group has also written global memory.
+// the k-th wait passes parity k & 1. A barrier initialised with n
+// arrivals may count threads instead (barrier_arrive): a ring's "stage
+// free" barrier counts the warps that have read the stage. A store
+// (bulk_store) goes into the issuing thread's current bulk group;
+// bulk_commit closes the group, and bulk_wait_read<N> returns once at
+// most N of that thread's committed groups still read shared memory, so a
+// stage may be refilled; bulk_wait_all once every group has also written
+// global memory. Shared memory written by threads reaches a bulk store
+// only after fence_proxy_async in each writer and a barrier between the
+// writers and the issuing thread.
 //
 // Rules of the hardware: sizes and both addresses are multiples of 16
 // bytes; an mbarrier counts at most 2^20 - 1 bytes a phase.
@@ -50,6 +55,17 @@ __device__ __forceinline__ void arrive_expect_tx(uint64_t* bar, uint32_t bytes) 
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// One arrival on `bar` (release: this thread's earlier shared-memory
+// accesses are done before a waiter on the phase goes on).
+__device__ __forceinline__ void barrier_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {

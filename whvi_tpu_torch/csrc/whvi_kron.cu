@@ -39,13 +39,18 @@
 // every rung above it is read as cost beyond it, so it keeps their tiling
 // (one block of 256 threads a tile, B / tb blocks) and their route (x
 // through registers). What bounded it on an H100 was the bytes in flight
-// per SM, not HBM: the scale stage's loop, one 16-byte load and its store
-// a thread and iteration, reached 0.74 of HBM at TB = 4 (ptxas hoists
-// four loads, 16 KB a block). Here each thread issues kCopyUnroll = 8
+// per SM, not HBM: a loop of one 16-byte load and its store a thread and
+// iteration reached 0.74 of HBM at TB = 4 (ptxas hoists four loads, 16 KB
+// a block). Here each thread issues kCopyUnroll = 8
 // independent streaming loads (ld.global.cs) before their 8 stores
 // (st.global.cs): 32 KB in flight a block, one block an SM at TB = 4,
-// where 128 tiles leave 4 of the 132 SMs idle. The scale stage keeps the
-// old loop.
+// where 128 tiles leave 4 of the 132 SMs idle. The scale stage runs the
+// same loop (one load of x a thread and iteration reached 0.63 of HBM):
+// its thread also loads the kCopyUnroll float4s of s1 that its x float4s
+// meet, through the read-only cache (__ldg; s1 is D floats, reused by
+// every row of the tile), before one __fmul_rn an element, so y is
+// x * s1 bit for bit. s1 staged in shared memory once a block was 1%
+// slower on the H100 (bench/kron_variants.py, PERF.md).
 //
 // What bounds it on an H100: at D = 16384 the product moves 8 bytes an
 // element (x in, y out) against 2 * 2 * (128 + 128) = 1024 matmul flops
@@ -211,13 +216,31 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   } else if constexpr (kStage == kScale) {
+    // the copy's loop with s1's float4s loaded (cached) beside x's
+    const float4* xs = reinterpret_cast<const float4*>(xb);
+    const float4* ss = reinterpret_cast<const float4*>(s1);
+    float4* ys = reinterpret_cast<float4*>(yb);
     const int64_t n4 = ((int64_t)tb << log2d) >> 2;
     const int dmask4 = (D >> 2) - 1;
-    for (int64_t q = threadIdx.x; q < n4; q += kThreads) {
-      float4 v = reinterpret_cast<const float4*>(xb)[q];
-      const float4 s = __ldg(reinterpret_cast<const float4*>(s1) + (q & dmask4));
-      v = make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w);
-      reinterpret_cast<float4*>(yb)[q] = v;
+    for (int64_t q0 = threadIdx.x; q0 < n4; q0 += kThreads * kCopyUnroll) {
+      float4 v[kCopyUnroll], s[kCopyUnroll];
+#pragma unroll
+      for (int k = 0; k < kCopyUnroll; ++k) {
+        const int64_t q = q0 + k * kThreads;
+        if (q < n4) v[k] = __ldcs(xs + q);
+      }
+#pragma unroll
+      for (int k = 0; k < kCopyUnroll; ++k) {
+        const int64_t q = q0 + k * kThreads;
+        if (q < n4) s[k] = __ldg(ss + (q & dmask4));
+      }
+#pragma unroll
+      for (int k = 0; k < kCopyUnroll; ++k) {
+        const int64_t q = q0 + k * kThreads;
+        if (q < n4)
+          __stcs(ys + q, make_float4(__fmul_rn(v[k].x, s[k].x), __fmul_rn(v[k].y, s[k].y),
+                                     __fmul_rn(v[k].z, s[k].z), __fmul_rn(v[k].w, s[k].w)));
+      }
     }
   } else {
     const int rows = kGroupElems >> log2d;

@@ -1,35 +1,57 @@
-// The fused Kronecker product, and a copy, streamed through a two-stage
-// shared-memory ring by a persistent kernel.
+// The fused Kronecker product, and a copy, streamed by persistent kernels
+// through rings of stages in shared memory.
 //
 // Replaces benchmarks/pallas_diag.py:
 //   make_emit_full (the kernel at :130): k_full's body with x and y
 //     streamed through a manual double-buffered emit_pipeline, the
 //     diagonals and the H factors resident;
-//   make_emit_copy (:322): the same pipeline with y = x.
+//   make_emit_copy (:322): the same pipeline with y = x: a DMA of each
+//     block into the core's memory, a body that copies it, a DMA back out.
 // The TPU harness paired them: what lies between the two is the compute.
 //
-// Skeleton: a grid of min(#SMs, B / tb) blocks, one a SM. Block b walks
+// emit_full: a grid of min(#SMs, B / tb) blocks, one a SM. Block b walks
 // the row tiles b, b + grid, ... of tb rows each, a ring stage of up to
 // 16384 / D rows at a time (one 64 KB fp32 stage holds one row at
 // D = 16384). Every thread issues 16-byte cp.async copies of the next
 // stage before the block works on the current one, so one stage's compute
-// (or copy-out) overlaps the next stage's load. The compute is the flat
-// tensor-core product of kron_core.cuh on its two bf16 buffers: 128 KB of
-// ring plus 68 KB, one block an SM.
+// overlaps the next stage's load. The compute is the flat tensor-core
+// product of kron_core.cuh on its two bf16 buffers: 128 KB of ring plus
+// 68 KB, one block an SM. "Resident" here: H is generated in registers
+// from popcount, so nothing is loaded for it. The diagonals (3 x 64 KB at
+// D = 16384) do not fit beside the ring and the compute buffers; they are
+// read through the L1/L2 caches, where they stay. What bounds it on an
+// H100: as in whvi_kron.cu's flat layout, its tensor-core work (fragments
+// built with scalar shared loads). With B / tb tiles below the SM count,
+// SMs stay idle.
 //
-// "Resident" here: H is generated in registers from popcount, so nothing
-// is loaded for it. The diagonals (3 x 64 KB at D = 16384) do not fit
-// beside the ring and the compute buffers; they are read through the
-// L1/L2 caches, where they stay.
-//
-// What bounds it on an H100: the copy, the 3.35 TB/s of HBM; the product,
-// as in whvi_kron.cu's flat layout, its tensor-core work (fragments built
-// with scalar shared loads). With B / tb tiles below the SM count, SMs
-// stay idle.
-//
-// Left for later: TMA bulk copies with an mbarrier in place of cp.async,
-// a deeper ring, and warp-specialised loading.
+// emit_copy: the emit_pipeline's shape on Hopper's TMA (tma.cuh), bound
+// by HBM (8 bytes an element against 3.35 TB/s). Bytes in flight on every
+// SM bound such a copy (copy_floor.cu): emit_full's ring with the compute
+// taken out, one block a tile (128 blocks at TB = 4, 8 / 4 / 2 at the
+// TPU's TB = 64 / 128 / 256) and at most one 64 KB load in flight a block
+// while its threads store the other stage, reached 0.78 of HBM at TB = 4
+// and 0.05-0.20 at the TPU's tiles. So:
+//   - a persistent grid over chunks, not tiles: each tb-row tile is cut
+//     into chunks of at most one stage (kCopyStageBytes); a chunk never
+//     crosses a tile boundary and a tile's last chunk may be short
+//     (copy_2d's rule). The grid is min(kCopyBlocksPerSm * #SMs, chunks),
+//     so every SM works at any tile;
+//   - warp-specialised: lane 0 of the producer warp keeps kCopyInStages
+//     bulk loads in flight into the ring (192 KB an SM), each armed on its
+//     stage's `full` barrier, and refills a stage once its `empty` barrier
+//     says every consumer warp has read it;
+//   - the body: kCopyConsumerWarps warps wait on `full`, read the stage
+//     (float4, consecutive threads on consecutive 16 bytes: no bank
+//     conflicts), store it to global memory (st.global.cs), and release
+//     the stage, one arrival a warp. No block-wide barrier after the
+//     roles part: a __syncthreads would wait for the producer warp.
+// A body that copies each stage into a second ring in shared memory and
+// bulk-stores that (the skeleton a compute body would fit into) was
+// measured beside it on the H100 with the ring shapes: 0-2% slower at
+// equal shared memory, its in-ring smaller by the out-ring
+// (bench/kron_variants.py, PERF.md).
 #include "kron_core.cuh"
+#include "tma.cuh"
 
 namespace kron {
 
@@ -48,7 +70,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-template <bool kCompute>
 __global__ void __launch_bounds__(kThreads)
     pipe_kernel(const float* __restrict__ x, const float* __restrict__ s1,
                 const float* __restrict__ u, const float* __restrict__ s2,
@@ -90,54 +111,144 @@ __global__ void __launch_bounds__(kThreads)
     int nr;
     float* yg = y + group(j, nr) * D;
     const float* xs = ring + (j & 1) * kGroupElems;
-    if constexpr (kCompute) {
-      load_scaled_bf16(xs, s2, bufA, nr, log2d);
-      flat_group<kFull>(bufA, bufA + kGroupRows * kPitch, yg, nr, log2d, s1, u);
-    } else {
-      const int n4 = (int)(((int64_t)nr * D) >> 2);
-      for (int q = threadIdx.x; q < n4; q += kThreads)
-        reinterpret_cast<float4*>(yg)[q] = reinterpret_cast<const float4*>(xs)[q];
-      __syncthreads();  // stage j & 1 is free for group j + 2
-    }
+    load_scaled_bf16(xs, s2, bufA, nr, log2d);
+    flat_group<kFull>(bufA, bufA + kGroupRows * kPitch, yg, nr, log2d, s1, u);
   }
 }
 
-template <bool kCompute>
+// emit_copy's ring: its stages, their barriers, blocks an SM
+constexpr int kCopyStageBytes = 16 * 1024;
+constexpr int kCopyInStages = 6;
+constexpr int kCopyBlocksPerSm = 2;
+constexpr int kCopyConsumerWarps = 4;
+constexpr int kCopyConsumers = 32 * kCopyConsumerWarps;
+constexpr int kCopyThreads = kCopyConsumers + 32;  // and the producer warp
+constexpr size_t kCopyRingBytes = (size_t)kCopyInStages * kCopyStageBytes;
+constexpr size_t kCopySmem = kCopyRingBytes + 2 * kCopyInStages * sizeof(uint64_t);
+static_assert(kCopyBlocksPerSm * (kCopySmem + 1024) <= 228 * 1024,
+              "the rings of kCopyBlocksPerSm blocks must fit an SM's shared memory");
+
+// n_tiles tiles of tile_bytes each (a multiple of 16), cut into
+// per_tile chunks; gridDim.x <= n_tiles * per_tile.
+__global__ void __launch_bounds__(kCopyThreads)
+    emit_copy_kernel(const char* __restrict__ x, char* __restrict__ y,
+                     int64_t n_tiles, int64_t tile_bytes, int64_t per_tile) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* in = smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kCopyRingBytes);
+  uint64_t* empty = full + kCopyInStages;
+  const int64_t n_chunks = n_tiles * per_tile;
+  const int64_t mine = (n_chunks - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // byte offset and size of this block's j-th chunk
+  auto chunk = [&](int64_t j, uint32_t& bytes) {
+    const int64_t c = blockIdx.x + j * gridDim.x;
+    const int64_t tile = c / per_tile;
+    const int64_t off = (c - tile * per_tile) * kCopyStageBytes;
+    const int64_t left = tile_bytes - off;
+    bytes = (uint32_t)(left < kCopyStageBytes ? left : kCopyStageBytes);
+    return tile * tile_bytes + off;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kCopyInStages; ++s) {
+      tma::barrier_init(&full[s], 1);
+      tma::barrier_init(&empty[s], kCopyConsumerWarps);
+    }
+    tma::fence_barrier_init();
+  }
+  __syncthreads();  // the last block-wide barrier: the roles part here
+
+  if (warp == kCopyConsumerWarps) {  // the producer
+    if (lane != 0) return;
+    for (int64_t j = 0; j < mine; ++j) {
+      const int s = (int)(j % kCopyInStages);
+      const int64_t fill = j / kCopyInStages;  // of stage s
+      // fill k of a stage goes in once the consumers released fill k - 1
+      if (fill > 0) tma::wait_parity(&empty[s], (uint32_t)((fill - 1) & 1));
+      uint32_t bytes;
+      const int64_t off = chunk(j, bytes);
+      tma::arrive_expect_tx(&full[s], bytes);
+      tma::bulk_load(in + (size_t)s * kCopyStageBytes, x + off, bytes, &full[s]);
+    }
+    return;
+  }
+
+  // the consumers: chunk j from stage j % kCopyInStages
+  for (int64_t j = 0; j < mine; ++j) {
+    const int s = (int)(j % kCopyInStages);
+    uint32_t bytes;
+    const int64_t off = chunk(j, bytes);
+    const float4* src = reinterpret_cast<const float4*>(in + (size_t)s * kCopyStageBytes);
+    float4* dst = reinterpret_cast<float4*>(y + off);
+    tma::wait_parity(&full[s], (uint32_t)((j / kCopyInStages) & 1));
+    for (int q = threadIdx.x; q < (int)(bytes / 16); q += kCopyConsumers) __stcs(dst + q, src[q]);
+    __syncwarp();  // the warp has read the stage
+    if (lane == 0) tma::barrier_arrive(&empty[s]);
+  }
+}
+
+cudaError_t sm_count(int* sms) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
 cudaError_t launch_pipe(const float* x, const float* s1, const float* u,
                         const float* s2, float* y, int64_t B, int log2d,
                         int tb, cudaStream_t stream) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int64_t n_tiles = B / tb;
   const unsigned grid = (unsigned)(n_tiles < sms ? n_tiles : sms);
-  const size_t smem = 2 * (size_t)kGroupElems * sizeof(float) + (kCompute ? kFlatSmem : 0);
-  auto kernel = pipe_kernel<kCompute>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = 2 * (size_t)kGroupElems * sizeof(float) + kFlatSmem;
+  err = cudaFuncSetAttribute(pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(x, s1, u, s2, y, n_tiles, log2d, tb);
+  pipe_kernel<<<grid, kThreads, smem, stream>>>(x, s1, u, s2, y, n_tiles, log2d, tb);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_emit_copy(const float* x, float* y, int64_t B, int log2d, int tb,
+                             cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int64_t n_tiles = B / tb;
+  const int64_t tile_bytes = ((int64_t)tb << log2d) * (int64_t)sizeof(float);
+  const int64_t per_tile = (tile_bytes + kCopyStageBytes - 1) / kCopyStageBytes;
+  const int64_t n_chunks = n_tiles * per_tile;
+  const int64_t grid = (int64_t)kCopyBlocksPerSm * sms;
+  err = cudaFuncSetAttribute(emit_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kCopySmem);
+  if (err != cudaSuccess) return err;
+  emit_copy_kernel<<<(unsigned)(n_chunks < grid ? n_chunks : grid), kCopyThreads, kCopySmem,
+                     stream>>>(reinterpret_cast<const char*>(x), reinterpret_cast<char*>(y),
+                               n_tiles, tile_bytes, per_tile);
   return cudaGetLastError();
 }
 
 }  // namespace kron
 
-// x, y contiguous (B, D = 2^log2d) fp32; with compute, s1, u, s2 (D,) fp32
-// and y = s1 * H(u * H(s2 * x)) (kron_core.cuh), else y = x and the
-// diagonals are not read. Returns the launch's cudaError_t.
+// x, y contiguous (B, D = 2^log2d) fp32 on 16-byte boundaries; with
+// compute, s1, u, s2 (D,) fp32, likewise aligned, and y = s1 * H(u * H(s2
+// * x)) (kron_core.cuh), else y = x and the diagonals are not read.
+// Returns the launch's cudaError_t.
 extern "C" int kron_pipe_f32(const void* x, const void* s1, const void* u,
                              const void* s2, void* y, int64_t B, int log2d,
                              int tb, int compute, void* stream) {
   using namespace kron;
-  if (!valid_tiling(B, log2d, tb)) return (int)cudaErrorInvalidValue;
+  auto off16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (!valid_tiling(B, log2d, tb) || off16(x) || off16(y) ||
+      (compute && (off16(s1) || off16(u) || off16(s2))))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const auto* fx = static_cast<const float*>(x);
-  const auto* fs1 = static_cast<const float*>(s1);
-  const auto* fu = static_cast<const float*>(u);
-  const auto* fs2 = static_cast<const float*>(s2);
   auto* fy = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-  if (compute) return (int)launch_pipe<true>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
-  return (int)launch_pipe<false>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
+  if (!compute) return (int)launch_emit_copy(fx, fy, B, log2d, tb, st);
+  return (int)launch_pipe(fx, static_cast<const float*>(s1), static_cast<const float*>(u),
+                          static_cast<const float*>(s2), fy, B, log2d, tb, st);
 }

@@ -24,13 +24,15 @@ has ``(D,)`` diagonals and reaches the Pallas kernel in its default
 ``precision="bf16"``. ``fp32`` is the JAX ``--backend xla --precision
 highest``. The column head's FWHT is fp32 in both, as in JAX.
 
-Timing, as the JAX script's: a warm-up run of ``--steps`` steps, then per
-repeat runs of N and of 2N steps (calls), each ending in a host fetch of
-the last loss (of the summed predictions), which waits for the card;
-``dt = (t(2N) - t(N)) / N`` cancels the fixed cost of a run. The loop is
-eager Python on a host whose cores are shared, so t(N) and t(2N) are each
-the least of ``TRIALS`` runs (one run of 2N steps can finish sooner than
-one of N); a repeat whose 2N runs are still no slower than its N runs
+Timing, as the JAX script's: a warm-up of ``--steps`` steps (on a card,
+repeated for ``WARM_S`` seconds: an idle card sits at a low clock and
+ramps up under load), then per repeat runs of N and of 2N steps (calls),
+each ending in a host fetch of the last loss (of the summed predictions),
+which waits for the card; ``dt = (t(2N) - t(N)) / N`` cancels the fixed
+cost of a run. The loop is eager Python on a host whose cores are
+shared, so t(N) and t(2N) are each the least of ``TRIALS`` runs, taken in
+turns (N, 2N, N, 2N, ...) so that a slow spell of the host or the card
+falls on both; a repeat whose 2N runs are still no slower than its N runs
 raises rather than print a meaningless rate.
 
 Output: the first line names the card and its power limit (``bench``'s
@@ -66,7 +68,7 @@ from whvi_tpu_torch.ops import get_whvi_mul_precision, set_whvi_mul_precision
 from whvi_tpu_torch.train import TrainConfig, Trainer
 from whvi_tpu_torch.utils.profiling import elbo_step_flops, whvi_mul_flops
 
-__all__ = ["TRIALS", "build_net", "data", "finite", "main", "run"]
+__all__ = ["TRIALS", "WARM_S", "build_net", "data", "finite", "main", "run"]
 
 
 def build_net(D: int, samples: int, device=None):
@@ -92,17 +94,20 @@ def data(D: int, batch: int, seed: int, device):
 
 
 TRIALS = 3
+WARM_S = 0.5  # seconds of warm-up steps on a card before timing
 
 
-def _least_time(fn, k: int) -> tuple[float, float]:
-    """The least seconds of ``TRIALS`` runs of ``fn(k)``, which ends in a
-    host fetch, and the last run's value."""
-    best = math.inf
+def _least_times(fn, k: int) -> tuple[float, float, float]:
+    """The least seconds of ``TRIALS`` runs of ``fn(k)`` and of
+    ``fn(2 * k)``, taken in turns (each ends in a host fetch), and the
+    last run's value."""
+    best = [math.inf, math.inf]
     for _ in range(TRIALS):
-        t0 = time.perf_counter()
-        value = fn(k)
-        best = min(best, time.perf_counter() - t0)
-    return best, value
+        for i, n in enumerate((k, 2 * k)):
+            t0 = time.perf_counter()
+            value = fn(n)
+            best[i] = min(best[i], time.perf_counter() - t0)
+    return best[0], best[1], value
 
 
 def run(
@@ -148,11 +153,13 @@ def run(
 
             flops = elbo_step_flops([D, D], batch, samples)
 
+        end = time.perf_counter() + WARM_S
         go(steps)  # warm-up: the kernels' build and first launches
+        while device.type == "cuda" and time.perf_counter() < end:
+            go(steps)
         rows = []
         for _ in range(repeats):
-            t1, _ = _least_time(go, steps)
-            t2, value = _least_time(go, 2 * steps)
+            t1, t2, value = _least_times(go, steps)
             if t2 <= t1:
                 raise RuntimeError(
                     f"{2 * steps} steps took no longer than {steps} "

@@ -331,7 +331,9 @@ def emit_full(s1, u, s2, x, tb):
 
 
 def emit_copy(s1, u, s2, x, tb):
-    """``y = x`` through ``emit_full``'s ring with the compute taken out."""
+    """``y = x`` in ``(tb, D)`` tiles, the TPU's ``emit_pipeline`` copy: a
+    persistent grid streams each tile's chunks through a ring of TMA bulk
+    loads, and consumer warps store them from shared memory."""
     return _pipe("emit_copy", False, s1, u, s2, x, tb)
 
 
