@@ -28,14 +28,15 @@ Phases, each of which raises on failure:
    versions) on the same noise.
 5. The large-D kernel-diagnosis path (whvi_tpu_torch/ops/kron_cuda.py):
    each of its 13 kernels against its plain version at B=512, row tiles
-   of 4 and 32 (and of 256, two tiles, for copy_2d, k_copy and
-   emit_copy) and D = 128, 1024, 8192, 16384 (shapes first, then values;
+   of 4 and 32 (and of 256, two tiles, for copy_2d, k_copy, emit_copy
+   and k_swap) and D = 128, 1024, 8192, 16384 (shapes first, then values;
    tolerances kron_cuda.tol; the copies and the scale bit for bit), the
    full-product variants also against the fp32 product (BF16_TOL); device
    times (CUDA graph replay) of kernel and plain at D=16384, B=512, TB=4,
-   each with its share of HBM and bound, copy_2d's and emit_copy's also at
-   TB = 64, 128, 256, and the ratio of k_scale and emit_copy to their
-   library call (logged, not held). Then the path itself: the three entry
+   each with its share of HBM and bound, copy_2d's, emit_copy's and
+   k_swap's also at TB = 64, 128, 256, the ratio of k_scale, emit_copy
+   and hbm_copy to their library call and k_swap's share of its bound
+   (logged, not held). Then the path itself: the three entry
    points kernel_diag (and --floors), kernel_tune and kernel_check at
    their default sizes with few iterations; every one of the 13 kernels
    must have been launched by that run, and the entry points' own error
@@ -417,12 +418,13 @@ KRON_KERNELS = {
 }
 KRON_B = 512
 KRON_TB = 4  # 128 row tiles of 4 rows: one block for most of the 132 SMs
-# the copies whose design holds at any tile: also checked at two tiles of
+# the kernels whose design holds at any tile: also checked at two tiles of
 # 256 rows; the persistent ones also timed at kernel_diag --floors' tiles
-WIDE_TILE_KERNELS = ("k_copy", "copy_2d", "emit_copy")
+WIDE_TILE_KERNELS = ("k_copy", "copy_2d", "emit_copy", "k_swap")
 COPY_2D_TBS = (64, 128, 256)
+PERSISTENT = ("copy_2d", "emit_copy", "k_swap")
 # redesigned to beat one PyTorch call: their ratio to it is logged
-REDESIGNED = ("k_scale", "emit_copy")
+REDESIGNED = ("k_scale", "emit_copy", "hbm_copy")
 
 
 def _kron_operands(dev, gen, D):
@@ -482,9 +484,9 @@ def kron_times(kc, dev, seed) -> dict:
     TB=4: device time of 20 calls in one CUDA graph (the benchmarks'
     time_us), so the wrappers' host cost does not hide the copies' device
     time. Each is logged with its share of HBM (2 * B * D * 4 bytes a call
-    against 3.35 TB/s), copy_2d and emit_copy also at the tiles of
-    COPY_2D_TBS, and the kernels of REDESIGNED with their ratio to their
-    library call. The
+    against 3.35 TB/s), the PERSISTENT kernels also at the tiles of
+    COPY_2D_TBS, the kernels of REDESIGNED with their ratio to their
+    library call, and k_swap with its share of its bound. The
     copies' and the scale's plain version is one PyTorch call (x.clone(),
     x * s1), which is also their library call; the products have none (no
     one call rounds to bf16 between the factors)."""
@@ -497,7 +499,7 @@ def kron_times(kc, dev, seed) -> dict:
     log(f"large-D times at D={D}, B={KRON_B}, TB={KRON_TB} (device ms per call, 20 calls "
         "in a CUDA graph, median of 5 replays, plain/kernel/kernel/plain; share of HBM):")
     runs = [(name, KRON_TB) for name in kc.VARIANTS]
-    runs += [(name, tb) for tb in COPY_2D_TBS for name in ("copy_2d", "emit_copy")]
+    runs += [(name, tb) for tb in COPY_2D_TBS for name in PERSISTENT]
     for name, tb in runs:
         fn = kc.VARIANTS[name]
         kernel = lambda: fn(s1, u, s2, x, tb)  # noqa: E731
@@ -518,6 +520,9 @@ def kron_times(kc, dev, seed) -> dict:
         t = times[name]
         log(f"  {name} / its library call at TB={KRON_TB}: {t['ms'] / t['library_ms']:.3f} "
             f"({t['ms']:.4f} / {t['library_ms']:.4f} ms; share of bound {t['bound_ms'] / t['ms']:.3f})")
+    t = times["k_swap"]
+    log(f"  k_swap's share of its bound at TB={KRON_TB}: {t['bound_ms'] / t['ms']:.3f} "
+        f"({t['bound_ms']:.4f} / {t['ms']:.4f} ms)")
     return times
 
 

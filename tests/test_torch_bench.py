@@ -87,21 +87,30 @@ def test_sass_counts_every_form_of_an_op_once():
     ("_ZN4kron11pipe_kernelEPKfS1_S1_S1_Pflii", "emit_full"),
     (EMIT_COPY, "emit_copy"),
     ("_ZN4kron11kron_kernelILi4ELi2EEEvPKfS2_S2_S2_Pfii", None),  # k_full: not reported
-    ("_ZN9kron_copy14copy_2d_kernelEPKcPclll", None),
+    ("_ZN9kron_copy14copy_2d_kernelEPKcPclll", "hbm_copy"),  # copy_2d runs it too
 ])
 def test_large_d_instances_are_named_after_their_wrappers(symbol, kernel):
     want = None if kernel is None else {"kernel": kernel}
     assert kernel_sass._instance(symbol) == want
 
 
+@pytest.mark.parametrize("L", [7, 12, 14])
+def test_swap_instances_carry_their_width(L):
+    symbol = f"_ZN4kron16kron_swap_kernelILi{L}EEEvPKfS2_S2_S2_Pfl"
+    assert kernel_sass._instance(symbol) == {"kernel": "k_swap", "L": L}
+    rows = kernel_sass.sass_counts(f"        Function : {symbol}\n"
+                                   "        /*0010*/   UBLKCP.S.G [UR8], [UR10], UR4 ;\n")
+    assert dict(rows[symbol]) == {"UBLKCP.S.G": 1}
+
+
 @pytest.mark.parametrize("name", list(kron_variants.VARIANTS))
 def test_kron_variants_edit_the_shipped_sources(name, tmp_path):
     """Every variant's edits match the shipped source exactly once, and
-    only the shipped designs build it unchanged."""
+    only the shipped designs (no edits) build it unchanged."""
     path = kron_variants.make_source(name, str(tmp_path))
     with open(path) as f, open(os.path.join(CSRC, os.path.basename(path))) as g:
         edited, shipped = f.read(), g.read()
-    assert (edited == shipped) == (name in ("k_scale", "emit_copy"))
+    assert (edited == shipped) == (name in ("k_scale", "emit_copy", "hbm_copy", "k_swap"))
 
 
 def test_kron_variants_refuse_an_edit_that_does_not_match():

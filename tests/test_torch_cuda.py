@@ -263,7 +263,9 @@ def test_mixed_devices_and_strided_rows_raise(dev):
 # blocks for k_copy, the whole grid for copy_2d); 2048 chunks of 16 KB
 # (emit_copy's blocks each around their ring of 4 stages more than once);
 # the smoke's shape, 128 tiles (fewer than the SMs) of 16 chunks; one tile
-# of the whole batch, less than a stage
+# of the whole batch, less than a stage; tiles wider than the persistent
+# grids need (TB = 64 and 256 of the TPU harness at D = 16384 and 8192),
+# and at D = 128 one tile of the batch, 16 of k_swap's 32-row blocks
 KRON_SHAPES = [
     (128, 320, 160),
     (256, 64, 8),
@@ -279,6 +281,9 @@ KRON_SHAPES = [
     (1024, 8192, 8),
     (16384, 512, 4),
     (256, 8, 8),
+    (16384, 512, 64),
+    (8192, 256, 256),
+    (128, 512, 512),
 ]
 
 
@@ -370,3 +375,46 @@ def test_pipe_entry_refuses_misaligned_operands(dev):
     assert call(X, Y) == 0
     torch.cuda.synchronize()
     assert torch.equal(y, x)
+
+
+def test_stage_and_hbm_entries_refuse_misaligned_operands(dev):
+    """kron_stage_f32 refuses x, y, or a diagonal its stage reads (s1 for
+    the scale, s2 for mm1 and mm2, all three for the full product in any
+    layout) off a 16-byte boundary, and copy_hbm_f32 x or y (its bulk
+    copies and float4 reads would fault there): cudaErrorInvalidValue,
+    nothing launched, the context intact. The wrappers refuse such
+    operands before they reach them."""
+    lib = fc.load_library()
+    s1, u, s2, x = _kron_operands(dev, 256, 8)
+    y = torch.zeros_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    X, Y, S1, U, S2 = (a.data_ptr() for a in (x, y, s1, u, s2))
+    calls = [(stage, "flat") for stage in ("copy", "scale", "mm1", "mm2", "full")]
+    calls += [("full", layout) for layout in ("cur", "swap", "onecast")]
+    reads = {"copy": (), "scale": (0,), "mm1": (2,), "mm2": (2,), "full": (0, 1, 2)}
+
+    def stage(stage_, layout, xp, yp, diagonals=(S1, U, S2)):
+        return lib.kron_stage_f32(xp, *diagonals, yp, 8, 8, 4, kc._STAGES[stage_],
+                                  kc._LAYOUTS[layout], stream)
+
+    invalid_value = 1  # cudaErrorInvalidValue
+    for off in (4, 8, 12):
+        assert lib.copy_hbm_f32(X + off, Y, x.numel(), stream) == invalid_value
+        assert lib.copy_hbm_f32(X, Y + off, x.numel(), stream) == invalid_value
+        for stage_, layout in calls:
+            assert stage(stage_, layout, X + off, Y) == invalid_value
+            assert stage(stage_, layout, X, Y + off) == invalid_value
+            for i in reads[stage_]:
+                diagonals = [S1, U, S2]
+                diagonals[i] += off
+                assert stage(stage_, layout, X, Y, diagonals) == invalid_value
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.zeros_like(x))  # nothing was written
+    assert lib.copy_hbm_f32(X, Y, x.numel(), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, x)
+    # a stage that does not read a diagonal takes it off the boundary
+    assert stage("copy", "flat", X, Y, (S1 + 4, U + 4, S2 + 4)) == 0
+    assert stage("full", "swap", X, Y) == 0
+    torch.cuda.synchronize()
+    assert rel_err(y, kc.kron_plain(s1, u, s2, x)) <= kc.tol("k_swap", 256)

@@ -46,6 +46,7 @@ from whvi_tpu.ops.hadamard import fwht_kron as jax_fwht_kron
 from whvi_tpu.utils.profiling import fwht_flops as jax_fwht_flops
 from whvi_tpu.utils.profiling import whvi_mul_flops as jax_whvi_mul_flops
 
+from whvi_tpu_torch.ops import fwht_cuda as fc
 from whvi_tpu_torch.ops import kron_cuda as kc
 from whvi_tpu_torch.ops.hadamard import fwht, fwht_factors, fwht_kron, round_bf16
 from whvi_tpu_torch.utils import profiling
@@ -263,6 +264,49 @@ def test_kron_plain_is_not_fwht_kron_bf16():
     # mm2 is H_D(s2*x) with two roundings
     mm2 = kc.kron_plain(s1, u, s2, x, "mm2")
     assert rel_err(mm2.numpy(), fwht(round_bf16(s2 * x)).numpy()) <= kc.BF16_TOL
+
+
+@pytest.mark.parametrize("D", [128, 1024, 2048, 16384])
+def test_kron_plain_is_fused_plain_bf16_from_2048(D):
+    """From D = 2048 the bodies' product is K1's bf16 mode (two factors,
+    the same four roundings); below it K1 contracts one factor H_D and
+    rounds twice, so k_swap keeps a two-factor schedule of its own."""
+    s1, u, s2, x = (t(a) for a in _inputs(D, B=8, seed=5))
+    err = rel_err(kc.kron_plain(s1, u, s2, x).numpy(),
+                  fc.fused_plain(s1, u, s2, x, False, "bf16")[0].numpy())
+    if D >= 2048:
+        assert err <= BF16_PARITY_TOL
+    else:
+        assert err > BF16_PARITY_TOL
+
+
+def swap_schedule(s1, u, s2, x):
+    """kron_swap_kernel's order in PyTorch: radix-2 stages (0-6 are H_128,
+    7.. H_a), the second transform's downwards, and a bf16 rounding
+    wherever the kernel rounds its registers."""
+    B, D = x.shape
+    L = D.bit_length() - 1
+
+    def stages(v, order):
+        for s in order:
+            pair = v.reshape(B, -1, 2, 2**s)
+            v = torch.stack((pair[:, :, 0] + pair[:, :, 1], pair[:, :, 0] - pair[:, :, 1]), 2)
+        return v.reshape(B, D)
+
+    v = stages(round_bf16(x * s2), range(7))
+    v = stages(round_bf16(v), range(7, L))
+    v = stages(round_bf16(v * u), range(L - 1, 6, -1))
+    v = stages(round_bf16(v), range(6, -1, -1))
+    return v * s1
+
+
+@pytest.mark.parametrize("D", [128, 256, 2048])
+def test_swap_schedule_matches_pallas_body(D):
+    s1, u, s2, x = _inputs(D, B=16, seed=6)
+    got = swap_schedule(t(s1), t(u), t(s2), t(x)).numpy()
+    assert rel_err(got, kc.kron_plain(t(s1), t(u), t(s2), t(x)).numpy()) <= BF16_PARITY_TOL
+    want = run_body(_TUNE.k_swap, *map(jnp.asarray, (s1, u, s2, x)), TB=4)
+    assert rel_err(got, want) <= BF16_PARITY_TOL
 
 
 # ----------------------------------------------------- the wrappers' contract

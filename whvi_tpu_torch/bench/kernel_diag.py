@@ -13,9 +13,10 @@ Kronecker-factor product up one stage at a time, each stage one kernel
   k1         the port's fp32 fused kernel (``fused_raw(.., False)``)
   plain      the plain PyTorch Kronecker product (``kron_plain``)
 
-``--floors`` measures the copies instead: ``hbm_copy`` (grid-stride),
-``copy2d/tbN`` (staged through shared memory by a ring of TMA bulk
-copies on every SM, whatever the tile), ``emit_copy/tbN`` (the TPU's
+``--floors`` measures the copies instead: ``hbm_copy`` (the whole array
+as one tile through ``copy2d``'s ring), ``copy2d/tbN`` (staged through
+shared memory by a ring of TMA bulk copies on every SM, whatever the
+tile), ``emit_copy/tbN`` (the TPU's
 ``emit_pipeline`` copy: TMA bulk loads into a ring on every SM, stored by
 consumer warps) and ``copy3d/tbB-1step`` (``copy`` with the whole batch
 as one tile).

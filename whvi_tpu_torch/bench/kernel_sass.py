@@ -5,10 +5,12 @@ instructions that show the design.
 Builds the kernels' library (``fwht_cuda.build_kernels``, ``-Xptxas -v``)
 and disassembles it with ``cuobjdump -sass``. One JSON row per instance of
 ``whvi_fused_kernel`` (K1-K3: ``L`` = log2 D, ``residuals``, ``bf16``) and
-``fwht_kernel`` (K4) at the widths asked for, and one each for
+``fwht_kernel`` (K4) and of ``kron_swap_kernel`` (``k_swap``, from
+``L`` = 7) at the widths asked for, and one each for
 ``kron_kernel<kCopy, kFlat>`` (``k_copy``), ``kron_kernel<kScale, kFlat>``
-(``k_scale``), ``pipe_kernel`` (``emit_full``) and ``emit_copy_kernel``
-(``emit_copy``): ``registers``, ``stack`` bytes, ``spill_stores`` /
+(``k_scale``), ``pipe_kernel`` (``emit_full``), ``emit_copy_kernel``
+(``emit_copy``) and ``copy_2d_kernel`` (named ``hbm_copy``, which runs
+the whole array through it; ``copy_2d`` runs it in tiles): ``registers``, ``stack`` bytes, ``spill_stores`` /
 ``spill_loads`` bytes, and the counts of ``BAR.SYNC`` (block and named
 barriers: in K1-K4 one an exchange of the row through shared memory),
 ``LDG.E.128`` / ``STG.E.128`` (16-byte device-memory accesses; the
@@ -21,7 +23,8 @@ arrivals, with or without expected bytes) and
 ``cuobjdump``, no card.
 
 Run: python -m whvi_tpu_torch.bench.kernel_sass [--log2d 4 7 12 13 14]
-(--log2d picks the K1-K4 widths; the large-D rows are always printed)
+(--log2d picks the K1-K4 and k_swap widths; the other large-D rows are
+always printed)
 """
 
 from __future__ import annotations
@@ -42,12 +45,18 @@ _KERNEL = re.compile(r"_ZN4whvi(?:17whvi_fused_kernel|11fwht_kernel)ILi(\d+)E(?:
 # kron_kernel<stage, kFlat> of the copy (0) and the scale (1), pipe_kernel,
 # emit_copy_kernel
 _KRON = re.compile(r"_ZN4kron(?:11kron_kernelILi([01])ELi2EE|11pipe_kernelE|16emit_copy_kernelE)")
+_SWAP = re.compile(r"_ZN4kron16kron_swap_kernelILi(\d+)EE")
+_RING = "_ZN9kron_copy14copy_2d_kernelE"  # hbm_copy and copy_2d
 
 
 def _instance(symbol: str) -> dict | None:
     """``{"kernel", "L", "residuals", "bf16"}`` of a K1-K4 symbol,
-    ``{"kernel"}`` (the wrapper's name) of a large-D copy or scale, else
-    None."""
+    ``{"kernel", "L"}`` of ``k_swap``, ``{"kernel"}`` (the wrapper's name)
+    of a large-D copy or scale, else None."""
+    if m := _SWAP.search(symbol):
+        return {"kernel": "k_swap", "L": int(m.group(1))}
+    if _RING in symbol:
+        return {"kernel": "hbm_copy"}
     if m := _KRON.search(symbol):
         if m.group(1) is not None:
             return {"kernel": ("k_copy", "k_scale")[int(m.group(1))]}

@@ -6,7 +6,7 @@ accumulation, in the TPU bodies' order (``ops/kron_cuda.py``):
 
   flat     tensor cores, the tile's lane-rows as the matmul rows
   cur      CUDA cores, each factor contracted in place
-  swap     CUDA cores, transposed through shared memory
+  swap     CUDA cores, each row in registers (persistent grid)
   onecast  cur with one bf16 cast of each scaled activation
 
 at each row tile TB, plus ``flat/tbN-rep``, the last flat candidate

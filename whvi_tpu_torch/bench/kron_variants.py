@@ -1,28 +1,32 @@
-"""``k_scale`` and ``emit_copy`` built from variants of their CUDA sources
-and timed side by side on one card: what each choice of their designs is
-worth.
+"""``k_scale``, ``emit_copy``, ``hbm_copy`` and ``k_swap`` built from
+variants of their CUDA sources and timed side by side on one card: what
+each choice of their designs is worth.
 
 A variant is a copy of ``whvi_tpu_torch/csrc/`` with named edits
-(``VARIANTS``): a ring's shape changed, or another body put in. Each edit
-is a piece of source text that must occur exactly once in its file, so a
-variant never times the shipped source by mistake; a change to those
-lines needs the variant edited too. ``k_scale`` and ``emit_copy`` name the
-shipped designs (no edit).
+(``VARIANTS``): a ring's shape changed, another body put in, or a design
+switch turned off. Each edit is a piece of source text that must occur
+exactly once in its file, so a variant never times the shipped source by
+mistake; a change to those lines needs the variant edited too. A variant
+without edits (``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap``)
+names the shipped design.
 
 Each variant's edited source alone is compiled into its own library, all
-at once, and called through its C entry (``kron_stage_f32`` or
-``kron_pipe_f32``) with ``ctypes``. Every variant is first held bit for
-bit against its plain version (``x * s1``, ``x``) at D=16384, B=512 and
-at the ring's edges (``EDGES``).
+at once, and called through its C entry (``kron_stage_f32``,
+``kron_pipe_f32`` or ``copy_hbm_f32``) with ``ctypes``. Every variant is
+first held against its plain version at D=16384, B=512 and at the ring's
+edges (``EDGES``): bit for bit (``x * s1``, ``x``), or ``k_swap``'s
+within ``kron_cuda.tol`` of ``kron_plain``.
 
 JSON rows: first the card and its power limit; then per variant the
 ptxas report of its kernel (registers, spill bytes); then the device ms a
 call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) at
-D=16384, B=512, with the bound (x read once, s1 once, y written once,
-over 3.35 TB/s) and its share: the scale variants at TB=4, the copy
-variants at TB = 4, 64, 128, 256. The yardsticks, one PyTorch call
-(``x * s1``, ``x.clone()``) and the package's ``k_copy`` and ``copy_2d``,
-run first and last, so that drift of the card's clock shows.
+D=16384, B=512, with the bound (x read once, the diagonals once, y
+written once, over 3.35 TB/s) and its share: the scale variants at TB=4,
+``hbm_copy``'s untiled, the copy and swap variants at TB = 4, 64, 128,
+256. The yardsticks, one PyTorch call (``x * s1``, ``x.clone()``), the
+package's ``k_copy``, ``copy_2d`` and ``k_swap``, and K1's bf16 mode
+(the same rounding schedule from D = 2048), run first and last, so that
+drift of the card's clock shows.
 
 Run from the repository root on the card:
 python -m whvi_tpu_torch.bench.kron_variants [k_scale emit_copy out_ring_x2 ...]
@@ -38,15 +42,22 @@ import shutil
 
 import torch
 
-from whvi_tpu_torch.bench.common import bound_ms, emit, header, time_us
+from whvi_tpu_torch.bench.common import bound_ms, emit, header, rel_err, time_us
 from whvi_tpu_torch.bench.kernel_sass import _instance, ptxas
 from whvi_tpu_torch.ops import fwht_cuda as fc
 from whvi_tpu_torch.ops import kron_cuda as kc
 
-KRON, PIPE = "whvi_kron.cu", "whvi_pipe.cu"
+KRON, PIPE, COPY = "whvi_kron.cu", "whvi_pipe.cu", "copy_floor.cu"
+# each kind of variant: (its file, the wrapper whose kernel it edits, the
+# tiles it is timed at)
+KINDS = {
+    "scale": (KRON, "k_scale", (4,)),
+    "copy": (PIPE, "emit_copy", (4, 64, 128, 256)),
+    "hbm": (COPY, "hbm_copy", (None,)),  # untiled
+    "swap": (KRON, "k_swap", (4, 64, 128, 256)),
+}
 D, B = 16384, 512
-COPY_TBS = (4, 64, 128, 256)
-SCALE_TBS = (4,)
+COPY_TBS = KINDS["copy"][2]
 # (D, B, tb) checked bit for bit beside (D, B, 4): one-row tiles, far
 # more chunks than the grid; tiles of less than a stage; a full chunk and
 # a short one; every block around its ring more than once; two tiles
@@ -63,6 +74,8 @@ _SMEM_S1 = [
     ("if (q < n4) s[k] = __ldg(ss + (q & dmask4));", "if (q < n4) s[k] = s_tile[q & dmask4];"),
     ("  if (stage == kCopy || stage == kScale) return 0;\n",
      "  if (stage == kCopy) return 0;\n  if (stage == kScale) return sizeof(float) << log2d;\n"),
+    ("size_t smem_bytes(int stage, int layout) {", "size_t smem_bytes(int stage, int layout, int log2d) {"),
+    ("smem_bytes(kStage, kLayout);", "smem_bytes(kStage, kLayout, log2d);"),
 ]
 
 # emit_copy's consumers copying each stage into a second ring in shared
@@ -104,6 +117,50 @@ _OUT_RING = [
 ]
 
 
+def _hbm_regs(per_sm: int) -> list:
+    """hbm_copy as k_copy's register loop (8 streaming float4 loads a
+    thread before their stores) over a persistent grid-stride of per_sm
+    blocks of 256 threads an SM, in place of the ring."""
+    return [
+        ("cudaError_t sm_count(int* sms) {\n",
+         """constexpr int kRegThreads = 256, kRegUnroll = 8;
+
+__global__ void __launch_bounds__(kRegThreads)
+    hbm_copy_regs(const float4* __restrict__ x, float4* __restrict__ y, int64_t n4) {
+  const int64_t step = (int64_t)gridDim.x * kRegThreads * kRegUnroll;
+  for (int64_t q0 = (int64_t)blockIdx.x * kRegThreads * kRegUnroll + threadIdx.x; q0 < n4;
+       q0 += step) {
+    float4 v[kRegUnroll];
+#pragma unroll
+    for (int k = 0; k < kRegUnroll; ++k) {
+      const int64_t q = q0 + k * kRegThreads;
+      if (q < n4) v[k] = __ldcs(x + q);
+    }
+#pragma unroll
+    for (int k = 0; k < kRegUnroll; ++k) {
+      const int64_t q = q0 + k * kRegThreads;
+      if (q < n4) __stcs(y + q, v[k]);
+    }
+  }
+}
+
+cudaError_t sm_count(int* sms) {
+"""),
+        ("  return (int)launch_ring(x, y, 1, n * (int64_t)sizeof(float), "
+         "static_cast<cudaStream_t>(stream));\n",
+         f"""  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n4 = n / 4, per_block = (int64_t)kRegThreads * kRegUnroll;
+  const int64_t need = (n4 + per_block - 1) / per_block, cap = (int64_t)sms * {per_sm};
+  hbm_copy_regs<<<(unsigned)(need < cap ? need : cap), kRegThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(y), n4);
+  return (int)cudaGetLastError();
+"""),
+    ]
+
+
 def _ring(stage_kb=None, ins=None, outs=None, per_sm=None, warps=None) -> list:
     """Edits of emit_copy's ring constants (``outs`` after ``_OUT_RING``)."""
     out = []
@@ -119,9 +176,10 @@ def _ring(stage_kb=None, ins=None, outs=None, per_sm=None, warps=None) -> list:
     return out
 
 
-# name -> (kernel, edits of its file: whvi_kron.cu for the scale,
-# whvi_pipe.cu for the copy); the shipped emit_copy: 6 stages of 16 KB, two
-# blocks an SM, 4 consumer warps storing from the ring
+# name -> (kind, edits of its file, KINDS); the shipped emit_copy: 6
+# stages of 16 KB, two blocks an SM, 4 consumer warps storing from the
+# ring; the shipped hbm_copy: copy_2d's ring over one tile; the shipped
+# k_swap: the next row block's x prefetched by TMA
 VARIANTS = {
     "k_scale": ("scale", []),
     "scale_smem_s1": ("scale", _SMEM_S1),
@@ -137,6 +195,12 @@ VARIANTS = {
     "out_ring_8in_4out_x1": ("copy", _OUT_RING + _ring(ins=8, outs=4, per_sm=1)),
     "out_ring_32k_x1": ("copy", _OUT_RING + _ring(stage_kb=32, ins=4, per_sm=1)),
     "out_ring_8k_x2": ("copy", _OUT_RING + _ring(stage_kb=8, ins=8, outs=4)),
+    "hbm_copy": ("hbm", []),
+    "hbm_regs_x4": ("hbm", _hbm_regs(4)),
+    "hbm_regs_x8": ("hbm", _hbm_regs(8)),
+    "k_swap": ("swap", []),
+    "swap_no_prefetch": ("swap", [("constexpr bool kSwapPrefetch = true;",
+                                   "constexpr bool kSwapPrefetch = false;")]),
 }
 
 
@@ -157,8 +221,8 @@ def _edit(text: str, old, new: str, name: str, f: str) -> str:
 def make_source(name: str, root: str) -> str:
     """``root/name/csrc/<file>``, the variant's edited source beside copies
     of the headers; raises if an edit does not match exactly once."""
-    kernel, edits = VARIANTS[name]
-    f = KRON if kernel == "scale" else PIPE
+    kind, edits = VARIANTS[name]
+    f = KINDS[kind][0]
     d = os.path.join(root, name, "csrc")
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(fc.CSRC, d)
@@ -188,6 +252,7 @@ def load(path: str) -> ctypes.CDLL:
     for fn, args in (
         ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
         ("kron_pipe_f32", [vp] * 5 + [i64, i32, i32, i32, vp]),
+        ("copy_hbm_f32", [vp, vp, i64, vp]),
     ):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
@@ -195,37 +260,49 @@ def load(path: str) -> ctypes.CDLL:
     return lib
 
 
-def caller(lib, kernel: str, s1, x, y, tb):
+def caller(lib, kind: str, diagonals, x, y, tb):
     """A call of the variant's kernel on the current stream: y = x * s1
-    (``scale``) or y = x (``copy``)."""
+    (``scale``), y = x (``copy``, ``hbm``) or the whole product
+    (``swap``); ``diagonals`` is (s1, u, s2)."""
     log2d = x.shape[1].bit_length() - 1
+    s1, u, s2 = (d.data_ptr() for d in diagonals)
 
     def call():
         stream = torch.cuda.current_stream().cuda_stream
-        if kernel == "scale":
-            p = s1.data_ptr()
-            err = lib.kron_stage_f32(x.data_ptr(), p, p, p, y.data_ptr(), x.shape[0], log2d, tb,
-                                     kc._STAGES["scale"], kc._LAYOUTS["flat"], stream)
+        if kind in ("scale", "swap"):
+            stage, layout = ("scale", "flat") if kind == "scale" else ("full", "swap")
+            err = lib.kron_stage_f32(x.data_ptr(), s1, u, s2, y.data_ptr(), x.shape[0], log2d, tb,
+                                     kc._STAGES[stage], kc._LAYOUTS[layout], stream)
+        elif kind == "hbm":
+            err = lib.copy_hbm_f32(x.data_ptr(), y.data_ptr(), x.numel(), stream)
         else:
             err = lib.kron_pipe_f32(x.data_ptr(), None, None, None, y.data_ptr(), x.shape[0],
                                     log2d, tb, 0, stream)
         if err:
-            raise RuntimeError(f"{kernel} variant launch failed: cudaError_t {err}")
+            raise RuntimeError(f"{kind} variant launch failed: cudaError_t {err}")
         return y
 
     return call
 
 
+def _diagonals(d: int, gen):
+    return [torch.randn(d, device=gen.device, generator=gen) for _ in range(3)]
+
+
 def check(name: str, lib, dev) -> None:
-    kernel = VARIANTS[name][0]
+    kind = VARIANTS[name][0]
     gen = torch.Generator(device=dev).manual_seed(0)
     for d, b, tb in [(D, B, 4), *EDGES]:
-        s1 = torch.randn(d, device=dev, generator=gen)
+        diagonals = _diagonals(d, gen)
         x = torch.randn(b, d, device=dev, generator=gen)
         y = torch.full_like(x, float("nan"))
-        caller(lib, kernel, s1, x, y, tb)()
-        want = x * s1 if kernel == "scale" else x
-        if not torch.equal(y, want):
+        caller(lib, kind, diagonals, x, y, tb)()
+        if kind == "swap":
+            want = kc.kron_plain(*diagonals, x)
+            ok = bool(torch.isfinite(y).all()) and rel_err(y, want) <= kc.tol("k_swap", d)
+        else:
+            ok = torch.equal(y, x * diagonals[0] if kind == "scale" else x)
+        if not ok:
             raise AssertionError(f"variant {name}: D={d} B={b} tb={tb} is wrong")
 
 
@@ -234,15 +311,24 @@ def _row(label, tb, ms, bound) -> dict:
                  "bound_ms": bound, "share": bound / ms})
 
 
-def yardsticks(s1, x) -> None:
-    scale_bound = bound_ms((x, s1), (x,), 0.0, 1.0)[0]
-    copy_bound = bound_ms((x,), (x,), 0.0, 1.0)[0]
-    _row("x * s1", None, time_us(lambda: x * s1, 20) / 1e3, scale_bound)
+def _bound(kind: str, diagonals, x) -> float:
+    """Bytes over 3.35 TB/s: x, the diagonals the kind reads, y."""
+    ins = {"scale": (x, diagonals[0]), "swap": (x, *diagonals)}.get(kind, (x,))
+    return bound_ms(ins, (x,), 0.0, 1.0)[0]
+
+
+def yardsticks(diagonals, x) -> None:
+    s1, u, s2 = diagonals
+    copy_bound, swap_bound = _bound("copy", diagonals, x), _bound("swap", diagonals, x)
+    _row("x * s1", None, time_us(lambda: x * s1, 20) / 1e3, _bound("scale", diagonals, x))
     _row("x.clone()", None, time_us(x.clone, 20) / 1e3, copy_bound)
     _row("k_copy (package)", 4, time_us(lambda: kc.k_copy(s1, s1, s1, x, 4), 20) / 1e3, copy_bound)
     for tb in COPY_TBS:
         ms = time_us(lambda: kc.copy_2d(s1, s1, s1, x, tb), 20) / 1e3
         _row("copy_2d (package)", tb, ms, copy_bound)
+    _row("k_swap (package)", 4, time_us(lambda: kc.k_swap(s1, u, s2, x, 4), 20) / 1e3, swap_bound)
+    ms = time_us(lambda: fc.fused_raw(s1, u, s2, x, False, "bf16"), 20) / 1e3
+    _row("K1 bf16 (fused_y_bf16)", None, ms, swap_bound)
 
 
 def main(argv=None) -> None:
@@ -258,23 +344,22 @@ def main(argv=None) -> None:
     for name in names:
         for symbol, row in sorted(ptxas(reports[name]).items()):
             inst = _instance(symbol)
-            if inst and inst["kernel"] in ("k_scale", "emit_copy"):
+            if inst and inst["kernel"] == KINDS[VARIANTS[name][0]][1]:
                 emit({"variant": name, "ptxas": True, **inst, **row})
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    s1 = torch.randn(D, device=dev, generator=gen)
+    diagonals = _diagonals(D, gen)
     x = torch.randn(B, D, device=dev, generator=gen)
     y = torch.empty_like(x)
-    yardsticks(s1, x)
+    yardsticks(diagonals, x)
     for name in names:
         lib = load(libs[name])
         check(name, lib, dev)
-        kernel = VARIANTS[name][0]
-        ins = (x, s1) if kernel == "scale" else (x,)
-        bound = bound_ms(ins, (x,), 0.0, 1.0)[0]
-        for tb in SCALE_TBS if kernel == "scale" else COPY_TBS:
-            _row(name, tb, time_us(caller(lib, kernel, s1, x, y, tb), 20) / 1e3, bound)
-    yardsticks(s1, x)
+        kind = VARIANTS[name][0]
+        bound = _bound(kind, diagonals, x)
+        for tb in KINDS[kind][2]:
+            _row(name, tb, time_us(caller(lib, kind, diagonals, x, y, tb), 20) / 1e3, bound)
+    yardsticks(diagonals, x)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-// Shared pieces of the Walsh-Hadamard kernels (whvi_fused.cu, fwht.cu):
-// the register-resident radix-2 butterfly over one row, the block shape,
-// and the broadcast geometry the fused product receives from its Python
-// wrapper (whvi_tpu_torch/ops/fwht_cuda.py).
+// Shared pieces of the Walsh-Hadamard kernels (whvi_fused.cu, fwht.cu, and
+// k_swap's kron_swap_kernel in whvi_kron.cu): the register-resident
+// radix-2 butterfly over one row, the block shape, the bf16 rounding of
+// registers, and the broadcast geometry the fused product receives from
+// its Python wrapper (whvi_tpu_torch/ops/fwht_cuda.py).
 //
 // Layout. A row of D = 2^log2d floats is held by tpr = D / R threads, R =
 // 2^log2_regs(log2d) elements in registers each (R = D up to D = 16; 16
@@ -33,6 +34,7 @@
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace whvi {
@@ -230,6 +232,17 @@ struct RowExchange {
     buf ^= S::kBufBytes;
   }
 };
+
+// v rounded to bf16 (to nearest even) in place, two values a conversion
+template <int R>
+__device__ __forceinline__ void round_bf16(float (&v)[R]) {
+#pragma unroll
+  for (int j = 0; j < R; j += 2) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[j], v[j + 1]);
+    v[j] = __low2float(h);
+    v[j + 1] = __high2float(h);
+  }
+}
 
 // The radix-2 stage on register bit k: pairs j and j + 2^k, a + b and
 // a - b, as stage s pairs elements e and e + 2^s in the plain version

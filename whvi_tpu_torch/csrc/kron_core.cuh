@@ -1,6 +1,8 @@
-// Shared pieces of the Kronecker-factor kernels (whvi_kron.cu,
-// whvi_pipe.cu): the tensor-core factor contractions, the bf16 rounding
-// and the row-group layout in shared memory.
+// Shared pieces of the Kronecker-factor kernels (kron_kernel in
+// whvi_kron.cu, and whvi_pipe.cu; k_swap's kernel holds its rows in
+// registers on fwht_core.cuh instead): the tensor-core factor
+// contractions, the bf16 rounding and the row-group layout in shared
+// memory.
 //
 // The product y = s1 * H(u * H(s2 * x)) is computed on a row of
 // D = a * 128 elements viewed as an (a, 128) matrix T[i][k] = row[i*128+k],

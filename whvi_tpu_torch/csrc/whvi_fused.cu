@@ -52,25 +52,12 @@
 // Left for later: fewer exchanges (a wider register window where the
 // registers allow it), the butterfly as mma/wgmma Kronecker factors, and
 // fusing the backward's batch reductions.
-#include <cuda_bf16.h>
-
 #include "fwht_core.cuh"
 
 namespace whvi {
 
 constexpr int kLaneLog2 = 7;        // H_128, the TPU's lane factor
 constexpr int kOneFactorLog2 = 10;  // D <= 1024: one factor (_factor_pair)
-
-// v rounded to bf16 (to nearest even) in place, two values a conversion
-template <int R>
-__device__ __forceinline__ void round_bf16(float (&v)[R]) {
-#pragma unroll
-  for (int j = 0; j < R; j += 2) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[j], v[j + 1]);
-    v[j] = __low2float(h);
-    v[j + 1] = __high2float(h);
-  }
-}
 
 // v <- v * d[0 .. R), each product rounded once and never fused into an add
 template <int R>

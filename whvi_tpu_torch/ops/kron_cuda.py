@@ -17,8 +17,8 @@ wrapper        kernel (csrc/)          replaces
 ``k_mm2``      ``whvi_kron.cu`` flat   ``pallas_diag.py`` ``k_mm2``
 ``k_full``     ``whvi_kron.cu`` flat   ``pallas_diag.py`` ``k_full``
 ``emit_full``  ``whvi_pipe.cu``        ``pallas_diag.py`` ``make_emit_full``
-``hbm_copy``   ``copy_floor.cu``       ``pallas_diag.py`` ``make_hbm_copy``
-``copy_2d``    ``copy_floor.cu``       ``pallas_diag.py`` ``make_copy_2d``
+``hbm_copy``   ``copy_floor.cu`` ring  ``pallas_diag.py`` ``make_hbm_copy``
+``copy_2d``    ``copy_floor.cu`` ring  ``pallas_diag.py`` ``make_copy_2d``
 ``emit_copy``  ``whvi_pipe.cu``        ``pallas_diag.py`` ``make_emit_copy``
 ``k_cur``      ``whvi_kron.cu`` cur    ``pallas_tune.py`` ``k_cur``
 ``k_swap``     ``whvi_kron.cu`` swap   ``pallas_tune.py`` ``k_swap``
@@ -307,8 +307,11 @@ def k_cur(s1, u, s2, x, tb):
 
 
 def k_swap(s1, u, s2, x, tb):
-    """The whole product on the CUDA cores, transposed through shared
-    memory so that every contraction runs over the contiguous axis."""
+    """The whole product on the CUDA cores with each row in registers:
+    every contraction runs over the index bits a thread holds, and the
+    TPU body's axis swaps are exchanges of the row between register
+    windows. A persistent grid walks blocks of rows (``tb`` is checked,
+    not used), prefetching the next block's ``x`` by TMA."""
     return _product("k_swap", "full", "swap", s1, u, s2, x, tb)
 
 
@@ -338,8 +341,9 @@ def emit_copy(s1, u, s2, x, tb):
 
 
 def hbm_copy(s1, u, s2, x, tb=None):
-    """``y = x`` as one grid-stride copy of 16 bytes a thread: the card's
-    streaming floor. ``tb`` is ignored."""
+    """``y = x`` as one whole-array tile through ``copy_2d``'s ring of TMA
+    bulk copies, the counterpart of the TPU's one HBM -> HBM DMA. ``tb``
+    is ignored."""
     del tb
     check_kron_args(x, None)
     if _on_cpu(x):
