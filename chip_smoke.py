@@ -28,15 +28,16 @@ Phases, each of which raises on failure:
    versions) on the same noise.
 5. The large-D kernel-diagnosis path (whvi_tpu_torch/ops/kron_cuda.py):
    each of its 13 kernels against its plain version at B=512, row tiles
-   of 4 and 32 (and of 256, two tiles, for copy_2d, k_copy, emit_copy
-   and k_swap) and D = 128, 1024, 8192, 16384 (shapes first, then values;
-   tolerances kron_cuda.tol; the copies and the scale bit for bit), the
-   full-product variants also against the fp32 product (BF16_TOL); device
-   times (CUDA graph replay) of kernel and plain at D=16384, B=512, TB=4,
-   each with its share of HBM and bound, copy_2d's, emit_copy's and
-   k_swap's also at TB = 64, 128, 256, the ratio of k_scale, emit_copy
-   and hbm_copy to their library call and k_swap's share of its bound
-   (logged, not held). Then the path itself: the three entry
+   of 4 and 32 (and of 256, two tiles, for copy_2d, k_copy, emit_copy,
+   k_swap, k_cur and k_onecast) and D = 128, 1024, 8192, 16384 (shapes
+   first, then values; tolerances kron_cuda.tol; the copies and the scale
+   bit for bit), the full-product variants also against the fp32 product
+   (BF16_TOL); device times (CUDA graph replay) of kernel and plain at
+   D=16384, B=512, TB=4, each with its share of HBM and bound, the
+   persistent kernels (copy_2d, emit_copy, k_swap, k_cur, k_onecast) also
+   at TB = 64, 128, 256, the ratio of k_scale, emit_copy and hbm_copy to
+   their library call and the row kernels' share of their bound (logged,
+   not held). Then the path itself: the three entry
    points kernel_diag (and --floors), kernel_tune and kernel_check at
    their default sizes with few iterations; every one of the 13 kernels
    must have been launched by that run, and the entry points' own error
@@ -420,9 +421,10 @@ KRON_B = 512
 KRON_TB = 4  # 128 row tiles of 4 rows: one block for most of the 132 SMs
 # the kernels whose design holds at any tile: also checked at two tiles of
 # 256 rows; the persistent ones also timed at kernel_diag --floors' tiles
-WIDE_TILE_KERNELS = ("k_copy", "copy_2d", "emit_copy", "k_swap")
+WIDE_TILE_KERNELS = ("k_copy", "copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast")
 COPY_2D_TBS = (64, 128, 256)
-PERSISTENT = ("copy_2d", "emit_copy", "k_swap")
+PERSISTENT = ("copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast")
+ROW_KERNELS = ("k_swap", "k_cur", "k_onecast")  # rows in registers: share of bound logged
 # redesigned to beat one PyTorch call: their ratio to it is logged
 REDESIGNED = ("k_scale", "emit_copy", "hbm_copy")
 
@@ -486,7 +488,7 @@ def kron_times(kc, dev, seed) -> dict:
     time. Each is logged with its share of HBM (2 * B * D * 4 bytes a call
     against 3.35 TB/s), the PERSISTENT kernels also at the tiles of
     COPY_2D_TBS, the kernels of REDESIGNED with their ratio to their
-    library call, and k_swap with its share of its bound. The
+    library call, and the ROW_KERNELS with their share of their bound. The
     copies' and the scale's plain version is one PyTorch call (x.clone(),
     x * s1), which is also their library call; the products have none (no
     one call rounds to bf16 between the factors)."""
@@ -520,9 +522,10 @@ def kron_times(kc, dev, seed) -> dict:
         t = times[name]
         log(f"  {name} / its library call at TB={KRON_TB}: {t['ms'] / t['library_ms']:.3f} "
             f"({t['ms']:.4f} / {t['library_ms']:.4f} ms; share of bound {t['bound_ms'] / t['ms']:.3f})")
-    t = times["k_swap"]
-    log(f"  k_swap's share of its bound at TB={KRON_TB}: {t['bound_ms'] / t['ms']:.3f} "
-        f"({t['bound_ms']:.4f} / {t['ms']:.4f} ms)")
+    for name in ROW_KERNELS:
+        t = times[name]
+        log(f"  {name}'s share of its bound at TB={KRON_TB}: {t['bound_ms'] / t['ms']:.3f} "
+            f"({t['bound_ms']:.4f} / {t['ms']:.4f} ms)")
     return times
 
 

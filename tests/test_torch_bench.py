@@ -15,6 +15,7 @@ from whvi_tpu_torch.ops.fwht_cuda import CSRC
 FUSED_12 = "_ZN4whvi17whvi_fused_kernelILi12ELb1ELb0EEEvPKfS2_S2_S2_PfS3_S3_lNS_8GeometryE"
 FWHT_14 = "_ZN4whvi11fwht_kernelILi14EEEvPKfPfl"
 EMIT_COPY = "_ZN4kron16emit_copy_kernelEPKcPclll"
+CUR_14 = "_ZN4kron15kron_cur_kernelILi14EEEvPKfS2_S2_S2_Pfl"
 
 PTXAS = f"""\
 ptxas info    : Compiling entry function '{FUSED_12}' for 'sm_90a'
@@ -52,6 +53,12 @@ SASS = f"""\
         /*1a30*/                   STG.E.EF.128 desc[UR4][R10.64], R4 ;
         /*1a40*/                   LDG.E.EF.128 R4, desc[UR4][R2.64] ;
         /*12f0*/                   UBLKCP.G.S [UR16], [UR5], UR4 ;
+        Function : {CUR_14}
+        /*0200*/                   SHFL.BFLY PT, R5, R4, 0x1, 0x1f ;
+        /*0210*/                   SHFL.BFLY PT, R7, R6, 0x2, 0x1f ;
+        /*0220*/                   SHFL.IDX PT, R9, R8, RZ, 0x1f ;
+        /*0230*/                   STS.64 [R3], R4 ;
+        /*0240*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
 """
 
 
@@ -79,14 +86,15 @@ def test_sass_counts_every_form_of_an_op_once():
         "BAR.SYNC": 1, "SYNCS.PHASECHK.TRANS64.TRYWAIT": 1, "SYNCS.ARRIVE.TRANS64": 2,
         "UBLKCP.S.G": 1, "UBLKCP.G.S": 1, "LDS": 1, "STG.E.EF.128": 1, "LDG.E.EF.128": 1,
     }
+    assert dict(counts[CUR_14]) == {"SHFL.BFLY": 2, "STS": 1, "BAR.SYNC": 1}
 
 
 @pytest.mark.parametrize("symbol, kernel", [
-    ("_ZN4kron11kron_kernelILi0ELi2EEEvPKfS2_S2_S2_Pfii", "k_copy"),
-    ("_ZN4kron11kron_kernelILi1ELi2EEEvPKfS2_S2_S2_Pfii", "k_scale"),
+    ("_ZN4kron11kron_kernelILi0EEEvPKfS2_S2_S2_Pfii", "k_copy"),
+    ("_ZN4kron11kron_kernelILi1EEEvPKfS2_S2_S2_Pfii", "k_scale"),
     ("_ZN4kron11pipe_kernelEPKfS1_S1_S1_Pflii", "emit_full"),
     (EMIT_COPY, "emit_copy"),
-    ("_ZN4kron11kron_kernelILi4ELi2EEEvPKfS2_S2_S2_Pfii", None),  # k_full: not reported
+    ("_ZN4kron11kron_kernelILi4EEEvPKfS2_S2_S2_Pfii", None),  # k_full: not reported
     ("_ZN9kron_copy14copy_2d_kernelEPKcPclll", "hbm_copy"),  # copy_2d runs it too
 ])
 def test_large_d_instances_are_named_after_their_wrappers(symbol, kernel):
@@ -103,6 +111,16 @@ def test_swap_instances_carry_their_width(L):
     assert dict(rows[symbol]) == {"UBLKCP.S.G": 1}
 
 
+@pytest.mark.parametrize("L", [7, 12, 14])
+def test_cur_instances_carry_their_width(L):
+    """kron_cur_kernel<L>, which k_onecast launches too, is named k_cur."""
+    symbol = f"_ZN4kron15kron_cur_kernelILi{L}EEEvPKfS2_S2_S2_Pfl"
+    assert kernel_sass._instance(symbol) == {"kernel": "k_cur", "L": L}
+    rows = kernel_sass.sass_counts(f"        Function : {symbol}\n"
+                                   "        /*0010*/   SHFL.BFLY PT, R5, R4, 0x10, 0x1f ;\n")
+    assert dict(rows[symbol]) == {"SHFL.BFLY": 1}
+
+
 @pytest.mark.parametrize("name", list(kron_variants.VARIANTS))
 def test_kron_variants_edit_the_shipped_sources(name, tmp_path):
     """Every variant's edits match the shipped source exactly once, and
@@ -110,7 +128,7 @@ def test_kron_variants_edit_the_shipped_sources(name, tmp_path):
     path = kron_variants.make_source(name, str(tmp_path))
     with open(path) as f, open(os.path.join(CSRC, os.path.basename(path))) as g:
         edited, shipped = f.read(), g.read()
-    assert (edited == shipped) == (name in ("k_scale", "emit_copy", "hbm_copy", "k_swap"))
+    assert (edited == shipped) == (name in ("k_scale", "emit_copy", "hbm_copy", "k_swap", "k_cur"))
 
 
 def test_kron_variants_refuse_an_edit_that_does_not_match():

@@ -265,7 +265,10 @@ def test_mixed_devices_and_strided_rows_raise(dev):
 # the smoke's shape, 128 tiles (fewer than the SMs) of 16 chunks; one tile
 # of the whole batch, less than a stage; tiles wider than the persistent
 # grids need (TB = 64 and 256 of the TPU harness at D = 16384 and 8192),
-# and at D = 128 one tile of the batch, 16 of k_swap's 32-row blocks
+# and at D = 128 one tile of the batch, 16 of k_swap's 32-row blocks; the
+# two widths left, so that every instance of the row kernels (L = 7..14)
+# runs: D = 512, k_cur's row in one warp with no exchange, and D = 4096,
+# one row a block
 KRON_SHAPES = [
     (128, 320, 160),
     (256, 64, 8),
@@ -284,6 +287,8 @@ KRON_SHAPES = [
     (16384, 512, 64),
     (8192, 256, 256),
     (128, 512, 512),
+    (512, 64, 8),
+    (4096, 32, 4),
 ]
 
 
@@ -309,6 +314,24 @@ def test_kron_kernel_matches_plain(dev, name, shape):
         assert torch.equal(y, ref)
     if name in kc.FULL_PRODUCT:
         assert rel_err(y, fc.fused_plain(s1, u, s2, x, False)[0]) <= kc.BF16_TOL
+
+
+@pytest.mark.parametrize("shape", [(16384, 512, 4), (8192, 256, 256), (128, 512, 512)],
+                         ids=lambda s: f"D{s[0]}-B{s[1]}-tb{s[2]}")
+def test_cur_and_onecast_are_one_kernel(dev, shape):
+    """k_onecast's TPU body computes k_cur's bit for bit, so both wrappers
+    launch kron_cur_kernel: equal outputs, one launch each, each under its
+    own counter."""
+    D, B, tb = shape
+    s1, u, s2, x = _kron_operands(dev, D, B, seed=1)
+    kc.reset_launches()
+    cur = kc.k_cur(s1, u, s2, x, tb)
+    assert kc.LAUNCHES["k_cur"] == 1 and sum(kc.LAUNCHES.values()) == 1
+    onecast = kc.k_onecast(s1, u, s2, x, tb)
+    assert kc.LAUNCHES["k_onecast"] == 1 and sum(kc.LAUNCHES.values()) == 2
+    torch.cuda.synchronize()
+    assert torch.equal(cur, onecast)
+    assert rel_err(cur, kc.kron_plain(s1, u, s2, x)) <= kc.tol("k_cur", D)
 
 
 def test_kron_kernels_refuse_what_they_do_not_take(dev):

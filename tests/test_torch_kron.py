@@ -280,23 +280,25 @@ def test_kron_plain_is_fused_plain_bf16_from_2048(D):
         assert err > BF16_PARITY_TOL
 
 
+def _stages(v, order):
+    """Radix-2 stages of the Hadamard transform of each row of v (B, D) in
+    the given order, stage s pairing e and e + 2^s as the kernels do."""
+    B, D = v.shape
+    for s in order:
+        pair = v.reshape(B, -1, 2, 2**s)
+        v = torch.stack((pair[:, :, 0] + pair[:, :, 1], pair[:, :, 0] - pair[:, :, 1]), 2)
+    return v.reshape(B, D)
+
+
 def swap_schedule(s1, u, s2, x):
     """kron_swap_kernel's order in PyTorch: radix-2 stages (0-6 are H_128,
     7.. H_a), the second transform's downwards, and a bf16 rounding
     wherever the kernel rounds its registers."""
-    B, D = x.shape
-    L = D.bit_length() - 1
-
-    def stages(v, order):
-        for s in order:
-            pair = v.reshape(B, -1, 2, 2**s)
-            v = torch.stack((pair[:, :, 0] + pair[:, :, 1], pair[:, :, 0] - pair[:, :, 1]), 2)
-        return v.reshape(B, D)
-
-    v = stages(round_bf16(x * s2), range(7))
-    v = stages(round_bf16(v), range(7, L))
-    v = stages(round_bf16(v * u), range(L - 1, 6, -1))
-    v = stages(round_bf16(v), range(6, -1, -1))
+    L = x.shape[1].bit_length() - 1
+    v = _stages(round_bf16(x * s2), range(7))
+    v = _stages(round_bf16(v), range(7, L))
+    v = _stages(round_bf16(v * u), range(L - 1, 6, -1))
+    v = _stages(round_bf16(v), range(6, -1, -1))
     return v * s1
 
 
@@ -306,6 +308,47 @@ def test_swap_schedule_matches_pallas_body(D):
     got = swap_schedule(t(s1), t(u), t(s2), t(x)).numpy()
     assert rel_err(got, kc.kron_plain(t(s1), t(u), t(s2), t(x)).numpy()) <= BF16_PARITY_TOL
     want = run_body(_TUNE.k_swap, *map(jnp.asarray, (s1, u, s2, x)), TB=4)
+    assert rel_err(got, want) <= BF16_PARITY_TOL
+
+
+@pytest.mark.parametrize("D", [256, 2048])
+def test_cur_and_onecast_bodies_agree_bit_for_bit(D):
+    """k_onecast's casts sit where k_cur's _dotg casts its operand anyway,
+    so the two TPU bodies compute one function: the port launches one
+    kernel for both. k_swap's body, the same chain with the axes swapped,
+    agrees with them."""
+    s1, u, s2, x = map(jnp.asarray, _inputs(D, B=8, seed=3))
+    cur, onecast, swap = (run_body(body, s1, u, s2, x, TB=4)
+                          for body in (_TUNE.k_cur, _TUNE.k_onecast, _TUNE.k_swap))
+    assert np.array_equal(cur, onecast)
+    assert rel_err(cur, swap) <= BF16_PARITY_TOL
+
+
+def cur_schedule(s1, u, s2, x):
+    """kron_cur_kernel's order in PyTorch, derived from the I/O window as
+    the kernel derives it: H_128's stages 0-6 in the plain order (whether
+    in registers or by lane shuffles); then H_a's stages whose bits the
+    I/O window holds in registers (from bit kTop + 2, kTop its thread bits,
+    L - log2 R), then those on warps (7 .. kTop + 1), which the kernel runs
+    after an exchange; the second transform in reverse; a bf16 rounding
+    wherever the kernel rounds its registers."""
+    L = x.shape[1].bit_length() - 1
+    top = L - (4 if L < 13 else 5)
+    io_ha = max(top + 2, 7)
+    h_a = [*range(io_ha, L), *range(7, io_ha)]
+    v = _stages(round_bf16(x * s2), range(7))
+    v = _stages(round_bf16(v), h_a)
+    v = _stages(round_bf16(v * u), reversed(h_a))
+    v = _stages(round_bf16(v), range(6, -1, -1))
+    return v * s1
+
+
+@pytest.mark.parametrize("D", [128, 512, 2048, 8192])
+def test_cur_schedule_matches_pallas_body(D):
+    s1, u, s2, x = _inputs(D, B=16, seed=7)
+    got = cur_schedule(t(s1), t(u), t(s2), t(x)).numpy()
+    assert rel_err(got, kc.kron_plain(t(s1), t(u), t(s2), t(x)).numpy()) <= BF16_PARITY_TOL
+    want = run_body(_TUNE.k_cur, *map(jnp.asarray, (s1, u, s2, x)), TB=4)
     assert rel_err(got, want) <= BF16_PARITY_TOL
 
 

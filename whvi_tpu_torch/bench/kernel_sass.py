@@ -1,18 +1,20 @@
 """What nvcc made of the Walsh-Hadamard kernels K1-K4 and of the large-D
-copies and scale: per instance, the ptxas report and counts of the SASS
-instructions that show the design.
+copies, scale and row kernels: per instance, the ptxas report and counts
+of the SASS instructions that show the design.
 
 Builds the kernels' library (``fwht_cuda.build_kernels``, ``-Xptxas -v``)
 and disassembles it with ``cuobjdump -sass``. One JSON row per instance of
-``whvi_fused_kernel`` (K1-K3: ``L`` = log2 D, ``residuals``, ``bf16``) and
-``fwht_kernel`` (K4) and of ``kron_swap_kernel`` (``k_swap``, from
-``L`` = 7) at the widths asked for, and one each for
-``kron_kernel<kCopy, kFlat>`` (``k_copy``), ``kron_kernel<kScale, kFlat>``
+``whvi_fused_kernel`` (K1-K3: ``L`` = log2 D, ``residuals``, ``bf16``),
+``fwht_kernel`` (K4), ``kron_swap_kernel`` (``k_swap``) and
+``kron_cur_kernel`` (``k_cur``, which ``k_onecast`` launches too; the
+last two from ``L`` = 7) at the widths asked for, and one each for
+``kron_kernel<kCopy>`` (``k_copy``), ``kron_kernel<kScale>``
 (``k_scale``), ``pipe_kernel`` (``emit_full``), ``emit_copy_kernel``
 (``emit_copy``) and ``copy_2d_kernel`` (named ``hbm_copy``, which runs
 the whole array through it; ``copy_2d`` runs it in tiles): ``registers``, ``stack`` bytes, ``spill_stores`` /
 ``spill_loads`` bytes, and the counts of ``BAR.SYNC`` (block and named
 barriers: in K1-K4 one an exchange of the row through shared memory),
+``SHFL.BFLY`` (warp shuffles by lane XOR: ``k_cur``'s lane stages),
 ``LDG.E.128`` / ``STG.E.128`` (16-byte device-memory accesses; the
 ``.EF`` forms are the streaming ones, ``ld``/``st.global.cs``), ``LDS`` /
 ``STS`` (shared memory), ``LDL`` / ``STL`` (local memory: spills),
@@ -23,8 +25,8 @@ arrivals, with or without expected bytes) and
 ``cuobjdump``, no card.
 
 Run: python -m whvi_tpu_torch.bench.kernel_sass [--log2d 4 7 12 13 14]
-(--log2d picks the K1-K4 and k_swap widths; the other large-D rows are
-always printed)
+(--log2d picks the K1-K4, k_swap and k_cur widths; the other large-D
+rows are always printed)
 """
 
 from __future__ import annotations
@@ -38,23 +40,24 @@ import subprocess
 from whvi_tpu_torch.bench.common import emit
 from whvi_tpu_torch.ops import fwht_cuda as fc
 
-OPS = ("BAR.SYNC", "LDG.E.128", "LDG.E.EF.128", "STG.E.128", "STG.E.EF.128", "LDS", "STS",
+OPS = ("BAR.SYNC", "SHFL.BFLY", "LDG.E.128", "LDG.E.EF.128", "STG.E.128", "STG.E.EF.128", "LDS", "STS",
        "LDL", "STL", "LDGSTS", "UBLKCP.S.G", "UBLKCP.G.S", "SYNCS.ARRIVE.TRANS64",
        "SYNCS.PHASECHK.TRANS64.TRYWAIT")
 _KERNEL = re.compile(r"_ZN4whvi(?:17whvi_fused_kernel|11fwht_kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?")
-# kron_kernel<stage, kFlat> of the copy (0) and the scale (1), pipe_kernel,
+# kron_kernel<stage> of the copy (0) and the scale (1), pipe_kernel,
 # emit_copy_kernel
-_KRON = re.compile(r"_ZN4kron(?:11kron_kernelILi([01])ELi2EE|11pipe_kernelE|16emit_copy_kernelE)")
-_SWAP = re.compile(r"_ZN4kron16kron_swap_kernelILi(\d+)EE")
+_KRON = re.compile(r"_ZN4kron(?:11kron_kernelILi([01])EE|11pipe_kernelE|16emit_copy_kernelE)")
+# the row kernels: kron_swap_kernel<L> (k_swap), kron_cur_kernel<L> (k_cur)
+_ROW = re.compile(r"_ZN4kron(?:16kron_swap_kernel|15kron_cur_kernel)ILi(\d+)EE")
 _RING = "_ZN9kron_copy14copy_2d_kernelE"  # hbm_copy and copy_2d
 
 
 def _instance(symbol: str) -> dict | None:
     """``{"kernel", "L", "residuals", "bf16"}`` of a K1-K4 symbol,
-    ``{"kernel", "L"}`` of ``k_swap``, ``{"kernel"}`` (the wrapper's name)
-    of a large-D copy or scale, else None."""
-    if m := _SWAP.search(symbol):
-        return {"kernel": "k_swap", "L": int(m.group(1))}
+    ``{"kernel", "L"}`` of ``k_swap`` or ``k_cur``, ``{"kernel"}`` (the
+    wrapper's name) of a large-D copy or scale, else None."""
+    if m := _ROW.search(symbol):
+        return {"kernel": "k_cur" if "kron_cur" in symbol else "k_swap", "L": int(m.group(1))}
     if _RING in symbol:
         return {"kernel": "hbm_copy"}
     if m := _KRON.search(symbol):

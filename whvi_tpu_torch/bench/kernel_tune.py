@@ -5,9 +5,12 @@ Counterpart of ``benchmarks/pallas_tune.py``. Every variant computes
 accumulation, in the TPU bodies' order (``ops/kron_cuda.py``):
 
   flat     tensor cores, the tile's lane-rows as the matmul rows
-  cur      CUDA cores, each factor contracted in place
-  swap     CUDA cores, each row in registers (persistent grid)
-  onecast  cur with one bf16 cast of each scaled activation
+  cur      CUDA cores, each row in registers, each factor contracted in
+           place (H_128's lane bits by warp shuffles; persistent grid)
+  swap     CUDA cores, each row in registers, the TPU's axis swaps as
+           exchanges between register windows (persistent grid)
+  onecast  cur with one bf16 cast of each scaled activation: the same
+           function bit for bit, so the same kernel as cur
 
 at each row tile TB, plus ``flat/tbN-rep``, the last flat candidate
 again, to gauge the run-to-run noise. The ``plain`` row is the plain

@@ -1,35 +1,36 @@
-"""``k_scale``, ``emit_copy``, ``hbm_copy`` and ``k_swap`` built from
-variants of their CUDA sources and timed side by side on one card: what
-each choice of their designs is worth.
+"""``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap`` and ``k_cur`` built
+from variants of their CUDA sources and timed side by side on one card:
+what each choice of their designs is worth.
 
 A variant is a copy of ``whvi_tpu_torch/csrc/`` with named edits
 (``VARIANTS``): a ring's shape changed, another body put in, or a design
 switch turned off. Each edit is a piece of source text that must occur
 exactly once in its file, so a variant never times the shipped source by
 mistake; a change to those lines needs the variant edited too. A variant
-without edits (``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap``)
-names the shipped design.
+without edits (``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap``,
+``k_cur``) names the shipped design.
 
 Each variant's edited source alone is compiled into its own library, all
 at once, and called through its C entry (``kron_stage_f32``,
 ``kron_pipe_f32`` or ``copy_hbm_f32``) with ``ctypes``. Every variant is
 first held against its plain version at D=16384, B=512 and at the ring's
-edges (``EDGES``): bit for bit (``x * s1``, ``x``), or ``k_swap``'s
-within ``kron_cuda.tol`` of ``kron_plain``.
+edges (``EDGES``): bit for bit (``x * s1``, ``x``), or the products
+within ``kron_cuda.tol`` of ``kron_plain``; a ``k_cur`` variant also bit
+for bit against the package's ``k_cur`` (every form does the same adds).
 
 JSON rows: first the card and its power limit; then per variant the
 ptxas report of its kernel (registers, spill bytes); then the device ms a
 call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) at
 D=16384, B=512, with the bound (x read once, the diagonals once, y
 written once, over 3.35 TB/s) and its share: the scale variants at TB=4,
-``hbm_copy``'s untiled, the copy and swap variants at TB = 4, 64, 128,
-256. The yardsticks, one PyTorch call (``x * s1``, ``x.clone()``), the
-package's ``k_copy``, ``copy_2d`` and ``k_swap``, and K1's bf16 mode
-(the same rounding schedule from D = 2048), run first and last, so that
-drift of the card's clock shows.
+``hbm_copy``'s untiled, the copy, swap and cur variants at TB = 4, 64,
+128, 256. The yardsticks, one PyTorch call (``x * s1``, ``x.clone()``),
+the package's ``k_copy``, ``copy_2d``, ``k_swap`` and ``k_cur``, and K1's
+bf16 mode (the same rounding schedule from D = 2048), run first and last,
+so that drift of the card's clock shows.
 
 Run from the repository root on the card:
-python -m whvi_tpu_torch.bench.kron_variants [k_scale emit_copy out_ring_x2 ...]
+python -m whvi_tpu_torch.bench.kron_variants [k_cur cur_no_prefetch k_swap ...]
 """
 
 from __future__ import annotations
@@ -55,7 +56,9 @@ KINDS = {
     "copy": (PIPE, "emit_copy", (4, 64, 128, 256)),
     "hbm": (COPY, "hbm_copy", (None,)),  # untiled
     "swap": (KRON, "k_swap", (4, 64, 128, 256)),
+    "cur": (KRON, "k_cur", (4, 64, 128, 256)),
 }
+PRODUCTS = ("swap", "cur")  # the kinds that compute the whole product
 D, B = 16384, 512
 COPY_TBS = KINDS["copy"][2]
 # (D, B, tb) checked bit for bit beside (D, B, 4): one-row tiles, far
@@ -74,8 +77,8 @@ _SMEM_S1 = [
     ("if (q < n4) s[k] = __ldg(ss + (q & dmask4));", "if (q < n4) s[k] = s_tile[q & dmask4];"),
     ("  if (stage == kCopy || stage == kScale) return 0;\n",
      "  if (stage == kCopy) return 0;\n  if (stage == kScale) return sizeof(float) << log2d;\n"),
-    ("size_t smem_bytes(int stage, int layout) {", "size_t smem_bytes(int stage, int layout, int log2d) {"),
-    ("smem_bytes(kStage, kLayout);", "smem_bytes(kStage, kLayout, log2d);"),
+    ("size_t smem_bytes(int stage) {", "size_t smem_bytes(int stage, int log2d) {"),
+    ("smem_bytes(kStage);", "smem_bytes(kStage, log2d);"),
 ]
 
 # emit_copy's consumers copying each stage into a second ring in shared
@@ -176,10 +179,15 @@ def _ring(stage_kb=None, ins=None, outs=None, per_sm=None, warps=None) -> list:
     return out
 
 
+# the row kernels (k_swap, k_cur) without the TMA prefetch of the next row
+# block's x; a variant builds and times one kind, so one switch serves both
+_NO_ROW_PREFETCH = [("constexpr bool kRowPrefetch = true;",
+                     "constexpr bool kRowPrefetch = false;")]
+
 # name -> (kind, edits of its file, KINDS); the shipped emit_copy: 6
 # stages of 16 KB, two blocks an SM, 4 consumer warps storing from the
 # ring; the shipped hbm_copy: copy_2d's ring over one tile; the shipped
-# k_swap: the next row block's x prefetched by TMA
+# k_swap and k_cur: the next row block's x prefetched by TMA
 VARIANTS = {
     "k_scale": ("scale", []),
     "scale_smem_s1": ("scale", _SMEM_S1),
@@ -199,8 +207,9 @@ VARIANTS = {
     "hbm_regs_x4": ("hbm", _hbm_regs(4)),
     "hbm_regs_x8": ("hbm", _hbm_regs(8)),
     "k_swap": ("swap", []),
-    "swap_no_prefetch": ("swap", [("constexpr bool kSwapPrefetch = true;",
-                                   "constexpr bool kSwapPrefetch = false;")]),
+    "swap_no_prefetch": ("swap", _NO_ROW_PREFETCH),
+    "k_cur": ("cur", []),
+    "cur_no_prefetch": ("cur", _NO_ROW_PREFETCH),
 }
 
 
@@ -263,14 +272,14 @@ def load(path: str) -> ctypes.CDLL:
 def caller(lib, kind: str, diagonals, x, y, tb):
     """A call of the variant's kernel on the current stream: y = x * s1
     (``scale``), y = x (``copy``, ``hbm``) or the whole product
-    (``swap``); ``diagonals`` is (s1, u, s2)."""
+    (``swap``, ``cur``); ``diagonals`` is (s1, u, s2)."""
     log2d = x.shape[1].bit_length() - 1
     s1, u, s2 = (d.data_ptr() for d in diagonals)
 
     def call():
         stream = torch.cuda.current_stream().cuda_stream
-        if kind in ("scale", "swap"):
-            stage, layout = ("scale", "flat") if kind == "scale" else ("full", "swap")
+        if kind in ("scale", *PRODUCTS):
+            stage, layout = ("scale", "flat") if kind == "scale" else ("full", kind)
             err = lib.kron_stage_f32(x.data_ptr(), s1, u, s2, y.data_ptr(), x.shape[0], log2d, tb,
                                      kc._STAGES[stage], kc._LAYOUTS[layout], stream)
         elif kind == "hbm":
@@ -297,9 +306,11 @@ def check(name: str, lib, dev) -> None:
         x = torch.randn(b, d, device=dev, generator=gen)
         y = torch.full_like(x, float("nan"))
         caller(lib, kind, diagonals, x, y, tb)()
-        if kind == "swap":
+        if kind in PRODUCTS:
             want = kc.kron_plain(*diagonals, x)
-            ok = bool(torch.isfinite(y).all()) and rel_err(y, want) <= kc.tol("k_swap", d)
+            ok = bool(torch.isfinite(y).all()) and rel_err(y, want) <= kc.tol(KINDS[kind][1], d)
+            if kind == "cur":
+                ok = ok and torch.equal(y, kc.k_cur(*diagonals, x, tb))
         else:
             ok = torch.equal(y, x * diagonals[0] if kind == "scale" else x)
         if not ok:
@@ -313,7 +324,7 @@ def _row(label, tb, ms, bound) -> dict:
 
 def _bound(kind: str, diagonals, x) -> float:
     """Bytes over 3.35 TB/s: x, the diagonals the kind reads, y."""
-    ins = {"scale": (x, diagonals[0]), "swap": (x, *diagonals)}.get(kind, (x,))
+    ins = {"scale": (x, diagonals[0]), "swap": (x, *diagonals), "cur": (x, *diagonals)}.get(kind, (x,))
     return bound_ms(ins, (x,), 0.0, 1.0)[0]
 
 
@@ -327,6 +338,7 @@ def yardsticks(diagonals, x) -> None:
         ms = time_us(lambda: kc.copy_2d(s1, s1, s1, x, tb), 20) / 1e3
         _row("copy_2d (package)", tb, ms, copy_bound)
     _row("k_swap (package)", 4, time_us(lambda: kc.k_swap(s1, u, s2, x, 4), 20) / 1e3, swap_bound)
+    _row("k_cur (package)", 4, time_us(lambda: kc.k_cur(s1, u, s2, x, 4), 20) / 1e3, swap_bound)
     ms = time_us(lambda: fc.fused_raw(s1, u, s2, x, False, "bf16"), 20) / 1e3
     _row("K1 bf16 (fused_y_bf16)", None, ms, swap_bound)
 

@@ -1,8 +1,8 @@
 // Shared pieces of the Walsh-Hadamard kernels (whvi_fused.cu, fwht.cu, and
-// k_swap's kron_swap_kernel in whvi_kron.cu): the register-resident
-// radix-2 butterfly over one row, the block shape, the bf16 rounding of
-// registers, and the broadcast geometry the fused product receives from
-// its Python wrapper (whvi_tpu_torch/ops/fwht_cuda.py).
+// the row kernels of whvi_kron.cu, kron_swap_kernel and kron_cur_kernel):
+// the register-resident radix-2 butterfly over one row, the block shape,
+// the bf16 rounding of registers, and the broadcast geometry the fused
+// product receives from its Python wrapper (whvi_tpu_torch/ops/fwht_cuda.py).
 //
 // Layout. A row of D = 2^log2d floats is held by tpr = D / R threads, R =
 // 2^log2_regs(log2d) elements in registers each (R = D up to D = 16; 16
@@ -182,17 +182,21 @@ struct RowExchange {
   int tid;
   int buf = 0;   // byte offset of the buffer the next exchange writes
 
-  // byte offset of this thread's register 0 in window kW: the thread's
+  // block index E of this thread's register 0 in window kW: the thread's
   // bits are those of E outside the window, low bits first
   template <int kW>
-  __device__ __forceinline__ int lane_bytes() const {
-    int e;
+  __device__ __forceinline__ int lane_index() const {
     if constexpr (kW == kSplit) {
-      e = ((tid % S::kTpr) << 2) | ((tid / S::kTpr) << L);
+      return ((tid % S::kTpr) << 2) | ((tid / S::kTpr) << L);
     } else {
-      e = (tid & ((1 << kW) - 1)) | ((tid >> kW) << (kW + S::kLog2R));
+      return (tid & ((1 << kW) - 1)) | ((tid >> kW) << (kW + S::kLog2R));
     }
-    return 4 * S::slot(e);
+  }
+
+  // its byte offset in an exchange buffer
+  template <int kW>
+  __device__ __forceinline__ int lane_bytes() const {
+    return 4 * S::slot(lane_index<kW>());
   }
 
   __device__ __forceinline__ void sync() const {

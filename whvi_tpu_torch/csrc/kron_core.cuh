@@ -1,8 +1,7 @@
-// Shared pieces of the Kronecker-factor kernels (kron_kernel in
-// whvi_kron.cu, and whvi_pipe.cu; k_swap's kernel holds its rows in
-// registers on fwht_core.cuh instead): the tensor-core factor
-// contractions, the bf16 rounding and the row-group layout in shared
-// memory.
+// Shared pieces of the tensor-core Kronecker-factor kernels (kron_kernel's
+// flat layout in whvi_kron.cu, and whvi_pipe.cu; the kernels of k_cur and
+// k_swap hold their rows in registers on fwht_core.cuh instead): the
+// factor contractions and the row-group layout in shared memory.
 //
 // The product y = s1 * H(u * H(s2 * x)) is computed on a row of
 // D = a * 128 elements viewed as an (a, 128) matrix T[i][k] = row[i*128+k],
@@ -45,10 +44,6 @@ constexpr int kMaxLog2D = 14;  // D = 16384: a = 128
 constexpr size_t kFlatSmem = 2 * (size_t)kGroupRows * kPitch * sizeof(bf16);
 
 enum Stage { kCopy = 0, kScale = 1, kMm1 = 2, kMm2 = 3, kFull = 4 };
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // bf16 bits of H[i][j] = (-1)^popcount(i & j)
 __device__ __forceinline__ uint32_t sign_bits(int i, int j) {

@@ -6,43 +6,49 @@
 //                              (stage = copy .. full, flat layout);
 //   benchmarks/pallas_tune.py  k_cur, k_swap, k_flat, k_onecast
 //                              (stage = full, layout = cur/swap/flat/onecast).
-// kron_kernel, templated on the stage and the layout, runs all but k_swap,
-// as the bodies are one product built up a stage at a time (kron_core.cuh
-// says what is rounded where); k_swap has a kernel of its own,
-// kron_swap_kernel, on the register rows of fwht_core.cuh.
+// kron_kernel, templated on the stage, runs the flat layout: the stage
+// ladder, k_full and k_flat, one product built up a stage at a time
+// (kron_core.cuh says what is rounded where). The row kernels,
+// kron_cur_kernel (k_cur and k_onecast) and kron_swap_kernel (k_swap),
+// hold each row in registers on fwht_core.cuh.
 //
-// Tiling, as the TPU grid: block b owns rows [b*tb, (b+1)*tb) of x
-// (B, D); the caller picks tb and B % tb must be 0. A block walks its
-// rows a group of 16384 / D rows at a time (kron_core.cuh).
-// kron_swap_kernel only checks tb: its grid is persistent (below).
+// Tiling, as the TPU grid: block b of kron_kernel owns rows [b*tb,
+// (b+1)*tb) of x (B, D); the caller picks tb and B % tb must be 0. A block
+// walks its rows a group of 16384 / D rows at a time (kron_core.cuh). The
+// row kernels only check tb: their grid is persistent (below).
 //
 // Layouts:
 //   flat     the group's 128 lane-rows are the rows of the tensor-core
 //            products (mma.sync m16n8k16, bf16 in, fp32 accumulate):
 //            (128, 128) @ H_128, and H_a @ (a, 128) per row. Two bf16
 //            buffers, 68 KB of shared memory.
-//   cur      CUDA cores. The row stays in place in fp32 shared memory
-//            (64 KB a group); H_128 is radix-2 stages 0-6 of the row
-//            (within each 128-run), H_a is stages 7.. (the strided middle
-//            axis). H is +-1, so a contraction is sign flips and adds;
-//            the butterfly does them in 7 stages instead of 128 terms. The
-//            scale and the bf16 cast are separate passes, as the multiply
-//            and _dotg's astype are in k_cur.
-//   onecast  cur with each scaled activation cast to bf16 in the pass that
-//            scales it (k_onecast's single cast).
-//   swap     CUDA cores, the row in registers. The TPU body swaps the
-//            axes so that every contraction runs over the last axis. Here
-//            a contraction runs over the index bits that a thread holds in
-//            registers, and the swap is an exchange of the row between
-//            register windows through XOR-swizzled shared memory
-//            (fwht_core.cuh: a row of D floats over D / R threads, R = 16,
-//            or 32 from D = 8192). The body's rounding order: R(s2 x),
-//            H_128 (stages 0-6), R, H_a (stages 7..L-1), x u, R, H_a
-//            (stages L-1..7), R, H_128 (stages 6..0), x s1. Every rounding
-//            is of registers: no pass over shared memory, no barrier. From
-//            D = 2048 this is K1's bf16 schedule (whvi_fused.cu); below
-//            it K1 contracts one factor and k_swap two, so it does not
-//            launch K1.
+//   swap     CUDA cores, the row in registers (fwht_core.cuh: a row of D
+//            floats over D / R threads, R = 16, or 32 from D = 8192). The
+//            TPU body swaps the axes so that every contraction runs over
+//            the last axis. Here a contraction runs over the index bits
+//            that a thread holds in registers, and the swap is an exchange
+//            of the row between register windows through XOR-swizzled
+//            shared memory. The body's rounding order: R(s2 x), H_128
+//            (stages 0-6), R, H_a (stages 7..L-1), x u, R, H_a (stages
+//            L-1..7), R, H_128 (stages 6..0), x s1. Every rounding is of
+//            registers: no pass over shared memory, no barrier. From D =
+//            2048 this is K1's bf16 schedule (whvi_fused.cu); below it K1
+//            contracts one factor and k_swap two, so it does not launch K1.
+//   cur      CUDA cores, the row in registers as in swap, each factor
+//            contracted in place, as the TPU body contracts the middle
+//            axis without moving it. The row stays in the I/O window (index
+//            bits 0, 1 and the top ones in registers), where a warp's lanes
+//            hold bits 2-6, the rest of H_128's 128-run: H_128's stages 2-6
+//            run as warp shuffles (__shfl_xor_sync), its others and H_a's
+//            top stages in registers. Only H_a's bits that lie on warps
+//            (from D = 1024) take shared memory: one exchange out to the
+//            contiguous window from bit 7, where they run and u multiplies
+//            (a warp's u for one register is 128 contiguous bytes), and one
+//            back. The rounding order is swap's, with H_a's stages in
+//            another order (the top ones first).
+//   onecast  k_onecast's TPU body computes k_cur's bit for bit (_dotg
+//            casts its operand where k_onecast's casts sit), so it launches
+//            kron_cur_kernel.
 //   copy and scale stream the block's tile through registers, 16 bytes an
 //   access, and use no shared memory.
 //
@@ -68,24 +74,28 @@
 // an element: 2 * 128 flops per byte, below the 295 of the bf16 tensor
 // cores, so the flat layout is memory-bound once its tensor-core work runs
 // near peak. This first version builds every fragment with scalar shared
-// loads and generates H from popcount, so it is compute-bound; cur and
-// onecast are compute-bound by their shared-memory passes, and small tb
-// leaves SMs idle (B / tb blocks). The swap kernel's butterflies cost
-// 2 log2 D adds an element, but its 6 exchanges a row at D = 16384 move
+// loads and generates H from popcount, so it is compute-bound, and small
+// tb leaves SMs idle (B / tb blocks). The row kernels' butterflies cost
+// 2 log2 D adds an element. k_swap's 6 exchanges a row at D = 16384 move
 // 6 x 2 x 64 KB through shared memory against the row's 128 KB of HBM, so
-// it runs HBM and shared memory in turn. Its design does two things
-// about that: a persistent grid (as many blocks as fit on the SMs, each
-// walking row blocks b, b + grid, ...), so that its time no longer
+// it runs HBM and shared memory in turn; k_cur's 2 exchanges move a third
+// of that, and its 10 lane stages a row take R shuffles each, which share
+// the SM's shared-memory pipe (32 lanes a clock; a form with R / 2 shuffles
+// a stage and the window's bits permuted in between was 2% slower on the
+// H100, PERF.md). Both do two things about the HBM
+// traffic: a persistent grid (as many blocks as fit on the SMs, each
+// walking row blocks b, b + grid, ...), so that their time no longer
 // depends on tb; and, while a row block is transformed, one thread has the
 // next row block's x loaded into a stage in shared memory by a TMA bulk
-// copy (kSwapPrefetch), so the row's HBM load overlaps the previous row's
-// exchanges. On the H100 at D = 16384 that is worth 4-6%
-// (bench/kron_variants.py times it without): one 512-thread block an SM
-// holds the row, so the SM still runs the row's exchanges and the HBM
-// traffic in turn; at D = 8192, two blocks an SM, they overlap (PERF.md).
+// copy (RowBlocks), so the row's HBM load overlaps the previous row's
+// work. On the H100 at D = 16384 that was worth 4-6% to k_swap
+// (bench/kron_variants.py times each kernel without it): one 512-thread
+// block an SM holds the row, so the SM still runs the row's exchanges and
+// the HBM traffic in turn; at D = 8192, two blocks an SM, they overlap
+// (PERF.md).
 //
-// Left for later: ldmatrix and wgmma for the flat layout, warp shuffles
-// for cur's strided stages, and bulk stores of y.
+// Left for later: ldmatrix and wgmma for the flat layout, and bulk stores
+// of y.
 #include "fwht_core.cuh"
 #include "kron_core.cuh"
 #include "tma.cuh"
@@ -94,94 +104,9 @@ namespace kron {
 
 enum Layout { kCur = 0, kSwap = 1, kFlat = 2, kOneCast = 3 };
 
-// Radix-2 stages s in [s_lo, s_hi) of the Hadamard transform of length
-// 2^log2n over nvec vectors laid at buf + v * pitch. Ends in a barrier.
-__device__ __forceinline__ void butterfly_stages(float* buf, int nvec,
-                                                 int log2n, int pitch,
-                                                 int s_lo, int s_hi) {
-  if (s_lo >= s_hi) return;
-  const int half_log2 = log2n - 1;
-  const int half = 1 << half_log2;
-  const int total = nvec * half;
-  for (int s = s_lo; s < s_hi; ++s) {
-    const int h = 1 << s;
-    for (int p = threadIdx.x; p < total; p += kThreads) {
-      const int v = p >> half_log2, q = p & (half - 1);
-      float* row = buf + (size_t)v * pitch;
-      const int i0 = ((q >> s) << (s + 1)) | (q & (h - 1));
-      const float x0 = row[i0], x1 = row[i0 + h];
-      row[i0] = x0 + x1;
-      row[i0 + h] = x0 - x1;
-    }
-    __syncthreads();
-  }
-}
-
-// buf[e] = f(buf[e], e) for e < n; ends in a barrier
-template <class F>
-__device__ __forceinline__ void pass(float* buf, int n, F f) {
-  for (int e = threadIdx.x; e < n; e += kThreads) buf[e] = f(buf[e], e);
-  __syncthreads();
-}
-
-// y = buf * s1 over the group's nr rows, 16 bytes a thread
-__device__ __forceinline__ void store_scaled(const float* buf, float* y,
-                                             const float* __restrict__ s1,
-                                             int n, int dmask) {
-  for (int q = threadIdx.x; q < (n >> 2); q += kThreads) {
-    const float4 v = reinterpret_cast<const float4*>(buf)[q];
-    const float4 s = __ldg(reinterpret_cast<const float4*>(s1 + ((q << 2) & dmask)));
-    reinterpret_cast<float4*>(y)[q] =
-        make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w);
-  }
-}
-
-// buf = x * s2 (rounded to bf16 when kRound) over the group, fp32
-template <bool kRound>
-__device__ __forceinline__ void load_scaled(float* buf, const float* x,
-                                            const float* __restrict__ s2,
-                                            int n, int dmask) {
-  for (int q = threadIdx.x; q < (n >> 2); q += kThreads) {
-    const float4 v = reinterpret_cast<const float4*>(x)[q];
-    const float4 s = __ldg(reinterpret_cast<const float4*>(s2 + ((q << 2) & dmask)));
-    float4 w = make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w);
-    if (kRound) {
-      w = make_float4(round_bf16(w.x), round_bf16(w.y), round_bf16(w.z),
-                      round_bf16(w.w));
-    }
-    reinterpret_cast<float4*>(buf)[q] = w;
-  }
-  __syncthreads();
-}
-
-template <bool kOneCastPass>
-__device__ __forceinline__ void cur_group(float* buf, const float* x, float* y,
-                                          int nr, int log2d,
-                                          const float* __restrict__ s1,
-                                          const float* __restrict__ u,
-                                          const float* __restrict__ s2) {
-  const int D = 1 << log2d, n = nr << log2d, dmask = D - 1;
-  auto cast = [](float v, int) { return round_bf16(v); };
-  load_scaled<kOneCastPass>(buf, x, s2, n, dmask);
-  if (!kOneCastPass) pass(buf, n, cast);
-  butterfly_stages(buf, nr, log2d, D, 0, 7);  // H_128 on the last axis
-  pass(buf, n, cast);
-  butterfly_stages(buf, nr, log2d, D, 7, log2d);  // H_a on the middle axis
-  if (kOneCastPass) {
-    pass(buf, n, [&](float v, int e) { return round_bf16(v * __ldg(u + (e & dmask))); });
-  } else {
-    pass(buf, n, [&](float v, int e) { return v * __ldg(u + (e & dmask)); });
-    pass(buf, n, cast);
-  }
-  butterfly_stages(buf, nr, log2d, D, 7, log2d);
-  pass(buf, n, cast);
-  butterfly_stages(buf, nr, log2d, D, 0, 7);
-  store_scaled(buf, y, s1, n, dmask);
-}
-
 constexpr int kCopyUnroll = 8;  // 16-byte loads in flight a thread
 
-template <int kStage, int kLayout>
+template <int kStage>
 __global__ void __launch_bounds__(kThreads)
     kron_kernel(const float* __restrict__ x, const float* __restrict__ s1,
                 const float* __restrict__ u, const float* __restrict__ s2,
@@ -238,35 +163,27 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     const int rows = kGroupElems >> log2d;
+    bf16* bufA = reinterpret_cast<bf16*>(smem);
     for (int g0 = 0; g0 < tb; g0 += rows) {
       const int nr = min(rows, tb - g0);
-      const float* xg = xb + (int64_t)g0 * D;
-      float* yg = yb + (int64_t)g0 * D;
-      if constexpr (kLayout == kFlat) {
-        bf16* bufA = reinterpret_cast<bf16*>(smem);
-        load_scaled_bf16(xg, s2, bufA, nr, log2d);
-        flat_group<kStage>(bufA, bufA + kGroupRows * kPitch, yg, nr, log2d, s1, u);
-      } else {
-        cur_group<kLayout == kOneCast>(reinterpret_cast<float*>(smem), xg, yg,
-                                       nr, log2d, s1, u, s2);
-      }
+      load_scaled_bf16(xb + (int64_t)g0 * D, s2, bufA, nr, log2d);
+      flat_group<kStage>(bufA, bufA + kGroupRows * kPitch, yb + (int64_t)g0 * D, nr, log2d, s1, u);
       __syncthreads();  // the next group overwrites the buffers
     }
   }
 }
 
-size_t smem_bytes(int stage, int layout) {
+size_t smem_bytes(int stage) {
   if (stage == kCopy || stage == kScale) return 0;
-  if (layout == kFlat) return kFlatSmem;
-  return (size_t)kGroupElems * sizeof(float);
+  return kFlatSmem;
 }
 
-template <int kStage, int kLayout>
+template <int kStage>
 cudaError_t launch(const float* x, const float* s1, const float* u,
                    const float* s2, float* y, int64_t B, int log2d, int tb,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(kStage, kLayout);
-  auto kernel = kron_kernel<kStage, kLayout>;
+  const size_t smem = smem_bytes(kStage);
+  auto kernel = kron_kernel<kStage>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -277,13 +194,20 @@ cudaError_t launch(const float* x, const float* s1, const float* u,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ swap layout
+// ------------------------------------------------------------ row kernels
+//
+// kron_swap_kernel and kron_cur_kernel compute the whole product on x
+// (B, 2^L), L >= 7, a row block of S::kRows rows at a time (one row from
+// D = 4096), row blocks b, b + grid, ... in block b. u and s1 are loaded
+// where they are used, a float4 (or one float) at a time, so that a thread
+// holds its share of the row and little of a diagonal.
 
-// Whether kron_swap_kernel prefetches the next row block's x by TMA (one
-// line, so that bench/kron_variants.py can time the kernel without it).
-constexpr bool kSwapPrefetch = true;
-constexpr uint32_t kSwapChunkBytes = 16 * 1024;  // a bulk load of the prefetch
-constexpr int kLaneLog2 = 7;                     // stages [0, 7) are H_128
+// Design switch, one line, so that bench/kron_variants.py can time the row
+// kernels without it: the TMA prefetch of the next row block's x into a
+// stage in shared memory.
+constexpr bool kRowPrefetch = true;
+constexpr uint32_t kStageChunkBytes = 16 * 1024;  // a bulk load of the prefetch
+constexpr int kLaneLog2 = 7;                      // stages [0, 7) are H_128
 
 // v *= the diagonal d in the I/O window (d at the thread's first float4
 // of the row), one product __fmul_rn, one float4 of d loaded at a time
@@ -299,19 +223,78 @@ __device__ __forceinline__ void scale_io(float (&v)[R], const float* __restrict_
   }
 }
 
-// Shared memory of kron_swap_kernel<L>: the two exchange buffers, then
-// (with the prefetch) the stage of one row block and its mbarrier.
-template <int L>
-constexpr size_t swap_smem_bytes() {
+// Shared memory of a row kernel: two exchange buffers (kExchange), then
+// (kRowPrefetch) the stage of one row block and its mbarrier.
+template <int L, bool kExchange>
+constexpr size_t row_smem_bytes() {
   using S = whvi::RowShape<L>;
-  return 3 * (size_t)S::kBufBytes - (kSwapPrefetch ? 0 : S::kBufBytes) +
-         (kSwapPrefetch ? sizeof(uint64_t) : 0);
+  return (kExchange ? 2 * (size_t)S::kBufBytes : 0) +
+         (kRowPrefetch ? S::kBufBytes + sizeof(uint64_t) : 0);
 }
 
-// The whole product on x (B, 2^L), L >= 7, a row block of S::kRows rows
-// at a time (one row from D = 4096), row blocks b, b + grid, ... in block
-// b. u and s1 are loaded where they are used, a float4 at a time, so that
-// a thread holds its share of the row and one float4 of a diagonal.
+// The row blocks of x into the registers of the I/O window: from global
+// memory, or (kPrefetch) from a stage in shared memory that thread 0 has
+// the TMA unit fill with the block's next row block while the block works
+// on this one. The stage's mbarrier completes a phase a row block.
+template <int L, bool kPrefetch>
+struct RowBlocks {
+  using S = whvi::RowShape<L>;
+  const float* x;
+  int64_t B;
+  int64_t n;    // row blocks
+  char* stage;  // S::kBufBytes, then the mbarrier
+  uint32_t parity = 0;
+
+  __device__ RowBlocks(const float* x_, int64_t B_, char* stage_)
+      : x(x_), B(B_), n((B_ + S::kRows - 1) / S::kRows), stage(stage_) {}
+
+  __device__ __forceinline__ uint64_t* full() const {
+    return reinterpret_cast<uint64_t*>(stage + S::kBufBytes);
+  }
+
+  // one thread: the rows of row block rb into the stage, counted on full
+  __device__ __forceinline__ void fetch(int64_t rb) const {
+    const int64_t row0 = rb * S::kRows;
+    const int64_t rows = B - row0 < S::kRows ? B - row0 : S::kRows;
+    const uint32_t bytes = (uint32_t)(rows << L) * (uint32_t)sizeof(float);
+    const char* src = reinterpret_cast<const char*>(x + (row0 << L));
+    tma::arrive_expect_tx(full(), bytes);
+    for (uint32_t off = 0; off < bytes; off += kStageChunkBytes)
+      tma::bulk_load(stage + off, src + off,
+                     bytes - off < kStageChunkBytes ? bytes - off : kStageChunkBytes, full());
+  }
+
+  // every thread, before the first row block
+  __device__ __forceinline__ void start() const {
+    if constexpr (kPrefetch) {
+      if (threadIdx.x == 0) {
+        tma::barrier_init(full(), 1);
+        tma::fence_barrier_init();
+        if (blockIdx.x < n) fetch(blockIdx.x);
+      }
+      __syncthreads();
+    }
+  }
+
+  // every thread: v = its share of row r of row block rb, from its first
+  // float4 col (nothing loaded unless active: the row exists)
+  __device__ __forceinline__ void load(float (&v)[S::R], int64_t rb, int r, int col,
+                                       bool active) {
+    if constexpr (kPrefetch) {
+      tma::wait_parity(full(), parity);
+      parity ^= 1;
+      if (active)
+        whvi::load_regs<S::R, S::kTpr>(v, reinterpret_cast<const float*>(stage) + (r << L) + col);
+      __syncthreads();  // the stage is read: the next row block may land in it
+      if (threadIdx.x == 0 && rb + gridDim.x < n) fetch(rb + gridDim.x);
+    } else {
+      if (active) whvi::load_regs<S::R, S::kTpr>(v, x + ((rb * S::kRows + r) << L) + col);
+    }
+  }
+};
+
+// ------------------------------------------------------------ swap layout
+
 template <int L>
 __global__ void __launch_bounds__(whvi::RowShape<L>::kBlock, whvi::RowShape<L>::kMinBlocks)
     kron_swap_kernel(const float* __restrict__ x, const float* __restrict__ s1,
@@ -319,55 +302,24 @@ __global__ void __launch_bounds__(whvi::RowShape<L>::kBlock, whvi::RowShape<L>::
                      float* __restrict__ y, int64_t B) {
   using S = whvi::RowShape<L>;
   constexpr int kIo = whvi::kSplit;
-  // named apart from kron_kernel's smem: one extern array, one type
-  extern __shared__ __align__(128) char swap_smem[];
+  // named apart from kron_kernel's smem: an extern shared array's name has
+  // one type in a translation unit
+  extern __shared__ __align__(128) char row_smem[];
   const int tid = threadIdx.x;
   const int r = tid / S::kTpr;          // the thread's row in a row block
   const int col = (tid % S::kTpr) * 4;  // its first float4 of the row
-  const int64_t n_blocks = (B + S::kRows - 1) / S::kRows;
-  whvi::RowExchange<L> ex{swap_smem, tid};
-  char* stage = swap_smem + 2 * S::kBufBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(stage + S::kBufBytes);
+  whvi::RowExchange<L> ex{row_smem, tid};
+  RowBlocks<L, kRowPrefetch> xs(x, B, row_smem + 2 * S::kBufBytes);
+  xs.start();
 
-  // one thread: the rows of row block rb into the stage, counted on full
-  auto prefetch = [&](int64_t rb) {
-    const int64_t row0 = rb * S::kRows;
-    const int64_t rows = B - row0 < S::kRows ? B - row0 : S::kRows;
-    const uint32_t bytes = (uint32_t)(rows << L) * (uint32_t)sizeof(float);
-    const char* src = reinterpret_cast<const char*>(x + (row0 << L));
-    tma::arrive_expect_tx(full, bytes);
-    for (uint32_t off = 0; off < bytes; off += kSwapChunkBytes)
-      tma::bulk_load(stage + off, src + off,
-                     bytes - off < kSwapChunkBytes ? bytes - off : kSwapChunkBytes, full);
-  };
-  if constexpr (kSwapPrefetch) {
-    if (tid == 0) {
-      tma::barrier_init(full, 1);
-      tma::fence_barrier_init();
-      if (blockIdx.x < n_blocks) prefetch(blockIdx.x);
-    }
-    __syncthreads();
-  }
-
-  uint32_t parity = 0;
-  for (int64_t rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
+  for (int64_t rb = blockIdx.x; rb < xs.n; rb += gridDim.x) {
     const int64_t row = rb * S::kRows + r;
     const bool active = row < B;
-    const int64_t at = (row << L) + col;
     float v[S::R];
 #pragma unroll
     for (int j = 0; j < S::R; ++j) v[j] = 0.f;
     // 1. x and s2 in the I/O window, their product rounded
-    if constexpr (kSwapPrefetch) {
-      tma::wait_parity(full, parity);
-      parity ^= 1;
-      if (active)
-        whvi::load_regs<S::R, S::kTpr>(v, reinterpret_cast<const float*>(stage) + (r << L) + col);
-      __syncthreads();  // the stage is read: the next row block may land in it
-      if (tid == 0 && rb + gridDim.x < n_blocks) prefetch(rb + gridDim.x);
-    } else {
-      if (active) whvi::load_regs<S::R, S::kTpr>(v, x + at);
-    }
+    xs.load(v, rb, r, col, active);
     if (active) scale_io<S::R, S::kTpr>(v, s2 + col);
     whvi::round_bf16(v);
     // 2. H_128, stages 0..6 up; round
@@ -388,14 +340,175 @@ __global__ void __launch_bounds__(whvi::RowShape<L>::kBlock, whvi::RowShape<L>::
     whvi::to_io_window<L, S::after(w2, kLaneLog2 - 1, -1, -1)>(v, ex);
     if (active) {
       scale_io<S::R, S::kTpr>(v, s1 + col);
-      whvi::store_regs<S::R, S::kTpr>(y + at, v);
+      whvi::store_regs<S::R, S::kTpr>(y + (row << L) + col, v);
     }
   }
 }
 
-// kron_swap_kernel<L> on a persistent grid: as many blocks as fit on the
-// SMs, at most one a row block.
-struct SwapLaunch {
+// ------------------------------------------------------------- cur layout
+
+// Where kron_cur_kernel<L> contracts each index bit. The I/O window's
+// thread bits 0, 1, .. are index bits 2, 3, ..: H_128's stages 2 ..
+// kLanes + 1 run on lane bits 0 .. kLanes - 1, its others (0, 1, and
+// kLanes + 2 .. 6 below D = 512) in registers. H_a's stages kIoHa .. L - 1
+// run in the I/O window's registers, and 7 .. kIoHa - 1, whose bits lie on
+// warps (kExchange: from D = 1024), in window kW, the contiguous window from
+// bit 7 (kTop below it).
+template <int L>
+struct CurShape {
+  using S = whvi::RowShape<L>;
+  static constexpr int kLanes = S::kTop < 5 ? S::kTop : 5;
+  static constexpr int kIoHa = S::kTop + 2 > kLaneLog2 ? S::kTop + 2 : kLaneLog2;
+  static constexpr bool kExchange = kIoHa > kLaneLog2;
+  static constexpr int kW = S::window_for(kLaneLog2, true);
+  static_assert(!kExchange || (kW <= kLaneLog2 && kIoHa <= kW + S::kLog2R),
+                "window kW holds every stage whose bit lies on a warp");
+};
+
+// Radix-2 stages kS, kS + kStep, .. (kEnd excluded) in registers, stage s
+// on register bit s - kBase.
+template <int kBase, int kS, int kEnd, int kStep, int R>
+__device__ __forceinline__ void reg_stages(float (&v)[R]) {
+  if constexpr (kS != kEnd) {
+    whvi::butterfly<kS - kBase>(v);
+    reg_stages<kBase, kS + kStep, kEnd, kStep>(v);
+  }
+}
+
+// The radix-2 stage on lane bit k: lanes l and l ^ 2^k hold the pair's
+// two elements in each register. The lane with the bit clear keeps a + b,
+// the other a - b, as the plain stage; one FFMA each, b * -1 being exact.
+template <int k, int R>
+__device__ __forceinline__ void lane_butterfly(float (&v)[R]) {
+  const float sign = (threadIdx.x >> k) & 1 ? -1.f : 1.f;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float o = __shfl_xor_sync(0xffffffffu, v[j], 1 << k);
+    v[j] = __fmaf_rn(sign, v[j], o);
+  }
+}
+
+// Lane stages on lane bits kK, kK + kStep, .. (kEnd excluded)
+template <int kK, int kEnd, int kStep, int R>
+__device__ __forceinline__ void lane_stages(float (&v)[R]) {
+  if constexpr (kK != kEnd) {
+    lane_butterfly<kK>(v);
+    lane_stages<kK + kStep, kEnd, kStep>(v);
+  }
+}
+
+// H_128 (stages 0-6) on the I/O window, in the plain order upwards (kUp)
+// or downwards
+template <int L, bool kUp>
+__device__ __forceinline__ void h128(float (&v)[whvi::RowShape<L>::R]) {
+  using S = whvi::RowShape<L>;
+  constexpr int kLanes = CurShape<L>::kLanes;
+  if constexpr (kUp) {
+    whvi::butterfly<0>(v);
+    whvi::butterfly<1>(v);
+    lane_stages<0, kLanes, 1>(v);
+    reg_stages<S::kTop, kLanes + 2, kLaneLog2, 1>(v);
+  } else {
+    reg_stages<S::kTop, kLaneLog2 - 1, kLanes + 1, -1>(v);
+    lane_stages<kLanes - 1, -1, -1>(v);
+    whvi::butterfly<1>(v);
+    whvi::butterfly<0>(v);
+  }
+}
+
+// v *= the diagonal d at the elements that window kW holds: one float of
+// d a register, a warp's 32 consecutive (thread bits 0-4 are index bits
+// 0-4 in a contiguous window from bit 5 up).
+template <int L, int kW>
+__device__ __forceinline__ void scale_window(float (&v)[whvi::RowShape<L>::R],
+                                             const float* __restrict__ d,
+                                             const whvi::RowExchange<L>& ex) {
+  const float* p = d + (ex.template lane_index<kW>() & ((1 << L) - 1));
+#pragma unroll
+  for (int j = 0; j < whvi::RowShape<L>::R; ++j) v[j] = __fmul_rn(v[j], __ldg(p + (j << kW)));
+}
+
+template <int L>
+__global__ void __launch_bounds__(whvi::RowShape<L>::kBlock, whvi::RowShape<L>::kMinBlocks)
+    kron_cur_kernel(const float* __restrict__ x, const float* __restrict__ s1,
+                    const float* __restrict__ u, const float* __restrict__ s2,
+                    float* __restrict__ y, int64_t B) {
+  using S = whvi::RowShape<L>;
+  using C = CurShape<L>;
+  extern __shared__ __align__(128) char row_smem[];
+  const int tid = threadIdx.x;
+  const int r = tid / S::kTpr;          // the thread's row in a row block
+  const int col = (tid % S::kTpr) * 4;  // its first float4 of the row
+  whvi::RowExchange<L> ex{row_smem, tid};
+  RowBlocks<L, kRowPrefetch> xs(x, B, row_smem + (C::kExchange ? 2 * S::kBufBytes : 0));
+  xs.start();
+
+  for (int64_t rb = blockIdx.x; rb < xs.n; rb += gridDim.x) {
+    const int64_t row = rb * S::kRows + r;
+    const bool active = row < B;
+    float v[S::R];
+#pragma unroll
+    for (int j = 0; j < S::R; ++j) v[j] = 0.f;
+    // 1. x and s2 in the I/O window, their product rounded
+    xs.load(v, rb, r, col, active);
+    if (active) scale_io<S::R, S::kTpr>(v, s2 + col);
+    whvi::round_bf16(v);
+    // 2. H_128 up, its lane stages by shuffles; round
+    h128<L, true>(v);
+    whvi::round_bf16(v);
+    // 3. H_a up: the I/O window's register bits, then the warps' bits in
+    // window kW; x u where the row is; round
+    reg_stages<S::kTop, C::kIoHa, L, 1>(v);
+    if constexpr (C::kExchange) {
+      ex.template move<whvi::kSplit, C::kW>(v);
+      reg_stages<C::kW, kLaneLog2, C::kIoHa, 1>(v);
+      if (active) scale_window<L, C::kW>(v, u, ex);
+    } else {
+      if (active) scale_io<S::R, S::kTpr>(v, u + col);
+    }
+    whvi::round_bf16(v);
+    // 4. H_a down, in reverse; round
+    if constexpr (C::kExchange) {
+      reg_stages<C::kW, C::kIoHa - 1, kLaneLog2 - 1, -1>(v);
+      ex.template move<C::kW, whvi::kSplit>(v);
+    }
+    reg_stages<S::kTop, L - 1, C::kIoHa - 1, -1>(v);
+    whvi::round_bf16(v);
+    // 5. H_128 down; x s1; store
+    h128<L, false>(v);
+    if (active) {
+      scale_io<S::R, S::kTpr>(v, s1 + col);
+      whvi::store_regs<S::R, S::kTpr>(y + (row << L) + col, v);
+    }
+  }
+}
+
+// ------------------------------------------------------------ launches
+
+// kernel<<<min(blocks an SM x SMs, n_blocks), block, smem>>>(args...): a
+// persistent grid
+template <typename... P, typename... A>
+cudaError_t launch_persistent(void (*kernel)(P...), int block, size_t smem, int64_t n_blocks,
+                              cudaStream_t stream, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t grid = (int64_t)per_sm * sms;
+  kernel<<<(unsigned)(n_blocks < grid ? n_blocks : grid), block, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// A row kernel at L = log2 D on its persistent grid: kron_cur_kernel if
+// kCurKernel, else kron_swap_kernel.
+template <bool kCurKernel>
+struct RowLaunch {
   const float *x, *s1, *u, *s2;
   float* y;
   int64_t B;
@@ -407,23 +520,10 @@ struct SwapLaunch {
       return cudaErrorInvalidValue;
     } else {
       using S = whvi::RowShape<L>;
-      const auto kernel = kron_swap_kernel<L>;
-      constexpr size_t smem = swap_smem_bytes<L>();
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      int device = 0, sms = 0, per_sm = 0;
-      if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-      if (err != cudaSuccess) return err;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::kBlock, smem);
-      if (err != cudaSuccess) return err;
-      if (per_sm < 1) return cudaErrorInvalidConfiguration;
-      const int64_t n_blocks = (B + S::kRows - 1) / S::kRows;
-      const int64_t grid = (int64_t)per_sm * sms;
-      kernel<<<(unsigned)(n_blocks < grid ? n_blocks : grid), S::kBlock, smem, stream>>>(
-          x, s1, u, s2, y, B);
-      return cudaGetLastError();
+      constexpr bool kExchange = !kCurKernel || CurShape<L>::kExchange;
+      return launch_persistent(kCurKernel ? kron_cur_kernel<L> : kron_swap_kernel<L>, S::kBlock,
+                               row_smem_bytes<L, kExchange>(), (B + S::kRows - 1) / S::kRows,
+                               stream, x, s1, u, s2, y, B);
     }
   }
 };
@@ -454,23 +554,19 @@ extern "C" int kron_stage_f32(const void* x, const void* s1, const void* u,
   const auto* fs2 = static_cast<const float*>(s2);
   auto* fy = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-#define KRON_LAUNCH(S, L) \
-  (int)launch<S, L>(fx, fs1, fu, fs2, fy, B, log2d, tb, st)
   if (layout == kFlat) {
     switch (stage) {
-      case kCopy: return KRON_LAUNCH(kCopy, kFlat);
-      case kScale: return KRON_LAUNCH(kScale, kFlat);
-      case kMm1: return KRON_LAUNCH(kMm1, kFlat);
-      case kMm2: return KRON_LAUNCH(kMm2, kFlat);
-      case kFull: return KRON_LAUNCH(kFull, kFlat);
+      case kCopy: return (int)launch<kCopy>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
+      case kScale: return (int)launch<kScale>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
+      case kMm1: return (int)launch<kMm1>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
+      case kMm2: return (int)launch<kMm2>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
+      case kFull: return (int)launch<kFull>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
     }
-  } else if (stage == kFull) {
-    switch (layout) {
-      case kCur: return KRON_LAUNCH(kFull, kCur);
-      case kSwap: return (int)whvi::dispatch_log2d(log2d, SwapLaunch{fx, fs1, fu, fs2, fy, B, st});
-      case kOneCast: return KRON_LAUNCH(kFull, kOneCast);
-    }
+  } else if (stage == kFull && layout == kSwap) {
+    return (int)whvi::dispatch_log2d(log2d, RowLaunch<false>{fx, fs1, fu, fs2, fy, B, st});
+  } else if (stage == kFull && (layout == kCur || layout == kOneCast)) {
+    // k_onecast's body computes k_cur's bit for bit: one kernel serves both
+    return (int)whvi::dispatch_log2d(log2d, RowLaunch<true>{fx, fs1, fu, fs2, fy, B, st});
   }
-#undef KRON_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

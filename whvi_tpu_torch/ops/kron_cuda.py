@@ -26,6 +26,11 @@ wrapper        kernel (csrc/)          replaces
 ``k_onecast``  ``whvi_kron.cu`` cur    ``pallas_tune.py`` ``k_onecast``
 =============  ======================  =================================
 
+``k_cur`` and ``k_onecast`` launch one kernel, ``kron_cur_kernel``: the two
+TPU bodies compute the same function bit for bit (``_dotg`` casts its
+operand to bf16 where ``k_onecast`` casts it), each counted under its own
+name.
+
 Every wrapper takes ``(s1, u, s2, x, tb)`` like the TPU harness's
 ``fn(s1, u, s2, x)`` built for a tile of ``tb`` rows: ``x`` is a
 contiguous ``(B, D)`` float32 matrix with ``D`` a power of two in
@@ -301,8 +306,12 @@ def k_full(s1, u, s2, x, tb):
 
 
 def k_cur(s1, u, s2, x, tb):
-    """The whole product on the CUDA cores, each factor contracted in
-    place (the ``H_a`` factor over the strided middle axis)."""
+    """The whole product on the CUDA cores with each row in registers,
+    each factor contracted in place: ``H_128``'s lane-held index bits by
+    warp shuffles, ``H_a``'s warp-held bits in one window of registers
+    that the row visits once. A persistent grid walks blocks of rows
+    (``tb`` is checked, not used), prefetching the next block's ``x`` by
+    TMA."""
     return _product("k_cur", "full", "cur", s1, u, s2, x, tb)
 
 
@@ -322,8 +331,8 @@ def k_flat(s1, u, s2, x, tb):
 
 
 def k_onecast(s1, u, s2, x, tb):
-    """``k_cur`` with each scaled activation cast to bf16 in the pass that
-    scales it."""
+    """``k_cur`` with each scaled activation cast to bf16 where it is
+    scaled: the same function bit for bit, so the same kernel."""
     return _product("k_onecast", "full", "onecast", s1, u, s2, x, tb)
 
 
