@@ -29,15 +29,17 @@ Phases, each of which raises on failure:
 5. The large-D kernel-diagnosis path (whvi_tpu_torch/ops/kron_cuda.py):
    each of its 13 kernels against its plain version at B=512, row tiles
    of 4 and 32 (and of 256, two tiles, for copy_2d, k_copy, emit_copy,
-   k_swap, k_cur and k_onecast) and D = 128, 1024, 8192, 16384 (shapes
-   first, then values; tolerances kron_cuda.tol; the copies and the scale
-   bit for bit), the full-product variants also against the fp32 product
-   (BF16_TOL); device times (CUDA graph replay) of kernel and plain at
-   D=16384, B=512, TB=4, each with its share of HBM and bound, the
-   persistent kernels (copy_2d, emit_copy, k_swap, k_cur, k_onecast) also
+   k_swap, k_cur, k_onecast, k_full, k_flat and emit_full) and D = 128,
+   1024, 8192, 16384 (shapes first, then values; tolerances
+   kron_cuda.tol; the copies and the scale bit for bit), the full-product
+   variants also against the fp32 product (BF16_TOL), and k_full, k_flat
+   and emit_full (one kernel) against each other bit for bit; device times
+   (CUDA graph replay) of kernel and plain at D=16384, B=512, TB=4, each
+   with its share of HBM and bound, the persistent kernels (copy_2d,
+   emit_copy, k_swap, k_cur, k_onecast, k_full, k_flat, emit_full) also
    at TB = 64, 128, 256, the ratio of k_scale, emit_copy and hbm_copy to
-   their library call and the row kernels' share of their bound (logged,
-   not held). Then the path itself: the three entry
+   their library call and the share of their bound of the row kernels and
+   of the wgmma kernel (logged, not held). Then the path itself: the three entry
    points kernel_diag (and --floors), kernel_tune and kernel_check at
    their default sizes with few iterations; every one of the 13 kernels
    must have been launched by that run, and the entry points' own error
@@ -400,6 +402,7 @@ def run_slice(fc, dev, seed) -> dict:
 
 _KRON = "whvi_tpu_torch/csrc/whvi_kron.cu"
 _PIPE = "whvi_tpu_torch/csrc/whvi_pipe.cu"
+_FULL = "whvi_tpu_torch/csrc/whvi_full.cu"
 _COPY = "whvi_tpu_torch/csrc/copy_floor.cu"
 KRON_KERNELS = {
     # counter: (source, the TPU kernel it replaces)
@@ -407,23 +410,25 @@ KRON_KERNELS = {
     "k_scale": (_KRON, "benchmarks/pallas_diag.py:77"),
     "k_mm1": (_KRON, "benchmarks/pallas_diag.py:81"),
     "k_mm2": (_KRON, "benchmarks/pallas_diag.py:88"),
-    "k_full": (_KRON, "benchmarks/pallas_diag.py:98"),
-    "emit_full": (_PIPE, "benchmarks/pallas_diag.py:120"),
+    "k_full": (_FULL, "benchmarks/pallas_diag.py:98"),
+    "emit_full": (_FULL, "benchmarks/pallas_diag.py:120"),
     "hbm_copy": (_COPY, "benchmarks/pallas_diag.py:269"),
     "copy_2d": (_COPY, "benchmarks/pallas_diag.py:296"),
     "emit_copy": (_PIPE, "benchmarks/pallas_diag.py:322"),
     "k_cur": (_KRON, "benchmarks/pallas_tune.py:47"),
     "k_swap": (_KRON, "benchmarks/pallas_tune.py:57"),
-    "k_flat": (_KRON, "benchmarks/pallas_tune.py:69"),
+    "k_flat": (_FULL, "benchmarks/pallas_tune.py:69"),
     "k_onecast": (_KRON, "benchmarks/pallas_tune.py:85"),
 }
 KRON_B = 512
 KRON_TB = 4  # 128 row tiles of 4 rows: one block for most of the 132 SMs
 # the kernels whose design holds at any tile: also checked at two tiles of
 # 256 rows; the persistent ones also timed at kernel_diag --floors' tiles
-WIDE_TILE_KERNELS = ("k_copy", "copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast")
+FULL_KERNELS = ("k_full", "k_flat", "emit_full")  # one wgmma kernel: equal bit for bit
+WIDE_TILE_KERNELS = ("k_copy", "copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast",
+                     *FULL_KERNELS)
 COPY_2D_TBS = (64, 128, 256)
-PERSISTENT = ("copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast")
+PERSISTENT = ("copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast", *FULL_KERNELS)
 ROW_KERNELS = ("k_swap", "k_cur", "k_onecast")  # rows in registers: share of bound logged
 # redesigned to beat one PyTorch call: their ratio to it is logged
 REDESIGNED = ("k_scale", "emit_copy", "hbm_copy")
@@ -436,9 +441,10 @@ def _kron_operands(dev, gen, D):
 
 def kron_vs_plain(kc, fc, dev, seed) -> dict:
     """Each large-D kernel against its plain version; raises past its
-    tolerance (kc.tol, normalized by max |plain|), and for the full
-    product past kc.BF16_TOL against the fp32 product. Returns max
-    |kernel - plain| at D=16384, TB=4, where kron_times times them."""
+    tolerance (kc.tol, normalized by max |plain|), for the full product
+    past kc.BF16_TOL against the fp32 product, and unless the FULL_KERNELS
+    agree bit for bit. Returns max |kernel - plain| at D=16384, TB=4,
+    where kron_times times them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     max_abs = {}
     log(f"large-D kernels vs plain (B={KRON_B}; max |kernel - plain| / max |plain|, "
@@ -447,9 +453,9 @@ def kron_vs_plain(kc, fc, dev, seed) -> dict:
         s1, u, s2, x = _kron_operands(dev, gen, D)
         fp32 = fc.fused_plain(s1, u, s2, x, False)[0]
         for tb in (KRON_TB, 32, 256):
-            errs = {}
+            errs, outs = {}, {}
             for name in KRON_KERNELS if tb != 256 else WIDE_TILE_KERNELS:
-                y = kc.VARIANTS[name](s1, u, s2, x, tb)
+                y = outs[name] = kc.VARIANTS[name](s1, u, s2, x, tb)
                 ref = kc.plain(name, s1, u, s2, x)
                 torch.cuda.synchronize()
                 err = rel_err(y, ref)
@@ -462,6 +468,8 @@ def kron_vs_plain(kc, fc, dev, seed) -> dict:
                     e32 = rel_err(y, fp32)
                     check(e32 <= kc.BF16_TOL, f"{name} at D={D} tb={tb} vs fp32: {e32:.3e}")
                     errs[name + "/fp32"] = e32
+            check(all(torch.equal(outs[FULL_KERNELS[0]], outs[n]) for n in FULL_KERNELS),
+                  f"{', '.join(FULL_KERNELS)} at D={D} tb={tb}: not one kernel bit for bit")
             log(f"  D={D:<6} tb={tb:<3} " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
     return max_abs
 
@@ -488,7 +496,8 @@ def kron_times(kc, dev, seed) -> dict:
     time. Each is logged with its share of HBM (2 * B * D * 4 bytes a call
     against 3.35 TB/s), the PERSISTENT kernels also at the tiles of
     COPY_2D_TBS, the kernels of REDESIGNED with their ratio to their
-    library call, and the ROW_KERNELS with their share of their bound. The
+    library call, and the ROW_KERNELS and FULL_KERNELS with their share of
+    their bound. The
     copies' and the scale's plain version is one PyTorch call (x.clone(),
     x * s1), which is also their library call; the products have none (no
     one call rounds to bf16 between the factors)."""
@@ -522,7 +531,7 @@ def kron_times(kc, dev, seed) -> dict:
         t = times[name]
         log(f"  {name} / its library call at TB={KRON_TB}: {t['ms'] / t['library_ms']:.3f} "
             f"({t['ms']:.4f} / {t['library_ms']:.4f} ms; share of bound {t['bound_ms'] / t['ms']:.3f})")
-    for name in ROW_KERNELS:
+    for name in ROW_KERNELS + FULL_KERNELS:
         t = times[name]
         log(f"  {name}'s share of its bound at TB={KRON_TB}: {t['bound_ms'] / t['ms']:.3f} "
             f"({t['bound_ms']:.4f} / {t['ms']:.4f} ms)")

@@ -16,6 +16,7 @@ FUSED_12 = "_ZN4whvi17whvi_fused_kernelILi12ELb1ELb0EEEvPKfS2_S2_S2_PfS3_S3_lNS_
 FWHT_14 = "_ZN4whvi11fwht_kernelILi14EEEvPKfPfl"
 EMIT_COPY = "_ZN4kron16emit_copy_kernelEPKcPclll"
 CUR_14 = "_ZN4kron15kron_cur_kernelILi14EEEvPKfS2_S2_S2_Pfl"
+FULL = "_ZN4kron16kron_full_kernelILi4EEEvPKfS2_S2_S2_Pfli"
 
 PTXAS = f"""\
 ptxas info    : Compiling entry function '{FUSED_12}' for 'sm_90a'
@@ -59,6 +60,12 @@ SASS = f"""\
         /*0220*/                   SHFL.IDX PT, R9, R8, RZ, 0x1f ;
         /*0230*/                   STS.64 [R3], R4 ;
         /*0240*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        Function : {FULL}
+        /*0400*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0410*/                   HGMMA.64x128x16.F32.BF16 R88, gdesc[UR12], R88, gsb0 ;
+        /*0420*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*0430*/                   BAR.SYNC R3, 0x80 ;
+        /*0440*/                   STS [R5], R6 ;
 """
 
 
@@ -87,14 +94,15 @@ def test_sass_counts_every_form_of_an_op_once():
         "UBLKCP.S.G": 1, "UBLKCP.G.S": 1, "LDS": 1, "STG.E.EF.128": 1, "LDG.E.EF.128": 1,
     }
     assert dict(counts[CUR_14]) == {"SHFL.BFLY": 2, "STS": 1, "BAR.SYNC": 1}
+    assert dict(counts[FULL]) == {"HGMMA": 2, "BAR.SYNC": 1, "STS": 1}
 
 
 @pytest.mark.parametrize("symbol, kernel", [
     ("_ZN4kron11kron_kernelILi0EEEvPKfS2_S2_S2_Pfii", "k_copy"),
     ("_ZN4kron11kron_kernelILi1EEEvPKfS2_S2_S2_Pfii", "k_scale"),
-    ("_ZN4kron11pipe_kernelEPKfS1_S1_S1_Pflii", "emit_full"),
+    (FULL, "k_full"),  # k_flat and emit_full launch it too
     (EMIT_COPY, "emit_copy"),
-    ("_ZN4kron11kron_kernelILi4EEEvPKfS2_S2_S2_Pfii", None),  # k_full: not reported
+    ("_ZN4kron11kron_kernelILi3EEEvPKfS2_S2_S2_Pfii", None),  # k_mm2: not reported
     ("_ZN9kron_copy14copy_2d_kernelEPKcPclll", "hbm_copy"),  # copy_2d runs it too
 ])
 def test_large_d_instances_are_named_after_their_wrappers(symbol, kernel):
@@ -128,7 +136,8 @@ def test_kron_variants_edit_the_shipped_sources(name, tmp_path):
     path = kron_variants.make_source(name, str(tmp_path))
     with open(path) as f, open(os.path.join(CSRC, os.path.basename(path))) as g:
         edited, shipped = f.read(), g.read()
-    assert (edited == shipped) == (name in ("k_scale", "emit_copy", "hbm_copy", "k_swap", "k_cur"))
+    assert (edited == shipped) == (
+        name in ("k_scale", "emit_copy", "hbm_copy", "k_swap", "k_cur", "k_full"))
 
 
 def test_kron_variants_refuse_an_edit_that_does_not_match():

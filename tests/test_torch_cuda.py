@@ -268,7 +268,8 @@ def test_mixed_devices_and_strided_rows_raise(dev):
 # and at D = 128 one tile of the batch, 16 of k_swap's 32-row blocks; the
 # two widths left, so that every instance of the row kernels (L = 7..14)
 # runs: D = 512, k_cur's row in one warp with no exchange, and D = 4096,
-# one row a block
+# one row a block; 133 groups of one row, the wgmma kernel's persistent
+# grid one group past a full wave of 132 SMs
 KRON_SHAPES = [
     (128, 320, 160),
     (256, 64, 8),
@@ -289,6 +290,7 @@ KRON_SHAPES = [
     (128, 512, 512),
     (512, 64, 8),
     (4096, 32, 4),
+    (16384, 133, 7),
 ]
 
 
@@ -334,6 +336,24 @@ def test_cur_and_onecast_are_one_kernel(dev, shape):
     assert rel_err(cur, kc.kron_plain(s1, u, s2, x)) <= kc.tol("k_cur", D)
 
 
+@pytest.mark.parametrize("shape", [(16384, 512, 4), (8192, 256, 256), (128, 512, 512)],
+                         ids=lambda s: f"D{s[0]}-B{s[1]}-tb{s[2]}")
+def test_full_flat_and_emit_full_are_one_kernel(dev, shape):
+    """k_flat's TPU body is k_full's, and make_emit_full runs it under a
+    pipeline, so all three wrappers launch kron_full_kernel: equal outputs,
+    one launch each, each under its own counter."""
+    D, B, tb = shape
+    s1, u, s2, x = _kron_operands(dev, D, B, seed=2)
+    kc.reset_launches()
+    ys = []
+    for i, name in enumerate(("k_full", "k_flat", "emit_full")):
+        ys.append(kc.VARIANTS[name](s1, u, s2, x, tb))
+        assert kc.LAUNCHES[name] == 1 and sum(kc.LAUNCHES.values()) == i + 1
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])
+    assert rel_err(ys[0], kc.kron_plain(s1, u, s2, x)) <= kc.tol("k_full", D)
+
+
 def test_kron_kernels_refuse_what_they_do_not_take(dev):
     s1, u, s2, x = _kron_operands(dev, 256, 12)
     d64 = torch.ones(64, device=dev)
@@ -369,30 +389,24 @@ def test_kron_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_pipe_entry_refuses_misaligned_operands(dev):
-    """kron_pipe_f32 itself refuses x or y off a 16-byte boundary, and with
-    the compute a diagonal too (its bulk copies and float4 reads would
-    fault there): cudaErrorInvalidValue, nothing launched, the context
-    intact. The wrappers refuse such operands before they reach it."""
+    """kron_pipe_f32 (emit_copy) itself refuses x or y off a 16-byte
+    boundary (its bulk copies and float4 reads would fault there):
+    cudaErrorInvalidValue, nothing launched, the context intact. The
+    wrappers refuse such operands before they reach it."""
     lib = fc.load_library()
-    s1, u, s2, x = _kron_operands(dev, 256, 8)
+    x = _kron_operands(dev, 256, 8)[3]
     y = torch.zeros_like(x)
     stream = torch.cuda.current_stream().cuda_stream
-    X, Y, S1, U, S2 = (a.data_ptr() for a in (x, y, s1, u, s2))
+    X, Y = x.data_ptr(), y.data_ptr()
 
-    def call(xp, yp, diagonals=None):
-        compute = diagonals is not None
-        return lib.kron_pipe_f32(xp, *(diagonals or (None, None, None)), yp, 8, 8, 4,
-                                 int(compute), stream)
+    def call(xp, yp):
+        return lib.kron_pipe_f32(xp, yp, 8, 8, 4, stream)
 
     invalid_value = 1  # cudaErrorInvalidValue
     for off in (4, 8, 12):
         assert call(X + off, Y) == invalid_value
         assert call(X, Y + off) == invalid_value
-        assert call(X + off, Y, (S1, U, S2)) == invalid_value
-        for i in range(3):
-            diagonals = [S1, U, S2]
-            diagonals[i] += off
-            assert call(X, Y, diagonals) == invalid_value
+        assert call(X + off, Y + off) == invalid_value
     torch.cuda.synchronize()
     assert torch.equal(y, torch.zeros_like(x))  # nothing was written
     assert call(X, Y) == 0
@@ -400,19 +414,50 @@ def test_pipe_entry_refuses_misaligned_operands(dev):
     assert torch.equal(y, x)
 
 
+def test_full_entry_refuses_misaligned_operands_and_bad_tilings(dev):
+    """kron_full_f32 (k_full, k_flat, emit_full) itself refuses x, y or a
+    diagonal off a 16-byte boundary (its bulk copies and vector reads would
+    fault there), a row tile that does not divide B, and D outside [128,
+    16384]: cudaErrorInvalidValue, nothing launched, the context intact.
+    The wrappers refuse all of these before they reach it."""
+    lib = fc.load_library()
+    s1, u, s2, x = _kron_operands(dev, 256, 8)
+    y = torch.zeros_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [a.data_ptr() for a in (x, s1, u, s2, y)]
+
+    def call(p=ptrs, B=8, log2d=8, tb=4):
+        return lib.kron_full_f32(*p, B, log2d, tb, stream)
+
+    invalid_value = 1  # cudaErrorInvalidValue
+    for off in (4, 8, 12):
+        for i in range(5):
+            p = list(ptrs)
+            p[i] += off
+            assert call(p) == invalid_value
+    for B, log2d, tb in ((8, 8, 3), (8, 8, 0), (8, 6, 4), (8, 15, 4), (-8, 8, 4)):
+        assert call(B=B, log2d=log2d, tb=tb) == invalid_value
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.zeros_like(x))  # nothing was written
+    assert call() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, kc.k_full(s1, u, s2, x, 4))
+
+
 def test_stage_and_hbm_entries_refuse_misaligned_operands(dev):
     """kron_stage_f32 refuses x, y, or a diagonal its stage reads (s1 for
-    the scale, s2 for mm1 and mm2, all three for the full product in any
-    layout) off a 16-byte boundary, and copy_hbm_f32 x or y (its bulk
+    the scale, s2 for mm1 and mm2, all three for the full product in the
+    row layouts) off a 16-byte boundary, and copy_hbm_f32 x or y (its bulk
     copies and float4 reads would fault there): cudaErrorInvalidValue,
     nothing launched, the context intact. The wrappers refuse such
-    operands before they reach them."""
+    operands before they reach them. The full product in the flat layout
+    is kron_full_f32's: kron_stage_f32 refuses it."""
     lib = fc.load_library()
     s1, u, s2, x = _kron_operands(dev, 256, 8)
     y = torch.zeros_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     X, Y, S1, U, S2 = (a.data_ptr() for a in (x, y, s1, u, s2))
-    calls = [(stage, "flat") for stage in ("copy", "scale", "mm1", "mm2", "full")]
+    calls = [(stage, "flat") for stage in ("copy", "scale", "mm1", "mm2")]
     calls += [("full", layout) for layout in ("cur", "swap", "onecast")]
     reads = {"copy": (), "scale": (0,), "mm1": (2,), "mm2": (2,), "full": (0, 1, 2)}
 
@@ -421,6 +466,7 @@ def test_stage_and_hbm_entries_refuse_misaligned_operands(dev):
                                   kc._LAYOUTS[layout], stream)
 
     invalid_value = 1  # cudaErrorInvalidValue
+    assert stage("full", "flat", X, Y) == invalid_value
     for off in (4, 8, 12):
         assert lib.copy_hbm_f32(X + off, Y, x.numel(), stream) == invalid_value
         assert lib.copy_hbm_f32(X, Y + off, x.numel(), stream) == invalid_value

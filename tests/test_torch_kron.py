@@ -48,7 +48,7 @@ from whvi_tpu.utils.profiling import whvi_mul_flops as jax_whvi_mul_flops
 
 from whvi_tpu_torch.ops import fwht_cuda as fc
 from whvi_tpu_torch.ops import kron_cuda as kc
-from whvi_tpu_torch.ops.hadamard import fwht, fwht_factors, fwht_kron, round_bf16
+from whvi_tpu_torch.ops.hadamard import factor_H, fwht, fwht_factors, fwht_kron, round_bf16
 from whvi_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -350,6 +350,68 @@ def test_cur_schedule_matches_pallas_body(D):
     assert rel_err(got, kc.kron_plain(t(s1), t(u), t(s2), t(x)).numpy()) <= BF16_PARITY_TOL
     want = run_body(_TUNE.k_cur, *map(jnp.asarray, (s1, u, s2, x)), TB=4)
     assert rel_err(got, want) <= BF16_PARITY_TOL
+
+
+@pytest.mark.parametrize("D", [256, 2048])
+def test_full_and_flat_bodies_agree_bit_for_bit(D):
+    """k_flat's TPU body is k_full's statement for statement (and
+    make_emit_full's inner is the same chain under an emit_pipeline), so
+    the port launches one kernel for k_full, k_flat and emit_full."""
+    s1, u, s2, x = map(jnp.asarray, _inputs(D, B=8, seed=4))
+    full, flat = (run_body(body, s1, u, s2, x, TB=4) for body in (_DIAG.k_full, _TUNE.k_flat))
+    assert np.array_equal(full, flat)
+
+
+def flat_schedule(s1, u, s2, x):
+    """kron_full_kernel's group view in PyTorch: x's groups of 16384
+    elements (the last one padded with zero rows) as 128 x 128 tiles, four
+    128 x 128 products, H_128 on the right and the left factor I (x) H_a
+    (kc.left_factor) on the left, the diagonals tiled over the group's
+    128 / a rows, and a bf16 rounding wherever the kernel rounds."""
+    B, D = x.shape
+    n = B * D
+    groups = -(-n // 16384)
+    v = torch.cat([(x * s2).reshape(-1), torch.zeros(groups * 16384 - n)]).reshape(groups, 128, 128)
+    H = factor_H(128, torch.float32, x.device)
+    G = kc.left_factor(D // 128)
+    tiled = lambda d: d.reshape(-1, 128).repeat(128 * 128 // D, 1)  # noqa: E731
+    v = round_bf16(v) @ H
+    v = G @ round_bf16(v)
+    v = G @ round_bf16(v * tiled(u))
+    v = (round_bf16(v) @ H) * tiled(s1)
+    return v.reshape(-1)[:n].reshape(B, D)
+
+
+@pytest.mark.parametrize("shape", [(128, 200), (512, 16), (2048, 16), (16384, 8)],
+                         ids=lambda s: f"D{s[0]}-B{s[1]}")
+def test_flat_schedule_matches_pallas_body(shape):
+    D, B = shape
+    s1, u, s2, x = _inputs(D, B=B, seed=8)
+    got = flat_schedule(t(s1), t(u), t(s2), t(x)).numpy()
+    assert rel_err(got, kc.kron_plain(t(s1), t(u), t(s2), t(x)).numpy()) <= BF16_PARITY_TOL
+    want = run_body(_DIAG.k_full, *map(jnp.asarray, (s1, u, s2, x)), TB=8)
+    assert rel_err(got, want) <= BF16_PARITY_TOL
+
+
+@pytest.mark.parametrize("L", range(7, 15))
+def test_left_factor_is_kron_of_identity_and_h_a(L):
+    a = 2 ** (L - 7)
+    want = np.kron(np.eye(128 // a), np.asarray(jax_build_H(a, jnp.float32)))
+    assert np.array_equal(kc.left_factor(a).numpy(), want)
+
+
+def test_tile_offset_is_the_wgmma_128_byte_swizzle():
+    """whvi_full.cu's tile layout: each 128 x 128 bf16 element at its own
+    2-byte slot of the 32 KB tile, and every slot the 128-byte swizzle
+    (16-byte group bits 4-6 XOR row bits 7-9) of the plain row-major
+    address of two 64-column halves, as wgmma's descriptors read it."""
+    m = torch.arange(128)[:, None].expand(128, 128)
+    j = torch.arange(128)[None, :].expand(128, 128)
+    off = kc.tile_offset(m, j)
+    assert sorted(off.reshape(-1).tolist()) == list(range(0, kc.TILE_BYTES, 2))
+    plain = (j // 64) * (kc.TILE_BYTES // 2) + m * 128 + (j % 64) * 2
+    assert torch.equal(off, plain ^ (((plain >> 7) & 7) << 4))
+    assert kc.tile_offset(5, 70) == 16384 + 5 * 128 + ((0 ^ 5) << 4) + 6 * 2
 
 
 # ----------------------------------------------------- the wrappers' contract

@@ -8,10 +8,19 @@ Kronecker-factor product up one stage at a time, each stage one kernel
   scale      y = x * s1                  + one elementwise pass
   mm1        R(s2*x) @ H_128             + one factor contraction
   mm2        then H_a on the other axis  + the second contraction
-  full       s1*H(u*H(s2*x))             the whole product (flat layout)
-  emit_full  full through a persistent two-stage cp.async ring
+  full       s1*H(u*H(s2*x))             the whole product
+  emit_full  the whole product, streamed (the TPU's emit_pipeline)
   k1         the port's fp32 fused kernel (``fused_raw(.., False)``)
   plain      the plain PyTorch Kronecker product (``kron_plain``)
+
+``copy`` to ``mm2`` keep the TPU's tiling, one block of 256 threads a
+tile of TB rows (``mm1`` and ``mm2`` on the flat layout's ``mma.sync``
+contractions, ``whvi_kron.cu``), so each rung reads as cost beyond the
+copy's at that tiling. ``full`` and ``emit_full`` are one kernel since
+the TPU bodies are one function: ``whvi_full.cu``'s persistent
+``wgmma`` kernel, one block an SM whatever TB is (it
+checks TB and does not use it), so ``full`` minus ``mm2`` is not the cost
+of the last two contractions.
 
 ``--floors`` measures the copies instead: ``hbm_copy`` (the whole array
 as one tile through ``copy2d``'s ring), ``copy2d/tbN`` (staged through

@@ -4,7 +4,9 @@ Counterpart of ``benchmarks/pallas_tune.py``. Every variant computes
 ``y = s1 * H(u * H(s2 * x))`` with bf16 factor operands and fp32
 accumulation, in the TPU bodies' order (``ops/kron_cuda.py``):
 
-  flat     tensor cores, the tile's lane-rows as the matmul rows
+  flat     tensor cores: each group of 16384 elements a 128 x 128 tile,
+           the four contractions wgmma products (persistent grid; the
+           same kernel as k_full)
   cur      CUDA cores, each row in registers, each factor contracted in
            place (H_128's lane bits by warp shuffles; persistent grid)
   swap     CUDA cores, each row in registers, the TPU's axis swaps as

@@ -1,6 +1,6 @@
-"""``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap`` and ``k_cur`` built
-from variants of their CUDA sources and timed side by side on one card:
-what each choice of their designs is worth.
+"""``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap``, ``k_cur`` and
+``k_full`` built from variants of their CUDA sources and timed side by side
+on one card: what each choice of their designs is worth.
 
 A variant is a copy of ``whvi_tpu_torch/csrc/`` with named edits
 (``VARIANTS``): a ring's shape changed, another body put in, or a design
@@ -8,29 +8,31 @@ switch turned off. Each edit is a piece of source text that must occur
 exactly once in its file, so a variant never times the shipped source by
 mistake; a change to those lines needs the variant edited too. A variant
 without edits (``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap``,
-``k_cur``) names the shipped design.
+``k_cur``, ``k_full``) names the shipped design.
 
 Each variant's edited source alone is compiled into its own library, all
 at once, and called through its C entry (``kron_stage_f32``,
-``kron_pipe_f32`` or ``copy_hbm_f32``) with ``ctypes``. Every variant is
-first held against its plain version at D=16384, B=512 and at the ring's
-edges (``EDGES``): bit for bit (``x * s1``, ``x``), or the products
-within ``kron_cuda.tol`` of ``kron_plain``; a ``k_cur`` variant also bit
-for bit against the package's ``k_cur`` (every form does the same adds).
+``kron_full_f32``, ``kron_pipe_f32`` or ``copy_hbm_f32``) with ``ctypes``.
+Every variant is first held against its plain version at D=16384, B=512
+and at the ring's edges (``EDGES``): bit for bit (``x * s1``, ``x``), or
+the products within ``kron_cuda.tol`` of ``kron_plain``; a ``k_cur`` or
+``k_full`` variant also bit for bit against the package's ``k_cur`` or
+``k_full`` (every form does the same arithmetic).
 
 JSON rows: first the card and its power limit; then per variant the
 ptxas report of its kernel (registers, spill bytes); then the device ms a
 call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) at
 D=16384, B=512, with the bound (x read once, the diagonals once, y
 written once, over 3.35 TB/s) and its share: the scale variants at TB=4,
-``hbm_copy``'s untiled, the copy, swap and cur variants at TB = 4, 64,
-128, 256. The yardsticks, one PyTorch call (``x * s1``, ``x.clone()``),
-the package's ``k_copy``, ``copy_2d``, ``k_swap`` and ``k_cur``, and K1's
-bf16 mode (the same rounding schedule from D = 2048), run first and last,
-so that drift of the card's clock shows.
+``hbm_copy``'s untiled, the copy, swap, cur and full variants at TB = 4,
+64, 128, 256. The yardsticks, one PyTorch call (``x * s1``,
+``x.clone()``), the package's ``k_copy``, ``copy_2d``, ``emit_copy``,
+``k_swap`` and ``k_cur``, and K1's bf16 mode (the same rounding schedule
+from D = 2048), run first and last, so that drift of the card's clock
+shows.
 
 Run from the repository root on the card:
-python -m whvi_tpu_torch.bench.kron_variants [k_cur cur_no_prefetch k_swap ...]
+python -m whvi_tpu_torch.bench.kron_variants [k_full full_diag_l2 k_cur ...]
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from whvi_tpu_torch.bench.kernel_sass import _instance, ptxas
 from whvi_tpu_torch.ops import fwht_cuda as fc
 from whvi_tpu_torch.ops import kron_cuda as kc
 
-KRON, PIPE, COPY = "whvi_kron.cu", "whvi_pipe.cu", "copy_floor.cu"
+KRON, FULL, PIPE, COPY = "whvi_kron.cu", "whvi_full.cu", "whvi_pipe.cu", "copy_floor.cu"
 # each kind of variant: (its file, the wrapper whose kernel it edits, the
 # tiles it is timed at)
 KINDS = {
@@ -57,8 +59,9 @@ KINDS = {
     "hbm": (COPY, "hbm_copy", (None,)),  # untiled
     "swap": (KRON, "k_swap", (4, 64, 128, 256)),
     "cur": (KRON, "k_cur", (4, 64, 128, 256)),
+    "full": (FULL, "k_full", (4, 64, 128, 256)),
 }
-PRODUCTS = ("swap", "cur")  # the kinds that compute the whole product
+PRODUCTS = ("swap", "cur", "full")  # the kinds that compute the whole product
 D, B = 16384, 512
 COPY_TBS = KINDS["copy"][2]
 # (D, B, tb) checked bit for bit beside (D, B, 4): one-row tiles, far
@@ -184,10 +187,18 @@ def _ring(stage_kb=None, ins=None, outs=None, per_sm=None, warps=None) -> list:
 _NO_ROW_PREFETCH = [("constexpr bool kRowPrefetch = true;",
                      "constexpr bool kRowPrefetch = false;")]
 
+# k_full's design switches: u and s1 loaded from L2 every group (under the
+# product before their epilogue) instead of held in registers for the
+# whole kernel; y through the operand tile and TMA bulk stores instead of
+# st.global.cs from registers
+_DIAG_L2 = [("constexpr bool kFullDiagRegs = true;", "constexpr bool kFullDiagRegs = false;")]
+_TMA_STORE = [("constexpr bool kFullTmaStore = false;", "constexpr bool kFullTmaStore = true;")]
+
 # name -> (kind, edits of its file, KINDS); the shipped emit_copy: 6
 # stages of 16 KB, two blocks an SM, 4 consumer warps storing from the
 # ring; the shipped hbm_copy: copy_2d's ring over one tile; the shipped
-# k_swap and k_cur: the next row block's x prefetched by TMA
+# k_swap and k_cur: the next row block's x prefetched by TMA; the shipped
+# k_full: u and s1 in registers, y stored from registers
 VARIANTS = {
     "k_scale": ("scale", []),
     "scale_smem_s1": ("scale", _SMEM_S1),
@@ -210,6 +221,9 @@ VARIANTS = {
     "swap_no_prefetch": ("swap", _NO_ROW_PREFETCH),
     "k_cur": ("cur", []),
     "cur_no_prefetch": ("cur", _NO_ROW_PREFETCH),
+    "k_full": ("full", []),
+    "full_diag_l2": ("full", _DIAG_L2),
+    "full_tma_store": ("full", _TMA_STORE),
 }
 
 
@@ -260,7 +274,8 @@ def load(path: str) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for fn, args in (
         ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
-        ("kron_pipe_f32", [vp] * 5 + [i64, i32, i32, i32, vp]),
+        ("kron_full_f32", [vp] * 5 + [i64, i32, i32, vp]),
+        ("kron_pipe_f32", [vp, vp, i64, i32, i32, vp]),
         ("copy_hbm_f32", [vp, vp, i64, vp]),
     ):
         if hasattr(lib, fn):
@@ -272,21 +287,23 @@ def load(path: str) -> ctypes.CDLL:
 def caller(lib, kind: str, diagonals, x, y, tb):
     """A call of the variant's kernel on the current stream: y = x * s1
     (``scale``), y = x (``copy``, ``hbm``) or the whole product
-    (``swap``, ``cur``); ``diagonals`` is (s1, u, s2)."""
+    (``swap``, ``cur``, ``full``); ``diagonals`` is (s1, u, s2)."""
     log2d = x.shape[1].bit_length() - 1
     s1, u, s2 = (d.data_ptr() for d in diagonals)
 
     def call():
         stream = torch.cuda.current_stream().cuda_stream
-        if kind in ("scale", *PRODUCTS):
+        if kind == "full":
+            err = lib.kron_full_f32(x.data_ptr(), s1, u, s2, y.data_ptr(), x.shape[0], log2d, tb,
+                                    stream)
+        elif kind in ("scale", "swap", "cur"):
             stage, layout = ("scale", "flat") if kind == "scale" else ("full", kind)
             err = lib.kron_stage_f32(x.data_ptr(), s1, u, s2, y.data_ptr(), x.shape[0], log2d, tb,
                                      kc._STAGES[stage], kc._LAYOUTS[layout], stream)
         elif kind == "hbm":
             err = lib.copy_hbm_f32(x.data_ptr(), y.data_ptr(), x.numel(), stream)
         else:
-            err = lib.kron_pipe_f32(x.data_ptr(), None, None, None, y.data_ptr(), x.shape[0],
-                                    log2d, tb, 0, stream)
+            err = lib.kron_pipe_f32(x.data_ptr(), y.data_ptr(), x.shape[0], log2d, tb, stream)
         if err:
             raise RuntimeError(f"{kind} variant launch failed: cudaError_t {err}")
         return y
@@ -309,8 +326,8 @@ def check(name: str, lib, dev) -> None:
         if kind in PRODUCTS:
             want = kc.kron_plain(*diagonals, x)
             ok = bool(torch.isfinite(y).all()) and rel_err(y, want) <= kc.tol(KINDS[kind][1], d)
-            if kind == "cur":
-                ok = ok and torch.equal(y, kc.k_cur(*diagonals, x, tb))
+            if kind in ("cur", "full"):
+                ok = ok and torch.equal(y, kc.VARIANTS[KINDS[kind][1]](*diagonals, x, tb))
         else:
             ok = torch.equal(y, x * diagonals[0] if kind == "scale" else x)
         if not ok:
@@ -324,7 +341,7 @@ def _row(label, tb, ms, bound) -> dict:
 
 def _bound(kind: str, diagonals, x) -> float:
     """Bytes over 3.35 TB/s: x, the diagonals the kind reads, y."""
-    ins = {"scale": (x, diagonals[0]), "swap": (x, *diagonals), "cur": (x, *diagonals)}.get(kind, (x,))
+    ins = (x, diagonals[0]) if kind == "scale" else (x, *diagonals) if kind in PRODUCTS else (x,)
     return bound_ms(ins, (x,), 0.0, 1.0)[0]
 
 
@@ -337,6 +354,7 @@ def yardsticks(diagonals, x) -> None:
     for tb in COPY_TBS:
         ms = time_us(lambda: kc.copy_2d(s1, s1, s1, x, tb), 20) / 1e3
         _row("copy_2d (package)", tb, ms, copy_bound)
+    _row("emit_copy (package)", 4, time_us(lambda: kc.emit_copy(s1, s1, s1, x, 4), 20) / 1e3, copy_bound)
     _row("k_swap (package)", 4, time_us(lambda: kc.k_swap(s1, u, s2, x, 4), 20) / 1e3, swap_bound)
     _row("k_cur (package)", 4, time_us(lambda: kc.k_cur(s1, u, s2, x, 4), 20) / 1e3, swap_bound)
     ms = time_us(lambda: fc.fused_raw(s1, u, s2, x, False, "bf16"), 20) / 1e3

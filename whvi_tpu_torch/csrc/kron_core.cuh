@@ -1,7 +1,8 @@
-// Shared pieces of the tensor-core Kronecker-factor kernels (kron_kernel's
-// flat layout in whvi_kron.cu, and whvi_pipe.cu; the kernels of k_cur and
-// k_swap hold their rows in registers on fwht_core.cuh instead): the
-// factor contractions and the row-group layout in shared memory.
+// Shared pieces of the tensor-core Kronecker-factor kernels: the row-group
+// layout, and the flat layout's mma.sync contractions that kron_kernel's
+// k_mm1 and k_mm2 run (whvi_kron.cu). The whole product (k_full, k_flat,
+// emit_full) runs in whvi_full.cu on wgmma; the kernels of k_cur and k_swap
+// hold their rows in registers on fwht_core.cuh instead.
 //
 // The product y = s1 * H(u * H(s2 * x)) is computed on a row of
 // D = a * 128 elements viewed as an (a, 128) matrix T[i][k] = row[i*128+k],
@@ -9,17 +10,17 @@
 // rounded to bf16 (H is +-1 and exact in bf16) and the contraction
 // accumulates in fp32, in the order of the TPU bodies
 // (benchmarks/pallas_diag.py:k_full): R(s2*x) @ H_128, then H_a over i,
-// then * u, H_a over i, H_128 over k, and * s1. H is never loaded: each
-// fragment's signs come from popcount(i & j).
+// then * u, H_a over i, H_128 over k, and * s1. Here H is never loaded:
+// each mma.sync fragment's signs come from popcount(i & j). whvi_full.cu
+// builds H_128 and I (x) H_a once a block, as tiles in shared memory.
 //
 // Row groups. A block works on its rows a group at a time. A group is
 // kGroupElems = 16384 elements, so it holds 16384 / D rows (one row at
 // D = 16384, 128 rows at D = 128) and always 128 "lane-rows" of 128
-// elements. Why 16384: one fp32 row at D = 16384 is 64 KB, and the
-// tensor-core path keeps a group twice in bf16 (ping and pong buffers of
-// 128 lane-rows at a pitch of 136 elements, 68 KB together), which leaves
-// room for the pipelined kernel's two fp32 ring stages (128 KB) inside
-// the 227 KB a block may use.
+// elements. Why 16384: one fp32 row at D = 16384 is 64 KB, and a group is
+// then a 128 x 128 matrix, one wgmma tile (whvi_full.cu). The flat layout
+// here keeps a group twice in bf16 (ping and pong buffers of 128
+// lane-rows at a pitch of 136 elements, 68 KB together).
 #pragma once
 
 #include <cstdint>
@@ -193,44 +194,25 @@ __device__ __forceinline__ void load_scaled_bf16(const float* src,
 
 // The flat (tensor-core) layout on one group whose R(s2*x) is in bufA:
 // kMm1 writes y = R(s2*x) @ H_128, kMm2 y = H_D(s2*x) with the second
-// rounding, kFull the whole product. y points at the group's first row;
-// bufB is the second buffer. Ends in a barrier.
+// rounding. y points at the group's first row; bufB is the second buffer.
+// Ends in a barrier.
 template <int kStage>
 __device__ __forceinline__ void flat_group(bf16* bufA, bf16* bufB, float* y,
-                                           int nr, int log2d,
-                                           const float* __restrict__ s1,
-                                           const float* __restrict__ u) {
+                                           int nr, int log2d) {
+  static_assert(kStage == kMm1 || kStage == kMm2);
   const int a = 1 << (log2d - 7);
-  const int amask = a - 1;
   const int m_rows = nr * a;
   auto to_y = [&](int m, int k, float v0, float v1) {
     store_f32x2(y + (size_t)m * kLane + k, v0, v1);
   };
-  auto to_bufB = [&](int m, int k, float v0, float v1) {
-    store_bf16x2(bufB + m * kPitch + k, v0, v1);
-  };
   if constexpr (kStage == kMm1) {
     contract_last(bufA, m_rows, to_y);
   } else {
-    contract_last(bufA, m_rows, to_bufB);
+    contract_last(bufA, m_rows, [&](int m, int k, float v0, float v1) {
+      store_bf16x2(bufB + m * kPitch + k, v0, v1);
+    });
     __syncthreads();
-    if constexpr (kStage == kMm2) {
-      contract_first(bufB, nr, a, to_y);
-    } else {
-      contract_first(bufB, nr, a, [&](int m, int k, float v0, float v1) {
-        const float2 w = __ldg(reinterpret_cast<const float2*>(
-            u + (m & amask) * kLane + k));
-        store_bf16x2(bufA + m * kPitch + k, v0 * w.x, v1 * w.y);
-      });
-      __syncthreads();
-      contract_first(bufA, nr, a, to_bufB);
-      __syncthreads();
-      contract_last(bufB, m_rows, [&](int m, int k, float v0, float v1) {
-        const float2 w = __ldg(reinterpret_cast<const float2*>(
-            s1 + (m & amask) * kLane + k));
-        store_f32x2(y + (size_t)m * kLane + k, v0 * w.x, v1 * w.y);
-      });
-    }
+    contract_first(bufB, nr, a, to_y);
   }
   __syncthreads();
 }

@@ -2,15 +2,17 @@
 // product, fp32 in and out, bf16 factor operands, fp32 accumulation.
 //
 // Replaces the Pallas kernel bodies of the TPU diagnosis harnesses:
-//   benchmarks/pallas_diag.py  k_copy, k_scale, k_mm1, k_mm2, k_full
-//                              (stage = copy .. full, flat layout);
-//   benchmarks/pallas_tune.py  k_cur, k_swap, k_flat, k_onecast
-//                              (stage = full, layout = cur/swap/flat/onecast).
+//   benchmarks/pallas_diag.py  k_copy, k_scale, k_mm1, k_mm2
+//                              (stage = copy .. mm2, flat layout);
+//   benchmarks/pallas_tune.py  k_cur, k_swap, k_onecast
+//                              (stage = full, layout = cur/swap/onecast).
 // kron_kernel, templated on the stage, runs the flat layout: the stage
-// ladder, k_full and k_flat, one product built up a stage at a time
-// (kron_core.cuh says what is rounded where). The row kernels,
-// kron_cur_kernel (k_cur and k_onecast) and kron_swap_kernel (k_swap),
-// hold each row in registers on fwht_core.cuh.
+// ladder below the whole product, built up a stage at a time
+// (kron_core.cuh says what is rounded where). The whole product on the
+// tensor cores (k_full, k_flat, and emit_full of whvi_pipe.cu's TPU
+// harness) is whvi_full.cu's kernel. The row kernels, kron_cur_kernel
+// (k_cur and k_onecast) and kron_swap_kernel (k_swap), hold each row in
+// registers on fwht_core.cuh.
 //
 // Tiling, as the TPU grid: block b of kron_kernel owns rows [b*tb,
 // (b+1)*tb) of x (B, D); the caller picks tb and B % tb must be 0. A block
@@ -18,10 +20,10 @@
 // row kernels only check tb: their grid is persistent (below).
 //
 // Layouts:
-//   flat     the group's 128 lane-rows are the rows of the tensor-core
-//            products (mma.sync m16n8k16, bf16 in, fp32 accumulate):
-//            (128, 128) @ H_128, and H_a @ (a, 128) per row. Two bf16
-//            buffers, 68 KB of shared memory.
+//   flat     (k_mm1, k_mm2) the group's 128 lane-rows are the rows of
+//            the tensor-core products (mma.sync m16n8k16, bf16 in, fp32
+//            accumulate): (128, 128) @ H_128, and H_a @ (a, 128) per row.
+//            Two bf16 buffers, 68 KB of shared memory.
 //   swap     CUDA cores, the row in registers (fwht_core.cuh: a row of D
 //            floats over D / R threads, R = 16, or 32 from D = 8192). The
 //            TPU body swaps the axes so that every contraction runs over
@@ -72,10 +74,11 @@
 // What bounds it on an H100: at D = 16384 the product moves 8 bytes an
 // element (x in, y out) against 2 * 2 * (128 + 128) = 1024 matmul flops
 // an element: 2 * 128 flops per byte, below the 295 of the bf16 tensor
-// cores, so the flat layout is memory-bound once its tensor-core work runs
-// near peak. This first version builds every fragment with scalar shared
-// loads and generates H from popcount, so it is compute-bound, and small
-// tb leaves SMs idle (B / tb blocks). The row kernels' butterflies cost
+// cores, so a tensor-core product is memory-bound once its tensor-core
+// work runs near peak: whvi_full.cu's wgmma kernel for the whole product.
+// The flat layout of k_mm1 and k_mm2 builds every fragment with scalar
+// shared loads and generates H from popcount, so it is compute-bound, and
+// small tb leaves SMs idle (B / tb blocks). The row kernels' butterflies cost
 // 2 log2 D adds an element. k_swap's 6 exchanges a row at D = 16384 move
 // 6 x 2 x 64 KB through shared memory against the row's 128 KB of HBM, so
 // it runs HBM and shared memory in turn; k_cur's 2 exchanges move a third
@@ -94,8 +97,8 @@
 // the HBM traffic in turn; at D = 8192, two blocks an SM, they overlap
 // (PERF.md).
 //
-// Left for later: ldmatrix and wgmma for the flat layout, and bulk stores
-// of y.
+// Left for later: k_mm1 and k_mm2 on whvi_full.cu's kernel (its template
+// takes the number of contractions).
 #include "fwht_core.cuh"
 #include "kron_core.cuh"
 #include "tma.cuh"
@@ -167,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int g0 = 0; g0 < tb; g0 += rows) {
       const int nr = min(rows, tb - g0);
       load_scaled_bf16(xb + (int64_t)g0 * D, s2, bufA, nr, log2d);
-      flat_group<kStage>(bufA, bufA + kGroupRows * kPitch, yb + (int64_t)g0 * D, nr, log2d, s1, u);
+      flat_group<kStage>(bufA, bufA + kGroupRows * kPitch, yb + (int64_t)g0 * D, nr, log2d);
       __syncthreads();  // the next group overwrites the buffers
     }
   }
@@ -534,7 +537,8 @@ struct RowLaunch {
 // (D,) fp32, likewise aligned where the stage reads them (the copy stage
 // reads none, the scale stage s1, mm1 and mm2 s2, full all three).
 // stage: 0 copy, 1 scale, 2 mm1, 3 mm2, 4 full; layout: 0 cur, 1 swap,
-// 2 flat, 3 onecast (the stages below full take the flat layout only).
+// 2 flat, 3 onecast (the stages below full take the flat layout only, the
+// full product every layout but flat: kron_full_f32 in whvi_full.cu).
 // Returns the launch's cudaError_t (0 on success; cudaErrorInvalidValue,
 // nothing launched, for an operand it reads off a 16-byte boundary).
 extern "C" int kron_stage_f32(const void* x, const void* s1, const void* u,
@@ -560,7 +564,6 @@ extern "C" int kron_stage_f32(const void* x, const void* s1, const void* u,
       case kScale: return (int)launch<kScale>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
       case kMm1: return (int)launch<kMm1>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
       case kMm2: return (int)launch<kMm2>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
-      case kFull: return (int)launch<kFull>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
     }
   } else if (stage == kFull && layout == kSwap) {
     return (int)whvi::dispatch_log2d(log2d, RowLaunch<false>{fx, fs1, fu, fs2, fy, B, st});

@@ -1,33 +1,18 @@
-// The fused Kronecker product, and a copy, streamed by persistent kernels
-// through rings of stages in shared memory.
+// A copy streamed by a persistent kernel through a ring of stages in
+// shared memory.
 //
-// Replaces benchmarks/pallas_diag.py:
-//   make_emit_full (the kernel at :130): k_full's body with x and y
-//     streamed through a manual double-buffered emit_pipeline, the
-//     diagonals and the H factors resident;
-//   make_emit_copy (:322): the same pipeline with y = x: a DMA of each
-//     block into the core's memory, a body that copies it, a DMA back out.
-// The TPU harness paired them: what lies between the two is the compute.
-//
-// emit_full: a grid of min(#SMs, B / tb) blocks, one a SM. Block b walks
-// the row tiles b, b + grid, ... of tb rows each, a ring stage of up to
-// 16384 / D rows at a time (one 64 KB fp32 stage holds one row at
-// D = 16384). Every thread issues 16-byte cp.async copies of the next
-// stage before the block works on the current one, so one stage's compute
-// overlaps the next stage's load. The compute is the flat tensor-core
-// product of kron_core.cuh on its two bf16 buffers: 128 KB of ring plus
-// 68 KB, one block an SM. "Resident" here: H is generated in registers
-// from popcount, so nothing is loaded for it. The diagonals (3 x 64 KB at
-// D = 16384) do not fit beside the ring and the compute buffers; they are
-// read through the L1/L2 caches, where they stay. What bounds it on an
-// H100: as in whvi_kron.cu's flat layout, its tensor-core work (fragments
-// built with scalar shared loads). With B / tb tiles below the SM count,
-// SMs stay idle.
+// Replaces benchmarks/pallas_diag.py:make_emit_copy (:322): a manual
+// double-buffered emit_pipeline with y = x: a DMA of each block into the
+// core's memory, a body that copies it, a DMA back out. The TPU harness
+// paired it with make_emit_full (:120, k_full's body under the same
+// pipeline): what lies between the two is the compute. emit_full runs
+// whvi_full.cu's kernel, which streams x through a ring of the same shape
+// (16 KB TMA bulk loads, full/empty barriers, a producer warp).
 //
 // emit_copy: the emit_pipeline's shape on Hopper's TMA (tma.cuh), bound
 // by HBM (8 bytes an element against 3.35 TB/s). Bytes in flight on every
-// SM bound such a copy (copy_floor.cu): emit_full's ring with the compute
-// taken out, one block a tile (128 blocks at TB = 4, 8 / 4 / 2 at the
+// SM bound such a copy (copy_floor.cu): the emit_pipeline's shape as it
+// stands, a two-stage cp.async ring, one block a tile (128 blocks at TB = 4, 8 / 4 / 2 at the
 // TPU's TB = 64 / 128 / 256) and at most one 64 KB load in flight a block
 // while its threads store the other stage, reached 0.78 of HBM at TB = 4
 // and 0.05-0.20 at the TPU's tiles. So:
@@ -54,67 +39,6 @@
 #include "tma.cuh"
 
 namespace kron {
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__global__ void __launch_bounds__(kThreads)
-    pipe_kernel(const float* __restrict__ x, const float* __restrict__ s1,
-                const float* __restrict__ u, const float* __restrict__ s2,
-                float* __restrict__ y, int64_t n_tiles, int log2d, int tb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem);  // [2][kGroupElems]
-  bf16* bufA = reinterpret_cast<bf16*>(ring + 2 * kGroupElems);
-  const int64_t D = (int64_t)1 << log2d;
-  const int rows = min(kGroupElems >> log2d, tb);  // rows a ring stage holds
-  const int per_tile = (tb + rows - 1) / rows;
-  const int64_t my_tiles = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int64_t n_groups = my_tiles * per_tile;
-
-  // first row and row count of this block's group j
-  auto group = [&](int64_t j, int& nr) {
-    const int64_t tile = blockIdx.x + (j / per_tile) * gridDim.x;
-    const int sub = (int)(j % per_tile);
-    nr = min(rows, tb - sub * rows);
-    return tile * tb + (int64_t)sub * rows;
-  };
-  auto issue = [&](int64_t j) {
-    int nr;
-    const float* src = x + group(j, nr) * D;
-    float* dst = ring + (j & 1) * kGroupElems;
-    const int n4 = (int)(((int64_t)nr * D) >> 2);
-    for (int q = threadIdx.x; q < n4; q += kThreads) cp_async16(dst + 4 * q, src + 4 * q);
-    cp_async_commit();
-  };
-
-  if (n_groups > 0) issue(0);
-  for (int64_t j = 0; j < n_groups; ++j) {
-    if (j + 1 < n_groups) {
-      issue(j + 1);  // into the stage that group j - 1 released
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // every thread's copies of group j have landed
-    int nr;
-    float* yg = y + group(j, nr) * D;
-    const float* xs = ring + (j & 1) * kGroupElems;
-    load_scaled_bf16(xs, s2, bufA, nr, log2d);
-    flat_group<kFull>(bufA, bufA + kGroupRows * kPitch, yg, nr, log2d, s1, u);
-  }
-}
 
 // emit_copy's ring: its stages, their barriers, blocks an SM
 constexpr int kCopyStageBytes = 16 * 1024;
@@ -196,21 +120,6 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
-cudaError_t launch_pipe(const float* x, const float* s1, const float* u,
-                        const float* s2, float* y, int64_t B, int log2d,
-                        int tb, cudaStream_t stream) {
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  const int64_t n_tiles = B / tb;
-  const unsigned grid = (unsigned)(n_tiles < sms ? n_tiles : sms);
-  const size_t smem = 2 * (size_t)kGroupElems * sizeof(float) + kFlatSmem;
-  err = cudaFuncSetAttribute(pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  pipe_kernel<<<grid, kThreads, smem, stream>>>(x, s1, u, s2, y, n_tiles, log2d, tb);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_emit_copy(const float* x, float* y, int64_t B, int log2d, int tb,
                              cudaStream_t stream) {
   int sms = 0;
@@ -232,23 +141,16 @@ cudaError_t launch_emit_copy(const float* x, float* y, int64_t B, int log2d, int
 
 }  // namespace kron
 
-// x, y contiguous (B, D = 2^log2d) fp32 on 16-byte boundaries; with
-// compute, s1, u, s2 (D,) fp32, likewise aligned, and y = s1 * H(u * H(s2
-// * x)) (kron_core.cuh), else y = x and the diagonals are not read.
-// Returns the launch's cudaError_t.
-extern "C" int kron_pipe_f32(const void* x, const void* s1, const void* u,
-                             const void* s2, void* y, int64_t B, int log2d,
-                             int tb, int compute, void* stream) {
+// x, y contiguous (B, D = 2^log2d) fp32 on 16-byte boundaries, B % tb
+// == 0: y = x in (tb, D) tiles. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue, nothing launched, for an operand off the
+// boundary or a tiling the kernels do not take).
+extern "C" int kron_pipe_f32(const void* x, void* y, int64_t B, int log2d, int tb,
+                             void* stream) {
   using namespace kron;
   auto off16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (!valid_tiling(B, log2d, tb) || off16(x) || off16(y) ||
-      (compute && (off16(s1) || off16(u) || off16(s2))))
-    return (int)cudaErrorInvalidValue;
+  if (!valid_tiling(B, log2d, tb) || off16(x) || off16(y)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const auto* fx = static_cast<const float*>(x);
-  auto* fy = static_cast<float*>(y);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (!compute) return (int)launch_emit_copy(fx, fy, B, log2d, tb, st);
-  return (int)launch_pipe(fx, static_cast<const float*>(s1), static_cast<const float*>(u),
-                          static_cast<const float*>(s2), fy, B, log2d, tb, st);
+  return (int)launch_emit_copy(static_cast<const float*>(x), static_cast<float*>(y), B, log2d,
+                               tb, static_cast<cudaStream_t>(stream));
 }

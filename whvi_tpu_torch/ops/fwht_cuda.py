@@ -105,8 +105,10 @@ ONE_FACTOR_MAX = 1024  # D <= 1024: one factor H_D (_factor_pair)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("whvi_fused.cu", "fwht.cu", "whvi_kron.cu", "whvi_pipe.cu", "copy_floor.cu")
-_HEADERS = ("fwht_core.cuh", "kron_core.cuh", "tma.cuh")
+SOURCES = (
+    "whvi_fused.cu", "fwht.cu", "whvi_kron.cu", "whvi_full.cu", "whvi_pipe.cu", "copy_floor.cu",
+)
+_HEADERS = ("fwht_core.cuh", "kron_core.cuh", "tma.cuh", "wgmma.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "whvi_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libwhvi_kernels.so")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -237,7 +239,8 @@ def load_library() -> ctypes.CDLL:
             # the kernels of ops/kron_cuda.py
             for name, args in (
                 ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
-                ("kron_pipe_f32", [vp] * 5 + [i64, i32, i32, i32, vp]),
+                ("kron_full_f32", [vp] * 5 + [i64, i32, i32, vp]),
+                ("kron_pipe_f32", [vp, vp, i64, i32, i32, vp]),
                 ("copy_hbm_f32", [vp, vp, i64, vp]),
                 ("copy_2d_f32", [vp, vp, i64, i32, i32, vp]),
             ):

@@ -15,21 +15,23 @@ wrapper        kernel (csrc/)          replaces
 ``k_scale``    ``whvi_kron.cu`` scale  ``pallas_diag.py`` ``k_scale``
 ``k_mm1``      ``whvi_kron.cu`` flat   ``pallas_diag.py`` ``k_mm1``
 ``k_mm2``      ``whvi_kron.cu`` flat   ``pallas_diag.py`` ``k_mm2``
-``k_full``     ``whvi_kron.cu`` flat   ``pallas_diag.py`` ``k_full``
-``emit_full``  ``whvi_pipe.cu``        ``pallas_diag.py`` ``make_emit_full``
+``k_full``     ``whvi_full.cu``        ``pallas_diag.py`` ``k_full``
+``emit_full``  ``whvi_full.cu``        ``pallas_diag.py`` ``make_emit_full``
 ``hbm_copy``   ``copy_floor.cu`` ring  ``pallas_diag.py`` ``make_hbm_copy``
 ``copy_2d``    ``copy_floor.cu`` ring  ``pallas_diag.py`` ``make_copy_2d``
 ``emit_copy``  ``whvi_pipe.cu``        ``pallas_diag.py`` ``make_emit_copy``
 ``k_cur``      ``whvi_kron.cu`` cur    ``pallas_tune.py`` ``k_cur``
 ``k_swap``     ``whvi_kron.cu`` swap   ``pallas_tune.py`` ``k_swap``
-``k_flat``     ``whvi_kron.cu`` flat   ``pallas_tune.py`` ``k_flat``
+``k_flat``     ``whvi_full.cu``        ``pallas_tune.py`` ``k_flat``
 ``k_onecast``  ``whvi_kron.cu`` cur    ``pallas_tune.py`` ``k_onecast``
 =============  ======================  =================================
 
 ``k_cur`` and ``k_onecast`` launch one kernel, ``kron_cur_kernel``: the two
 TPU bodies compute the same function bit for bit (``_dotg`` casts its
 operand to bf16 where ``k_onecast`` casts it), each counted under its own
-name.
+name. ``k_full``, ``k_flat`` and ``emit_full`` launch one kernel too,
+``kron_full_kernel``: their three TPU bodies are one chain of statements
+(``emit_full``'s under a manual ``emit_pipeline``).
 
 Every wrapper takes ``(s1, u, s2, x, tb)`` like the TPU harness's
 ``fn(s1, u, s2, x)`` built for a tile of ``tb`` rows: ``x`` is a
@@ -64,6 +66,7 @@ __all__ = [
     "BF16_TOL",
     "FULL_PRODUCT",
     "LANE",
+    "TILE_BYTES",
     "LAUNCHES",
     "MAX_D",
     "MIN_D",
@@ -83,8 +86,10 @@ __all__ = [
     "k_scale",
     "k_swap",
     "kron_plain",
+    "left_factor",
     "plain",
     "reset_launches",
+    "tile_offset",
     "tol",
 ]
 
@@ -175,6 +180,40 @@ def kron_plain(s1, u, s2, x, stage: str = "full"):
     return (t * s1.reshape(a, LANE)).reshape(B, D)
 
 
+# ------------------------------------------- whvi_full.cu's group, in Python
+
+TILE_BYTES = LANE * LANE * 2  # a 128 x 128 bf16 tile in shared memory
+
+
+def tile_offset(m, j):
+    """Byte offset of element ``(m, j)`` of a 128 x 128 bf16 tile in
+    ``whvi_full.cu`` (its ``tile_offset``): column half ``j // 64``, row
+    ``m`` at 128 bytes, its 16-byte group ``(j // 8) % 8`` stored at that
+    group XOR ``m % 8`` (wgmma's 128-byte swizzle). Takes ints or integer
+    tensors."""
+    return (j >> 6) * (TILE_BYTES // 2) + m * 128 + ((((j >> 3) & 7) ^ (m & 7)) << 4) + (j & 7) * 2
+
+
+def left_factor(a: int, device=None) -> torch.Tensor:
+    """``I_{128/a} (x) H_a`` as ``whvi_full.cu`` builds it (its
+    ``factor_bits``): ``(-1)^popcount(m & j & (a-1))`` where ``m`` and
+    ``j`` lie in one ``a x a`` diagonal block, 0 elsewhere; float32
+    (128, 128). The kernel's left products multiply a group's 128 x 128
+    tile by it, so one matrix covers the 128 / a rows of the group."""
+    if not (is_pow_of_2(a) and 1 <= a <= LANE):
+        raise ValueError(f"a must be a power of two in [1, {LANE}], got {a}")
+    m = torch.arange(LANE, device=device)[:, None]
+    j = torch.arange(LANE, device=device)[None, :]
+    same = ((m ^ j) & ~(a - 1) & (LANE - 1)) == 0
+    parity = torch.zeros(LANE, LANE, dtype=torch.int64, device=device)
+    bits = m & j & (a - 1)
+    while bool(bits.any()):
+        parity ^= bits & 1
+        bits = bits >> 1
+    sign = 1.0 - 2.0 * parity.to(torch.float32)
+    return torch.where(same, sign, torch.zeros_like(sign))
+
+
 def plain(name: str, s1, u, s2, x):
     """The plain PyTorch version of the kernel behind wrapper ``name``."""
     if name in FULL_PRODUCT:
@@ -256,25 +295,18 @@ def _product(name: str, stage: str, layout: str, s1, u, s2, x, tb):
     return y
 
 
-def _pipe(name: str, compute: bool, s1, u, s2, x, tb):
-    if compute:
-        check_kron_args(x, tb, s1, u, s2)
-        on_cpu = _on_cpu(s1, u, s2, x)
-    else:
-        check_kron_args(x, tb)
-        on_cpu = _on_cpu(x)
-    if on_cpu:
+def _full(name: str, s1, u, s2, x, tb):
+    check_kron_args(x, tb, s1, u, s2)
+    if _on_cpu(s1, u, s2, x):
         return plain(name, s1, u, s2, x)
     y = torch.empty_like(x)
     lib = load_library()
-    ptr = lambda d: d.data_ptr() if compute else None  # noqa: E731
     with torch.cuda.device(x.device):
-        err = lib.kron_pipe_f32(
-            x.data_ptr(), ptr(s1), ptr(u), ptr(s2), y.data_ptr(),
-            x.shape[0], int(math.log2(x.shape[1])), tb, int(compute),
-            _stream(x),
+        err = lib.kron_full_f32(
+            x.data_ptr(), s1.data_ptr(), u.data_ptr(), s2.data_ptr(),
+            y.data_ptr(), x.shape[0], int(math.log2(x.shape[1])), tb, _stream(x),
         )
-    _raise_on(err, f"kron_pipe_f32 ({name})")
+    _raise_on(err, f"kron_full_f32 ({name})")
     LAUNCHES[name] += 1
     return y
 
@@ -301,8 +333,16 @@ def k_mm2(s1, u, s2, x, tb):
 
 
 def k_full(s1, u, s2, x, tb):
-    """The whole product, four tensor-core contractions (flat layout)."""
-    return _product("k_full", "full", "flat", s1, u, s2, x, tb)
+    """The whole product on the tensor cores: ``kron_full_kernel``
+    (``csrc/whvi_full.cu``), which ``k_flat`` and ``emit_full`` launch
+    too. Each group of 16384 elements is a 128 x 128 tile whose four factor
+    contractions are wgmma products on ``H_128`` and ``I (x) H_a``
+    resident in shared memory, with the TPU body's bf16 roundings. A
+    persistent grid, one block an SM, streams ``x`` through a ring of TMA
+    bulk loads; its two warpgroups split each group's rows and hold their
+    elements of ``u`` and ``s1`` in registers (``tb`` is checked, not
+    used)."""
+    return _full("k_full", s1, u, s2, x, tb)
 
 
 def k_cur(s1, u, s2, x, tb):
@@ -325,9 +365,9 @@ def k_swap(s1, u, s2, x, tb):
 
 
 def k_flat(s1, u, s2, x, tb):
-    """The whole product with the tile's rows merged into the matmul rows,
-    on the tensor cores (the same body as ``k_full``, as on the TPU)."""
-    return _product("k_flat", "full", "flat", s1, u, s2, x, tb)
+    """``k_full``'s body with the tile's rows merged into the matmul rows:
+    the same function, so the same kernel (:func:`k_full`)."""
+    return _full("k_flat", s1, u, s2, x, tb)
 
 
 def k_onecast(s1, u, s2, x, tb):
@@ -337,16 +377,29 @@ def k_onecast(s1, u, s2, x, tb):
 
 
 def emit_full(s1, u, s2, x, tb):
-    """The whole product in a persistent kernel that streams row tiles
-    through a two-stage ``cp.async`` ring in shared memory."""
-    return _pipe("emit_full", True, s1, u, s2, x, tb)
+    """``k_full``'s body under the TPU's ``emit_pipeline``: the same
+    function, so the same kernel (:func:`k_full`), which streams ``x``
+    through its own ring."""
+    return _full("emit_full", s1, u, s2, x, tb)
 
 
 def emit_copy(s1, u, s2, x, tb):
     """``y = x`` in ``(tb, D)`` tiles, the TPU's ``emit_pipeline`` copy: a
     persistent grid streams each tile's chunks through a ring of TMA bulk
     loads, and consumer warps store them from shared memory."""
-    return _pipe("emit_copy", False, s1, u, s2, x, tb)
+    check_kron_args(x, tb)
+    if _on_cpu(x):
+        return plain("emit_copy", s1, u, s2, x)
+    y = torch.empty_like(x)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.kron_pipe_f32(
+            x.data_ptr(), y.data_ptr(), x.shape[0], int(math.log2(x.shape[1])), tb,
+            _stream(x),
+        )
+    _raise_on(err, "kron_pipe_f32")
+    LAUNCHES["emit_copy"] += 1
+    return y
 
 
 def hbm_copy(s1, u, s2, x, tb=None):
