@@ -29,17 +29,18 @@ Phases, each of which raises on failure:
 5. The large-D kernel-diagnosis path (whvi_tpu_torch/ops/kron_cuda.py):
    each of its 13 kernels against its plain version at B=512, row tiles
    of 4 and 32 (and of 256, two tiles, for copy_2d, k_copy, emit_copy,
-   k_swap, k_cur, k_onecast, k_full, k_flat and emit_full) and D = 128,
+   k_swap, k_cur, k_onecast, k_mm1, k_mm2, k_full, k_flat and emit_full) and D = 128,
    1024, 8192, 16384 (shapes first, then values; tolerances
    kron_cuda.tol; the copies and the scale bit for bit), the full-product
    variants also against the fp32 product (BF16_TOL), and k_full, k_flat
    and emit_full (one kernel) against each other bit for bit; device times
    (CUDA graph replay) of kernel and plain at D=16384, B=512, TB=4, each
    with its share of HBM and bound, the persistent kernels (copy_2d,
-   emit_copy, k_swap, k_cur, k_onecast, k_full, k_flat, emit_full) also
-   at TB = 64, 128, 256, the ratio of k_scale, emit_copy and hbm_copy to
-   their library call and the share of their bound of the row kernels and
-   of the wgmma kernel (logged, not held). Then the path itself: the three entry
+   emit_copy, k_swap, k_cur, k_onecast, k_mm1, k_mm2, k_full, k_flat,
+   emit_full) also at TB = 64, 128, 256, the ratio of k_scale, emit_copy
+   and hbm_copy to their library call and the share of their bound of the
+   row kernels and of the wgmma kernel at 1, 2 and 4 contractions (logged,
+   not held). Then the path itself: the three entry
    points kernel_diag (and --floors), kernel_tune and kernel_check at
    their default sizes with few iterations; every one of the 13 kernels
    must have been launched by that run, and the entry points' own error
@@ -408,8 +409,8 @@ KRON_KERNELS = {
     # counter: (source, the TPU kernel it replaces)
     "k_copy": (_KRON, "benchmarks/pallas_diag.py:73"),
     "k_scale": (_KRON, "benchmarks/pallas_diag.py:77"),
-    "k_mm1": (_KRON, "benchmarks/pallas_diag.py:81"),
-    "k_mm2": (_KRON, "benchmarks/pallas_diag.py:88"),
+    "k_mm1": (_FULL, "benchmarks/pallas_diag.py:81"),
+    "k_mm2": (_FULL, "benchmarks/pallas_diag.py:88"),
     "k_full": (_FULL, "benchmarks/pallas_diag.py:98"),
     "emit_full": (_FULL, "benchmarks/pallas_diag.py:120"),
     "hbm_copy": (_COPY, "benchmarks/pallas_diag.py:269"),
@@ -425,10 +426,12 @@ KRON_TB = 4  # 128 row tiles of 4 rows: one block for most of the 132 SMs
 # the kernels whose design holds at any tile: also checked at two tiles of
 # 256 rows; the persistent ones also timed at kernel_diag --floors' tiles
 FULL_KERNELS = ("k_full", "k_flat", "emit_full")  # one wgmma kernel: equal bit for bit
+MM_KERNELS = ("k_mm1", "k_mm2")  # the same kernel after one or two contractions
 WIDE_TILE_KERNELS = ("k_copy", "copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast",
-                     *FULL_KERNELS)
+                     *MM_KERNELS, *FULL_KERNELS)
 COPY_2D_TBS = (64, 128, 256)
-PERSISTENT = ("copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast", *FULL_KERNELS)
+PERSISTENT = ("copy_2d", "emit_copy", "k_swap", "k_cur", "k_onecast", *MM_KERNELS,
+              *FULL_KERNELS)
 ROW_KERNELS = ("k_swap", "k_cur", "k_onecast")  # rows in registers: share of bound logged
 # redesigned to beat one PyTorch call: their ratio to it is logged
 REDESIGNED = ("k_scale", "emit_copy", "hbm_copy")
@@ -496,9 +499,8 @@ def kron_times(kc, dev, seed) -> dict:
     time. Each is logged with its share of HBM (2 * B * D * 4 bytes a call
     against 3.35 TB/s), the PERSISTENT kernels also at the tiles of
     COPY_2D_TBS, the kernels of REDESIGNED with their ratio to their
-    library call, and the ROW_KERNELS and FULL_KERNELS with their share of
-    their bound. The
-    copies' and the scale's plain version is one PyTorch call (x.clone(),
+    library call, and the ROW_KERNELS, MM_KERNELS and FULL_KERNELS with
+    their share of their bound. The copies' and the scale's plain version is one PyTorch call (x.clone(),
     x * s1), which is also their library call; the products have none (no
     one call rounds to bf16 between the factors)."""
     from whvi_tpu_torch.bench.common import bound_ms, rates, time_us
@@ -531,7 +533,7 @@ def kron_times(kc, dev, seed) -> dict:
         t = times[name]
         log(f"  {name} / its library call at TB={KRON_TB}: {t['ms'] / t['library_ms']:.3f} "
             f"({t['ms']:.4f} / {t['library_ms']:.4f} ms; share of bound {t['bound_ms'] / t['ms']:.3f})")
-    for name in ROW_KERNELS + FULL_KERNELS:
+    for name in ROW_KERNELS + MM_KERNELS + FULL_KERNELS:
         t = times[name]
         log(f"  {name}'s share of its bound at TB={KRON_TB}: {t['bound_ms'] / t['ms']:.3f} "
             f"({t['bound_ms']:.4f} / {t['ms']:.4f} ms)")

@@ -102,12 +102,22 @@ def test_sass_counts_every_form_of_an_op_once():
     ("_ZN4kron11kron_kernelILi1EEEvPKfS2_S2_S2_Pfii", "k_scale"),
     (FULL, "k_full"),  # k_flat and emit_full launch it too
     (EMIT_COPY, "emit_copy"),
-    ("_ZN4kron11kron_kernelILi3EEEvPKfS2_S2_S2_Pfii", None),  # k_mm2: not reported
+    ("_ZN4kron16kron_full_kernelILi1EEEvPKfS2_S2_S2_Pfli", "k_mm1"),  # one contraction
+    ("_ZN4kron16kron_full_kernelILi2EEEvPKfS2_S2_S2_Pfli", "k_mm2"),  # two
+    ("_ZN4kron11kron_kernelILi3EEEvPKfS2_S2_S2_Pfii", None),  # not a kernel of the port
     ("_ZN9kron_copy14copy_2d_kernelEPKcPclll", "hbm_copy"),  # copy_2d runs it too
 ])
 def test_large_d_instances_are_named_after_their_wrappers(symbol, kernel):
     want = None if kernel is None else {"kernel": kernel}
     assert kernel_sass._instance(symbol) == want
+
+
+@pytest.mark.parametrize("n, kernel", [(1, "k_mm1"), (2, "k_mm2")])
+def test_whole_group_instances_are_named_after_their_wrappers(n, kernel):
+    """kron_whole_kernel<n>, built where its switch is on, is the wgmma
+    kernel after n contractions with whole groups a warpgroup."""
+    symbol = f"_ZN4kron17kron_whole_kernelILi{n}EEEvPKfS2_Pfli"
+    assert kernel_sass._instance(symbol) == {"kernel": kernel, "whole_group": True}
 
 
 @pytest.mark.parametrize("L", [7, 12, 14])
@@ -137,7 +147,7 @@ def test_kron_variants_edit_the_shipped_sources(name, tmp_path):
     with open(path) as f, open(os.path.join(CSRC, os.path.basename(path))) as g:
         edited, shipped = f.read(), g.read()
     assert (edited == shipped) == (
-        name in ("k_scale", "emit_copy", "hbm_copy", "k_swap", "k_cur", "k_full"))
+        name in ("k_scale", "emit_copy", "hbm_copy", "k_swap", "k_cur", "k_full", "k_mm1", "k_mm2"))
 
 
 def test_kron_variants_refuse_an_edit_that_does_not_match():

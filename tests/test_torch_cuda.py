@@ -354,6 +354,19 @@ def test_full_flat_and_emit_full_are_one_kernel(dev, shape):
     assert rel_err(ys[0], kc.kron_plain(s1, u, s2, x)) <= kc.tol("k_full", D)
 
 
+@pytest.mark.parametrize("name", ["k_mm1", "k_mm2", "k_full"])
+def test_wgmma_kernel_does_not_read_the_row_tile(dev, name):
+    """kron_full_kernel checks tb and does not use it: its persistent grid
+    walks groups of 16384 elements whatever the tile, so every tile gives
+    the same bits (D = 8192, 2 rows a group; D = 16384, one)."""
+    for D, B in ((8192, 256), (16384, 132)):
+        s1, u, s2, x = _kron_operands(dev, D, B, seed=3)
+        ys = [kc.VARIANTS[name](s1, u, s2, x, tb) for tb in (1, 4, B)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(ys[0], y) for y in ys[1:])
+        assert rel_err(ys[0], kc.plain(name, s1, u, s2, x)) <= kc.tol(name, D)
+
+
 def test_kron_kernels_refuse_what_they_do_not_take(dev):
     s1, u, s2, x = _kron_operands(dev, 256, 12)
     d64 = torch.ones(64, device=dev)
@@ -415,58 +428,73 @@ def test_pipe_entry_refuses_misaligned_operands(dev):
 
 
 def test_full_entry_refuses_misaligned_operands_and_bad_tilings(dev):
-    """kron_full_f32 (k_full, k_flat, emit_full) itself refuses x, y or a
-    diagonal off a 16-byte boundary (its bulk copies and vector reads would
-    fault there), a row tile that does not divide B, and D outside [128,
-    16384]: cudaErrorInvalidValue, nothing launched, the context intact.
-    The wrappers refuse all of these before they reach it."""
+    """kron_full_f32 (k_mm1 and k_mm2 at 1 and 2 contractions; k_full,
+    k_flat, emit_full at 4) itself refuses another count of contractions,
+    x, y or s2 off a 16-byte boundary (its bulk copies and vector reads
+    would fault there), s1 or u off it at 4 contractions (the only count
+    that reads them), a row tile that does not divide B, and D outside
+    [128, 16384]: cudaErrorInvalidValue, nothing launched, the context
+    intact. At 1 and 2 it takes s1 and u off the boundary. The wrappers
+    refuse all of these before they reach it."""
     lib = fc.load_library()
     s1, u, s2, x = _kron_operands(dev, 256, 8)
     y = torch.zeros_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [a.data_ptr() for a in (x, s1, u, s2, y)]
 
-    def call(p=ptrs, B=8, log2d=8, tb=4):
-        return lib.kron_full_f32(*p, B, log2d, tb, stream)
+    def call(p=ptrs, B=8, log2d=8, tb=4, contractions=4):
+        return lib.kron_full_f32(*p, B, log2d, tb, contractions, stream)
 
     invalid_value = 1  # cudaErrorInvalidValue
+    for contractions in (0, 3, 5, -1):
+        assert call(contractions=contractions) == invalid_value
     for off in (4, 8, 12):
-        for i in range(5):
-            p = list(ptrs)
-            p[i] += off
-            assert call(p) == invalid_value
+        for contractions in (1, 2, 4):
+            for i in (0, 3, 4) if contractions < 4 else range(5):  # x, s2, y (and s1, u)
+                p = list(ptrs)
+                p[i] += off
+                assert call(p, contractions=contractions) == invalid_value
     for B, log2d, tb in ((8, 8, 3), (8, 8, 0), (8, 6, 4), (8, 15, 4), (-8, 8, 4)):
-        assert call(B=B, log2d=log2d, tb=tb) == invalid_value
+        for contractions in (1, 2, 4):
+            assert call(B=B, log2d=log2d, tb=tb, contractions=contractions) == invalid_value
     torch.cuda.synchronize()
     assert torch.equal(y, torch.zeros_like(x))  # nothing was written
     assert call() == 0
     torch.cuda.synchronize()
     assert torch.equal(y, kc.k_full(s1, u, s2, x, 4))
+    # 1 and 2 contractions read neither s1 nor u: taken off the boundary
+    for contractions, name in ((1, "k_mm1"), (2, "k_mm2")):
+        y.zero_()
+        p = [ptrs[0], ptrs[1] + 4, ptrs[2] + 4, ptrs[3], ptrs[4]]
+        assert call(p, contractions=contractions) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(y, kc.VARIANTS[name](s1, u, s2, x, 4))
 
 
 def test_stage_and_hbm_entries_refuse_misaligned_operands(dev):
     """kron_stage_f32 refuses x, y, or a diagonal its stage reads (s1 for
-    the scale, s2 for mm1 and mm2, all three for the full product in the
-    row layouts) off a 16-byte boundary, and copy_hbm_f32 x or y (its bulk
-    copies and float4 reads would fault there): cudaErrorInvalidValue,
-    nothing launched, the context intact. The wrappers refuse such
-    operands before they reach them. The full product in the flat layout
-    is kron_full_f32's: kron_stage_f32 refuses it."""
+    the scale, all three for the full product in the row layouts) off a
+    16-byte boundary, and copy_hbm_f32 x or y (its bulk copies and float4
+    reads would fault there): cudaErrorInvalidValue, nothing launched, the
+    context intact. The wrappers refuse such operands before they reach
+    them. mm1, mm2 and the full product in the flat layout are
+    kron_full_f32's: kron_stage_f32 refuses them."""
     lib = fc.load_library()
     s1, u, s2, x = _kron_operands(dev, 256, 8)
     y = torch.zeros_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     X, Y, S1, U, S2 = (a.data_ptr() for a in (x, y, s1, u, s2))
-    calls = [(stage, "flat") for stage in ("copy", "scale", "mm1", "mm2")]
+    calls = [(stage, "flat") for stage in ("copy", "scale")]
     calls += [("full", layout) for layout in ("cur", "swap", "onecast")]
-    reads = {"copy": (), "scale": (0,), "mm1": (2,), "mm2": (2,), "full": (0, 1, 2)}
+    reads = {"copy": (), "scale": (0,), "full": (0, 1, 2)}
 
     def stage(stage_, layout, xp, yp, diagonals=(S1, U, S2)):
         return lib.kron_stage_f32(xp, *diagonals, yp, 8, 8, 4, kc._STAGES[stage_],
                                   kc._LAYOUTS[layout], stream)
 
     invalid_value = 1  # cudaErrorInvalidValue
-    assert stage("full", "flat", X, Y) == invalid_value
+    for stage_ in ("mm1", "mm2", "full"):
+        assert stage(stage_, "flat", X, Y) == invalid_value
     for off in (4, 8, 12):
         assert lib.copy_hbm_f32(X + off, Y, x.numel(), stream) == invalid_value
         assert lib.copy_hbm_f32(X, Y + off, x.numel(), stream) == invalid_value

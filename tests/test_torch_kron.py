@@ -362,12 +362,14 @@ def test_full_and_flat_bodies_agree_bit_for_bit(D):
     assert np.array_equal(full, flat)
 
 
-def flat_schedule(s1, u, s2, x):
-    """kron_full_kernel's group view in PyTorch: x's groups of 16384
-    elements (the last one padded with zero rows) as 128 x 128 tiles, four
-    128 x 128 products, H_128 on the right and the left factor I (x) H_a
-    (kc.left_factor) on the left, the diagonals tiled over the group's
-    128 / a rows, and a bf16 rounding wherever the kernel rounds."""
+def flat_schedule(s1, u, s2, x, contractions=4):
+    """kron_full_kernel<contractions>'s group view in PyTorch: x's groups
+    of 16384 elements (the last one padded with zero rows) as 128 x 128
+    tiles, the first `contractions` of four 128 x 128 products (1: k_mm1,
+    2: k_mm2, 4: the whole product), H_128 on the right and the left
+    factor I (x) H_a (kc.left_factor) on the left, the diagonals tiled over
+    the group's 128 / a rows, and a bf16 rounding wherever the kernel
+    rounds."""
     B, D = x.shape
     n = B * D
     groups = -(-n // 16384)
@@ -376,9 +378,11 @@ def flat_schedule(s1, u, s2, x):
     G = kc.left_factor(D // 128)
     tiled = lambda d: d.reshape(-1, 128).repeat(128 * 128 // D, 1)  # noqa: E731
     v = round_bf16(v) @ H
-    v = G @ round_bf16(v)
-    v = G @ round_bf16(v * tiled(u))
-    v = (round_bf16(v) @ H) * tiled(s1)
+    if contractions >= 2:
+        v = G @ round_bf16(v)
+    if contractions == 4:
+        v = G @ round_bf16(v * tiled(u))
+        v = (round_bf16(v) @ H) * tiled(s1)
     return v.reshape(-1)[:n].reshape(B, D)
 
 
@@ -391,6 +395,24 @@ def test_flat_schedule_matches_pallas_body(shape):
     assert rel_err(got, kc.kron_plain(t(s1), t(u), t(s2), t(x)).numpy()) <= BF16_PARITY_TOL
     want = run_body(_DIAG.k_full, *map(jnp.asarray, (s1, u, s2, x)), TB=8)
     assert rel_err(got, want) <= BF16_PARITY_TOL
+
+
+@pytest.mark.parametrize("shape", [(128, 200), (2048, 16), (16384, 8)],
+                         ids=lambda s: f"D{s[0]}-B{s[1]}")
+@pytest.mark.parametrize("contractions", [1, 2])
+def test_flat_schedule_prefix_matches_pallas_body(contractions, shape):
+    """k_mm1 and k_mm2 launch kron_full_kernel<1> and <2>: the group view's
+    first one or two products against kron_plain and the interpreted TPU
+    bodies k_mm1 / k_mm2 (a partial group at D=128, B=200)."""
+    D, B = shape
+    s1, u, s2, x = _inputs(D, B=B, seed=9)
+    tol = ONE_ROUNDING_TOL if contractions == 1 else BF16_PARITY_TOL
+    got = flat_schedule(t(s1), t(u), t(s2), t(x), contractions).numpy()
+    plain = kc.kron_plain(t(s1), t(u), t(s2), t(x), f"mm{contractions}").numpy()
+    assert rel_err(got, plain) <= tol
+    body = _DIAG.k_mm1 if contractions == 1 else _DIAG.k_mm2
+    want = run_body(body, *map(jnp.asarray, (s1, u, s2, x)), TB=8)
+    assert rel_err(got, want) <= tol
 
 
 @pytest.mark.parametrize("L", range(7, 15))

@@ -13,14 +13,18 @@ Kronecker-factor product up one stage at a time, each stage one kernel
   k1         the port's fp32 fused kernel (``fused_raw(.., False)``)
   plain      the plain PyTorch Kronecker product (``kron_plain``)
 
-``copy`` to ``mm2`` keep the TPU's tiling, one block of 256 threads a
-tile of TB rows (``mm1`` and ``mm2`` on the flat layout's ``mma.sync``
-contractions, ``whvi_kron.cu``), so each rung reads as cost beyond the
-copy's at that tiling. ``full`` and ``emit_full`` are one kernel since
-the TPU bodies are one function: ``whvi_full.cu``'s persistent
-``wgmma`` kernel, one block an SM whatever TB is (it
-checks TB and does not use it), so ``full`` minus ``mm2`` is not the cost
-of the last two contractions.
+Only ``copy`` and ``scale`` keep the TPU's tiling, one block of 256
+threads a tile of TB rows (``whvi_kron.cu``), so they are the floor the
+TPU's reading of this ladder assumes. ``mm1`` through ``emit_full`` are
+one persistent ``wgmma`` kernel (``whvi_full.cu``) stopped after one,
+two or four contractions, one block an SM whatever TB is (it checks TB
+and does not use it): ``full`` and ``emit_full`` are one kernel since the
+TPU bodies are one function. So at TB >= 32, where the one-block-a-tile
+rungs leave most SMs idle, ``mm1`` minus ``scale`` is not the cost of a
+contraction, and neither is any difference of a persistent rung and a
+tiled one. ``mm2`` minus ``mm1`` is the second contraction's cost on one
+design; ``full`` minus ``mm2`` also holds the ring and the registers that
+the whole product lays out otherwise (3 slots, u and s1 in registers).
 
 ``--floors`` measures the copies instead: ``hbm_copy`` (the whole array
 as one tile through ``copy2d``'s ring), ``copy2d/tbN`` (staged through

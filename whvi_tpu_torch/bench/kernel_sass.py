@@ -9,12 +9,14 @@ and disassembles it with ``cuobjdump -sass``. One JSON row per instance of
 ``kron_cur_kernel`` (``k_cur``, which ``k_onecast`` launches too; the
 last two from ``L`` = 7) at the widths asked for, and one each for
 ``kron_kernel<kCopy>`` (``k_copy``), ``kron_kernel<kScale>``
-(``k_scale``), ``kron_full_kernel<4>`` (named ``k_full``, which
-``k_flat`` and ``emit_full`` launch too), ``emit_copy_kernel``
+(``k_scale``), ``kron_full_kernel<1>`` and ``<2>`` (``k_mm1``,
+``k_mm2``; ``kron_whole_kernel<1>`` and ``<2>`` too where a build turns
+its switch on, with ``"whole_group": true``), ``kron_full_kernel<4>``
+(named ``k_full``, which ``k_flat`` and ``emit_full`` launch too), ``emit_copy_kernel``
 (``emit_copy``) and ``copy_2d_kernel`` (named ``hbm_copy``, which runs
 the whole array through it; ``copy_2d`` runs it in tiles): ``registers``, ``stack`` bytes, ``spill_stores`` /
 ``spill_loads`` bytes, and the counts of ``HGMMA`` (warpgroup matrix
-products, ``wgmma``: ``k_full``'s contractions), ``BAR.SYNC`` (block and named
+products, ``wgmma``: the contractions of ``k_mm1``, ``k_mm2`` and ``k_full``), ``BAR.SYNC`` (block and named
 barriers: in K1-K4 one an exchange of the row through shared memory),
 ``SHFL.BFLY`` (warp shuffles by lane XOR: ``k_cur``'s lane stages),
 ``LDG.E.128`` / ``STG.E.128`` (16-byte device-memory accesses; the
@@ -46,9 +48,12 @@ OPS = ("HGMMA", "BAR.SYNC", "SHFL.BFLY", "LDG.E.128", "LDG.E.EF.128", "STG.E.128
        "LDL", "STL", "LDGSTS", "UBLKCP.S.G", "UBLKCP.G.S", "SYNCS.ARRIVE.TRANS64",
        "SYNCS.PHASECHK.TRANS64.TRYWAIT")
 _KERNEL = re.compile(r"_ZN4whvi(?:17whvi_fused_kernel|11fwht_kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?")
-# kron_kernel<stage> of the copy (0) and the scale (1), the whole product
-# kron_full_kernel<4> (k_full, k_flat, emit_full), emit_copy_kernel
-_KRON = re.compile(r"_ZN4kron(?:11kron_kernelILi([01])EE|16kron_full_kernelILi4EE|16emit_copy_kernelE)")
+# kron_kernel<stage> of the copy (0) and the scale (1); kron_full_kernel<n>
+# after n contractions (1 k_mm1, 2 k_mm2, 4 the whole product: k_full,
+# k_flat, emit_full) and kron_whole_kernel<n>; emit_copy_kernel
+_KRON = re.compile(r"_ZN4kron(?:11kron_kernelILi([01])EE|16kron_full_kernelILi([124])EE"
+                   r"|17kron_whole_kernelILi([12])EE|16emit_copy_kernelE)")
+_CONTRACTIONS = {"1": "k_mm1", "2": "k_mm2", "4": "k_full"}
 # the row kernels: kron_swap_kernel<L> (k_swap), kron_cur_kernel<L> (k_cur)
 _ROW = re.compile(r"_ZN4kron(?:16kron_swap_kernel|15kron_cur_kernel)ILi(\d+)EE")
 _RING = "_ZN9kron_copy14copy_2d_kernelE"  # hbm_copy and copy_2d
@@ -65,7 +70,11 @@ def _instance(symbol: str) -> dict | None:
     if m := _KRON.search(symbol):
         if m.group(1) is not None:
             return {"kernel": ("k_copy", "k_scale")[int(m.group(1))]}
-        return {"kernel": "k_full" if "kron_full" in symbol else "emit_copy"}
+        if m.group(2) is not None:
+            return {"kernel": _CONTRACTIONS[m.group(2)]}
+        if m.group(3) is not None:
+            return {"kernel": _CONTRACTIONS[m.group(3)], "whole_group": True}
+        return {"kernel": "emit_copy"}
     m = _KERNEL.search(symbol)
     if m is None:
         return None

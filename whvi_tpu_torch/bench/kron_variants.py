@@ -1,38 +1,37 @@
-"""``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap``, ``k_cur`` and
-``k_full`` built from variants of their CUDA sources and timed side by side
-on one card: what each choice of their designs is worth.
+"""``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap``, ``k_cur``,
+``k_full``, ``k_mm1`` and ``k_mm2`` built from variants of their CUDA
+sources and timed side by side on one card: what each choice of their
+designs is worth.
 
 A variant is a copy of ``whvi_tpu_torch/csrc/`` with named edits
 (``VARIANTS``): a ring's shape changed, another body put in, or a design
-switch turned off. Each edit is a piece of source text that must occur
+switch turned over. Each edit is a piece of source text that must occur
 exactly once in its file, so a variant never times the shipped source by
 mistake; a change to those lines needs the variant edited too. A variant
-without edits (``k_scale``, ``emit_copy``, ``hbm_copy``, ``k_swap``,
-``k_cur``, ``k_full``) names the shipped design.
+without edits (``SHIPPED``) names the shipped design.
 
 Each variant's edited source alone is compiled into its own library, all
 at once, and called through its C entry (``kron_stage_f32``,
 ``kron_full_f32``, ``kron_pipe_f32`` or ``copy_hbm_f32``) with ``ctypes``.
 Every variant is first held against its plain version at D=16384, B=512
 and at the ring's edges (``EDGES``): bit for bit (``x * s1``, ``x``), or
-the products within ``kron_cuda.tol`` of ``kron_plain``; a ``k_cur`` or
-``k_full`` variant also bit for bit against the package's ``k_cur`` or
-``k_full`` (every form does the same arithmetic).
+the products within ``kron_cuda.tol`` of their plain version; a
+``k_cur``, ``k_full``, ``k_mm1`` or ``k_mm2`` variant also bit for bit
+against the package's kernel (every form does the same arithmetic).
 
 JSON rows: first the card and its power limit; then per variant the
-ptxas report of its kernel (registers, spill bytes); then the device ms a
-call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) at
-D=16384, B=512, with the bound (x read once, the diagonals once, y
-written once, over 3.35 TB/s) and its share: the scale variants at TB=4,
-``hbm_copy``'s untiled, the copy, swap, cur and full variants at TB = 4,
-64, 128, 256. The yardsticks, one PyTorch call (``x * s1``,
-``x.clone()``), the package's ``k_copy``, ``copy_2d``, ``emit_copy``,
-``k_swap`` and ``k_cur``, and K1's bf16 mode (the same rounding schedule
-from D = 2048), run first and last, so that drift of the card's clock
-shows.
+ptxas report of its kernels (registers, spill bytes); then the device ms
+a call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) at
+D=16384, B=512, with the bound (x read once, the diagonals it reads once,
+y written once, over 3.35 TB/s) and its share: the scale variants at
+TB=4, ``hbm_copy``'s untiled, the others at TB = 4, 64, 128, 256. The
+yardsticks, one PyTorch call (``x * s1``, ``x.clone()``), the package's
+``k_copy``, ``copy_2d``, ``emit_copy``, ``k_swap`` and ``k_cur``, and K1's
+bf16 mode (the same rounding schedule from D = 2048), run first and last,
+so that drift of the card's clock shows.
 
 Run from the repository root on the card:
-python -m whvi_tpu_torch.bench.kron_variants [k_full full_diag_l2 k_cur ...]
+python -m whvi_tpu_torch.bench.kron_variants [k_mm1 mm1_s2_smem k_full ...]
 """
 
 from __future__ import annotations
@@ -60,8 +59,12 @@ KINDS = {
     "swap": (KRON, "k_swap", (4, 64, 128, 256)),
     "cur": (KRON, "k_cur", (4, 64, 128, 256)),
     "full": (FULL, "k_full", (4, 64, 128, 256)),
+    "mm1": (FULL, "k_mm1", (4, 64, 128, 256)),
+    "mm2": (FULL, "k_mm2", (4, 64, 128, 256)),
 }
-PRODUCTS = ("swap", "cur", "full")  # the kinds that compute the whole product
+PRODUCTS = ("swap", "cur", "full", "mm1", "mm2")  # the kinds that compute a product
+CONTRACTIONS = {"full": 4, "mm1": 1, "mm2": 2}  # the kinds of kron_full_f32
+BIT_EQUAL = ("cur", "full", "mm1", "mm2")  # kinds whose variants equal the package's kernel
 D, B = 16384, 512
 COPY_TBS = KINDS["copy"][2]
 # (D, B, tb) checked bit for bit beside (D, B, 4): one-row tiles, far
@@ -73,15 +76,19 @@ EDGES = [(128, 4096, 1), (1024, 96, 3), (2048, 48, 3), (1024, 8192, 8), (16384, 
 _SMEM_S1 = [
     ("    const int dmask4 = (D >> 2) - 1;\n    for (int64_t q0",
      "    const int dmask4 = (D >> 2) - 1;\n"
-     "    float4* s_tile = reinterpret_cast<float4*>(smem);\n"
+     "    extern __shared__ __align__(16) float4 s_tile[];\n"
      "    for (int q = threadIdx.x; q <= dmask4; q += kThreads) s_tile[q] = __ldg(ss + q);\n"
      "    __syncthreads();\n"
      "    for (int64_t q0"),
     ("if (q < n4) s[k] = __ldg(ss + (q & dmask4));", "if (q < n4) s[k] = s_tile[q & dmask4];"),
-    ("  if (stage == kCopy || stage == kScale) return 0;\n",
-     "  if (stage == kCopy) return 0;\n  if (stage == kScale) return sizeof(float) << log2d;\n"),
-    ("size_t smem_bytes(int stage) {", "size_t smem_bytes(int stage, int log2d) {"),
-    ("smem_bytes(kStage);", "smem_bytes(kStage, log2d);"),
+    ("  kron_kernel<kStage><<<(unsigned)(B / tb), kThreads, 0, stream>>>(x, s1, y, log2d, tb);\n",
+     "  const size_t smem = kStage == kScale ? sizeof(float) << log2d : 0;\n"
+     "  if (smem > 48 * 1024) {\n"
+     "    const cudaError_t err = cudaFuncSetAttribute(\n"
+     "        kron_kernel<kStage>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);\n"
+     "    if (err != cudaSuccess) return err;\n"
+     "  }\n"
+     "  kron_kernel<kStage><<<(unsigned)(B / tb), kThreads, smem, stream>>>(x, s1, y, log2d, tb);\n"),
 ]
 
 # emit_copy's consumers copying each stage into a second ring in shared
@@ -194,11 +201,28 @@ _NO_ROW_PREFETCH = [("constexpr bool kRowPrefetch = true;",
 _DIAG_L2 = [("constexpr bool kFullDiagRegs = true;", "constexpr bool kFullDiagRegs = false;")]
 _TMA_STORE = [("constexpr bool kFullTmaStore = false;", "constexpr bool kFullTmaStore = true;")]
 
+# k_mm1's and k_mm2's design switches: s2 in shared memory (as at 4
+# contractions) or in registers at either count; the ring's slots beside
+# s2 in registers; y through the tile and TMA bulk stores; whole groups a
+# warpgroup (kron_whole_kernel)
+def _s2_regs(up_to: int) -> list:
+    return [("constexpr int kMmS2Regs = 1;", f"constexpr int kMmS2Regs = {up_to};")]
+
+
+def _mm_slots(n: int) -> list:
+    return [("constexpr int kMmSlots = 3;", f"constexpr int kMmSlots = {n};")]
+
+
+_MM_TMA_STORE = [("constexpr bool kMmTmaStore = false;", "constexpr bool kMmTmaStore = true;")]
+_WHOLE_GROUP = [("constexpr bool kMmWholeGroup = false;", "constexpr bool kMmWholeGroup = true;")]
+
 # name -> (kind, edits of its file, KINDS); the shipped emit_copy: 6
 # stages of 16 KB, two blocks an SM, 4 consumer warps storing from the
 # ring; the shipped hbm_copy: copy_2d's ring over one tile; the shipped
 # k_swap and k_cur: the next row block's x prefetched by TMA; the shipped
-# k_full: u and s1 in registers, y stored from registers
+# k_full: u and s1 in registers, y stored from registers; the shipped
+# k_mm1: s2 in registers, 3 slots; k_mm2: s2 in shared memory, 3 slots;
+# both storing y from registers, the warpgroups splitting each group's rows
 VARIANTS = {
     "k_scale": ("scale", []),
     "scale_smem_s1": ("scale", _SMEM_S1),
@@ -224,7 +248,19 @@ VARIANTS = {
     "k_full": ("full", []),
     "full_diag_l2": ("full", _DIAG_L2),
     "full_tma_store": ("full", _TMA_STORE),
+    "k_mm1": ("mm1", []),
+    "mm1_s2_smem": ("mm1", _s2_regs(0)),
+    "mm1_slots2": ("mm1", _mm_slots(2)),
+    "mm1_slots4": ("mm1", _mm_slots(4)),
+    "mm1_tma_store": ("mm1", _MM_TMA_STORE),
+    "mm1_whole_group": ("mm1", _WHOLE_GROUP),
+    "k_mm2": ("mm2", []),
+    "mm2_s2_regs": ("mm2", _s2_regs(2)),
+    "mm2_s2_regs_slots2": ("mm2", _s2_regs(2) + _mm_slots(2)),
+    "mm2_tma_store": ("mm2", _MM_TMA_STORE),
+    "mm2_whole_group": ("mm2", _WHOLE_GROUP),
 }
+SHIPPED = tuple(name for name, (_, edits) in VARIANTS.items() if not edits)
 
 
 def _edit(text: str, old, new: str, name: str, f: str) -> str:
@@ -274,7 +310,7 @@ def load(path: str) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for fn, args in (
         ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
-        ("kron_full_f32", [vp] * 5 + [i64, i32, i32, vp]),
+        ("kron_full_f32", [vp] * 5 + [i64, i32, i32, i32, vp]),
         ("kron_pipe_f32", [vp, vp, i64, i32, i32, vp]),
         ("copy_hbm_f32", [vp, vp, i64, vp]),
     ):
@@ -286,16 +322,17 @@ def load(path: str) -> ctypes.CDLL:
 
 def caller(lib, kind: str, diagonals, x, y, tb):
     """A call of the variant's kernel on the current stream: y = x * s1
-    (``scale``), y = x (``copy``, ``hbm``) or the whole product
-    (``swap``, ``cur``, ``full``); ``diagonals`` is (s1, u, s2)."""
+    (``scale``), y = x (``copy``, ``hbm``), the whole product (``swap``,
+    ``cur``, ``full``) or its first one or two contractions (``mm1``,
+    ``mm2``); ``diagonals`` is (s1, u, s2)."""
     log2d = x.shape[1].bit_length() - 1
     s1, u, s2 = (d.data_ptr() for d in diagonals)
 
     def call():
         stream = torch.cuda.current_stream().cuda_stream
-        if kind == "full":
+        if kind in CONTRACTIONS:
             err = lib.kron_full_f32(x.data_ptr(), s1, u, s2, y.data_ptr(), x.shape[0], log2d, tb,
-                                    stream)
+                                    CONTRACTIONS[kind], stream)
         elif kind in ("scale", "swap", "cur"):
             stage, layout = ("scale", "flat") if kind == "scale" else ("full", kind)
             err = lib.kron_stage_f32(x.data_ptr(), s1, u, s2, y.data_ptr(), x.shape[0], log2d, tb,
@@ -324,10 +361,11 @@ def check(name: str, lib, dev) -> None:
         y = torch.full_like(x, float("nan"))
         caller(lib, kind, diagonals, x, y, tb)()
         if kind in PRODUCTS:
-            want = kc.kron_plain(*diagonals, x)
-            ok = bool(torch.isfinite(y).all()) and rel_err(y, want) <= kc.tol(KINDS[kind][1], d)
-            if kind in ("cur", "full"):
-                ok = ok and torch.equal(y, kc.VARIANTS[KINDS[kind][1]](*diagonals, x, tb))
+            wrapper = KINDS[kind][1]
+            want = kc.plain(wrapper, *diagonals, x)
+            ok = bool(torch.isfinite(y).all()) and rel_err(y, want) <= kc.tol(wrapper, d)
+            if kind in BIT_EQUAL:
+                ok = ok and torch.equal(y, kc.VARIANTS[wrapper](*diagonals, x, tb))
         else:
             ok = torch.equal(y, x * diagonals[0] if kind == "scale" else x)
         if not ok:
@@ -341,8 +379,9 @@ def _row(label, tb, ms, bound) -> dict:
 
 def _bound(kind: str, diagonals, x) -> float:
     """Bytes over 3.35 TB/s: x, the diagonals the kind reads, y."""
-    ins = (x, diagonals[0]) if kind == "scale" else (x, *diagonals) if kind in PRODUCTS else (x,)
-    return bound_ms(ins, (x,), 0.0, 1.0)[0]
+    reads = {"scale": diagonals[:1], "mm1": diagonals[2:], "mm2": diagonals[2:]}.get(
+        kind, diagonals if kind in PRODUCTS else ())
+    return bound_ms((x, *reads), (x,), 0.0, 1.0)[0]
 
 
 def yardsticks(diagonals, x) -> None:

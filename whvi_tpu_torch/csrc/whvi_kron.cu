@@ -2,28 +2,20 @@
 // product, fp32 in and out, bf16 factor operands, fp32 accumulation.
 //
 // Replaces the Pallas kernel bodies of the TPU diagnosis harnesses:
-//   benchmarks/pallas_diag.py  k_copy, k_scale, k_mm1, k_mm2
-//                              (stage = copy .. mm2, flat layout);
+//   benchmarks/pallas_diag.py  k_copy, k_scale (stage = copy, scale);
 //   benchmarks/pallas_tune.py  k_cur, k_swap, k_onecast
 //                              (stage = full, layout = cur/swap/onecast).
-// kron_kernel, templated on the stage, runs the flat layout: the stage
-// ladder below the whole product, built up a stage at a time
-// (kron_core.cuh says what is rounded where). The whole product on the
-// tensor cores (k_full, k_flat, and emit_full of whvi_pipe.cu's TPU
-// harness) is whvi_full.cu's kernel. The row kernels, kron_cur_kernel
-// (k_cur and k_onecast) and kron_swap_kernel (k_swap), hold each row in
-// registers on fwht_core.cuh.
+// kron_kernel, templated on the stage, runs the floor of the stage ladder:
+// the copy and the scale. The tensor-core stages (k_mm1, k_mm2, and the
+// whole product of k_full, k_flat and emit_full) are whvi_full.cu's
+// kernel. The row kernels, kron_cur_kernel (k_cur and k_onecast) and
+// kron_swap_kernel (k_swap), hold each row in registers on fwht_core.cuh.
 //
 // Tiling, as the TPU grid: block b of kron_kernel owns rows [b*tb,
-// (b+1)*tb) of x (B, D); the caller picks tb and B % tb must be 0. A block
-// walks its rows a group of 16384 / D rows at a time (kron_core.cuh). The
+// (b+1)*tb) of x (B, D); the caller picks tb and B % tb must be 0. The
 // row kernels only check tb: their grid is persistent (below).
 //
 // Layouts:
-//   flat     (k_mm1, k_mm2) the group's 128 lane-rows are the rows of
-//            the tensor-core products (mma.sync m16n8k16, bf16 in, fp32
-//            accumulate): (128, 128) @ H_128, and H_a @ (a, 128) per row.
-//            Two bf16 buffers, 68 KB of shared memory.
 //   swap     CUDA cores, the row in registers (fwht_core.cuh: a row of D
 //            floats over D / R threads, R = 16, or 32 from D = 8192). The
 //            TPU body swaps the axes so that every contraction runs over
@@ -75,11 +67,8 @@
 // element (x in, y out) against 2 * 2 * (128 + 128) = 1024 matmul flops
 // an element: 2 * 128 flops per byte, below the 295 of the bf16 tensor
 // cores, so a tensor-core product is memory-bound once its tensor-core
-// work runs near peak: whvi_full.cu's wgmma kernel for the whole product.
-// The flat layout of k_mm1 and k_mm2 builds every fragment with scalar
-// shared loads and generates H from popcount, so it is compute-bound, and
-// small tb leaves SMs idle (B / tb blocks). The row kernels' butterflies cost
-// 2 log2 D adds an element. k_swap's 6 exchanges a row at D = 16384 move
+// work runs near peak: whvi_full.cu's wgmma kernel. The row kernels'
+// butterflies cost 2 log2 D adds an element. k_swap's 6 exchanges a row at D = 16384 move
 // 6 x 2 x 64 KB through shared memory against the row's 128 KB of HBM, so
 // it runs HBM and shared memory in turn; k_cur's 2 exchanges move a third
 // of that, and its 10 lane stages a row take R shuffles each, which share
@@ -96,25 +85,21 @@
 // block an SM holds the row, so the SM still runs the row's exchanges and
 // the HBM traffic in turn; at D = 8192, two blocks an SM, they overlap
 // (PERF.md).
-//
-// Left for later: k_mm1 and k_mm2 on whvi_full.cu's kernel (its template
-// takes the number of contractions).
 #include "fwht_core.cuh"
 #include "kron_core.cuh"
 #include "tma.cuh"
 
 namespace kron {
 
-enum Layout { kCur = 0, kSwap = 1, kFlat = 2, kOneCast = 3 };
+enum Layout { kCur = 0, kSwap = 1, kFlat = 2, kOneCast = 3 };  // kFlat: copy, scale
 
 constexpr int kCopyUnroll = 8;  // 16-byte loads in flight a thread
 
 template <int kStage>
 __global__ void __launch_bounds__(kThreads)
     kron_kernel(const float* __restrict__ x, const float* __restrict__ s1,
-                const float* __restrict__ u, const float* __restrict__ s2,
                 float* __restrict__ y, int log2d, int tb) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  static_assert(kStage == kCopy || kStage == kScale);
   const int D = 1 << log2d;
   const int64_t row0 = (int64_t)blockIdx.x * tb;
   const float* xb = x + row0 * D;
@@ -137,7 +122,7 @@ __global__ void __launch_bounds__(kThreads)
         if (q < n4) __stcs(ys + q, v[k]);
       }
     }
-  } else if constexpr (kStage == kScale) {
+  } else {
     // the copy's loop with s1's float4s loaded (cached) beside x's
     const float4* xs = reinterpret_cast<const float4*>(xb);
     const float4* ss = reinterpret_cast<const float4*>(s1);
@@ -164,36 +149,13 @@ __global__ void __launch_bounds__(kThreads)
                                      __fmul_rn(v[k].z, s[k].z), __fmul_rn(v[k].w, s[k].w)));
       }
     }
-  } else {
-    const int rows = kGroupElems >> log2d;
-    bf16* bufA = reinterpret_cast<bf16*>(smem);
-    for (int g0 = 0; g0 < tb; g0 += rows) {
-      const int nr = min(rows, tb - g0);
-      load_scaled_bf16(xb + (int64_t)g0 * D, s2, bufA, nr, log2d);
-      flat_group<kStage>(bufA, bufA + kGroupRows * kPitch, yb + (int64_t)g0 * D, nr, log2d);
-      __syncthreads();  // the next group overwrites the buffers
-    }
   }
-}
-
-size_t smem_bytes(int stage) {
-  if (stage == kCopy || stage == kScale) return 0;
-  return kFlatSmem;
 }
 
 template <int kStage>
-cudaError_t launch(const float* x, const float* s1, const float* u,
-                   const float* s2, float* y, int64_t B, int log2d, int tb,
+cudaError_t launch(const float* x, const float* s1, float* y, int64_t B, int log2d, int tb,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(kStage);
-  auto kernel = kron_kernel<kStage>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<(unsigned)(B / tb), kThreads, smem, stream>>>(x, s1, u, s2, y,
-                                                         log2d, tb);
+  kron_kernel<kStage><<<(unsigned)(B / tb), kThreads, 0, stream>>>(x, s1, y, log2d, tb);
   return cudaGetLastError();
 }
 
@@ -305,8 +267,6 @@ __global__ void __launch_bounds__(whvi::RowShape<L>::kBlock, whvi::RowShape<L>::
                      float* __restrict__ y, int64_t B) {
   using S = whvi::RowShape<L>;
   constexpr int kIo = whvi::kSplit;
-  // named apart from kron_kernel's smem: an extern shared array's name has
-  // one type in a translation unit
   extern __shared__ __align__(128) char row_smem[];
   const int tid = threadIdx.x;
   const int r = tid / S::kTpr;          // the thread's row in a row block
@@ -535,21 +495,22 @@ struct RowLaunch {
 
 // x, y contiguous (B, D = 2^log2d) fp32 on 16-byte boundaries; s1, u, s2
 // (D,) fp32, likewise aligned where the stage reads them (the copy stage
-// reads none, the scale stage s1, mm1 and mm2 s2, full all three).
-// stage: 0 copy, 1 scale, 2 mm1, 3 mm2, 4 full; layout: 0 cur, 1 swap,
-// 2 flat, 3 onecast (the stages below full take the flat layout only, the
-// full product every layout but flat: kron_full_f32 in whvi_full.cu).
-// Returns the launch's cudaError_t (0 on success; cudaErrorInvalidValue,
-// nothing launched, for an operand it reads off a 16-byte boundary).
+// reads none, the scale stage s1, full all three).
+// stage: 0 copy, 1 scale, 4 full; layout: 0 cur, 1 swap, 2 flat, 3
+// onecast (copy and scale take the flat layout only, the full product
+// every layout but flat). The tensor-core stages, mm1 (2), mm2 (3) and the
+// full product in the flat layout, are kron_full_f32's (whvi_full.cu):
+// refused here. Returns the launch's cudaError_t (0 on success;
+// cudaErrorInvalidValue, nothing launched, for a stage or layout it does
+// not run or an operand it reads off a 16-byte boundary).
 extern "C" int kron_stage_f32(const void* x, const void* s1, const void* u,
                               const void* s2, void* y, int64_t B, int log2d,
                               int tb, int stage, int layout, void* stream) {
   using namespace kron;
   auto off16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   const bool reads_s1 = stage == kScale || stage == kFull;
-  const bool reads_s2 = stage == kMm1 || stage == kMm2 || stage == kFull;
   if (!valid_tiling(B, log2d, tb) || off16(x) || off16(y) || (reads_s1 && off16(s1)) ||
-      (stage == kFull && off16(u)) || (reads_s2 && off16(s2)))
+      (stage == kFull && (off16(u) || off16(s2))))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const auto* fx = static_cast<const float*>(x);
@@ -560,10 +521,8 @@ extern "C" int kron_stage_f32(const void* x, const void* s1, const void* u,
   auto st = static_cast<cudaStream_t>(stream);
   if (layout == kFlat) {
     switch (stage) {
-      case kCopy: return (int)launch<kCopy>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
-      case kScale: return (int)launch<kScale>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
-      case kMm1: return (int)launch<kMm1>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
-      case kMm2: return (int)launch<kMm2>(fx, fs1, fu, fs2, fy, B, log2d, tb, st);
+      case kCopy: return (int)launch<kCopy>(fx, fs1, fy, B, log2d, tb, st);
+      case kScale: return (int)launch<kScale>(fx, fs1, fy, B, log2d, tb, st);
     }
   } else if (stage == kFull && layout == kSwap) {
     return (int)whvi::dispatch_log2d(log2d, RowLaunch<false>{fx, fs1, fu, fs2, fy, B, st});

@@ -239,7 +239,7 @@ def load_library() -> ctypes.CDLL:
             # the kernels of ops/kron_cuda.py
             for name, args in (
                 ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
-                ("kron_full_f32", [vp] * 5 + [i64, i32, i32, vp]),
+                ("kron_full_f32", [vp] * 5 + [i64, i32, i32, i32, vp]),
                 ("kron_pipe_f32", [vp, vp, i64, i32, i32, vp]),
                 ("copy_hbm_f32", [vp, vp, i64, vp]),
                 ("copy_2d_f32", [vp, vp, i64, i32, i32, vp]),

@@ -13,8 +13,8 @@ wrapper        kernel (csrc/)          replaces
 =============  ======================  =================================
 ``k_copy``     ``whvi_kron.cu`` copy   ``pallas_diag.py`` ``k_copy``
 ``k_scale``    ``whvi_kron.cu`` scale  ``pallas_diag.py`` ``k_scale``
-``k_mm1``      ``whvi_kron.cu`` flat   ``pallas_diag.py`` ``k_mm1``
-``k_mm2``      ``whvi_kron.cu`` flat   ``pallas_diag.py`` ``k_mm2``
+``k_mm1``      ``whvi_full.cu`` (1)    ``pallas_diag.py`` ``k_mm1``
+``k_mm2``      ``whvi_full.cu`` (2)    ``pallas_diag.py`` ``k_mm2``
 ``k_full``     ``whvi_full.cu``        ``pallas_diag.py`` ``k_full``
 ``emit_full``  ``whvi_full.cu``        ``pallas_diag.py`` ``make_emit_full``
 ``hbm_copy``   ``copy_floor.cu`` ring  ``pallas_diag.py`` ``make_hbm_copy``
@@ -31,7 +31,9 @@ TPU bodies compute the same function bit for bit (``_dotg`` casts its
 operand to bf16 where ``k_onecast`` casts it), each counted under its own
 name. ``k_full``, ``k_flat`` and ``emit_full`` launch one kernel too,
 ``kron_full_kernel``: their three TPU bodies are one chain of statements
-(``emit_full``'s under a manual ``emit_pipeline``).
+(``emit_full``'s under a manual ``emit_pipeline``). ``k_mm1`` and ``k_mm2``
+launch the same kernel stopped after its first one or two contractions
+(the number in brackets).
 
 Every wrapper takes ``(s1, u, s2, x, tb)`` like the TPU harness's
 ``fn(s1, u, s2, x)`` built for a tile of ``tb`` rows: ``x`` is a
@@ -295,7 +297,7 @@ def _product(name: str, stage: str, layout: str, s1, u, s2, x, tb):
     return y
 
 
-def _full(name: str, s1, u, s2, x, tb):
+def _full(name: str, s1, u, s2, x, tb, contractions: int = 4):
     check_kron_args(x, tb, s1, u, s2)
     if _on_cpu(s1, u, s2, x):
         return plain(name, s1, u, s2, x)
@@ -304,7 +306,8 @@ def _full(name: str, s1, u, s2, x, tb):
     with torch.cuda.device(x.device):
         err = lib.kron_full_f32(
             x.data_ptr(), s1.data_ptr(), u.data_ptr(), s2.data_ptr(),
-            y.data_ptr(), x.shape[0], int(math.log2(x.shape[1])), tb, _stream(x),
+            y.data_ptr(), x.shape[0], int(math.log2(x.shape[1])), tb, contractions,
+            _stream(x),
         )
     _raise_on(err, f"kron_full_f32 ({name})")
     LAUNCHES[name] += 1
@@ -323,13 +326,19 @@ def k_scale(s1, u, s2, x, tb):
 
 
 def k_mm1(s1, u, s2, x, tb):
-    """``R(s2*x) @ H_128`` on each lane-row, on the tensor cores."""
-    return _product("k_mm1", "mm1", "flat", s1, u, s2, x, tb)
+    """``R(s2*x) @ H_128`` on each lane-row: :func:`k_full`'s kernel
+    stopped after its first contraction, one ``wgmma`` product a group on
+    ``H_128`` resident in shared memory. Each thread holds its elements of
+    ``s2`` in registers, so the ring of TMA loads takes five half-groups
+    (``tb`` is checked, not used; ``s1`` and ``u`` are not read)."""
+    return _full("k_mm1", s1, u, s2, x, tb, 1)
 
 
 def k_mm2(s1, u, s2, x, tb):
-    """``k_mm1`` then ``H_a`` over the other axis: ``H_D(s2*x)``."""
-    return _product("k_mm2", "mm2", "flat", s1, u, s2, x, tb)
+    """``k_mm1`` then ``H_a`` over the other axis, ``H_D(s2*x)`` with the
+    rounding between: :func:`k_full`'s kernel stopped after its second
+    contraction, a left product by ``I (x) H_a``."""
+    return _full("k_mm2", s1, u, s2, x, tb, 2)
 
 
 def k_full(s1, u, s2, x, tb):
