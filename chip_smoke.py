@@ -65,6 +65,22 @@ Phases, each of which raises on failure:
    bf16 scaling net on the
    card against a CPU copy on the same weights and noise (loss, MNLL and
    predictions within kron_cuda.BF16_TOL; the gradients' error printed).
+7. The rest of the model family, on K1-K4 in fp32: (a) BASELINE config 4
+   through run_mnist.main --data synthetic at its default widths, 784 ->
+   1024 -> 1024 -> 10 (stacked, square, stacked), batch 256, 1 + 2
+   epochs; its loss must fall. (b) BASELINE config 3 with the protocol's
+   split head (16 -> 512 padded -> 512 -> Parallel of two column heads,
+   lambda 1e-5 and 1.0, per-example noise and the per-row column LRT,
+   HeteroscedasticGaussianLikelihood(sigma0=0.3)), batch 256, 1 + 3
+   epochs, its noise branch frozen for half the steps: the branch must
+   equal its init (torch.equal) up to the boundary and differ after it.
+   Both paths must launch K1-K3, the split head K4 too, with no operand
+   copied for alignment, and each trained net on the card is held against
+   a CPU copy on the same noise (loss and predictions within SLICE_TOL,
+   gradients within SLICE_GRAD_TOL), counting the launches of one train
+   step and one predictive call. (c) run_baseline_configs (config 3,
+   --epochs2 20) and toy_bench (--epochs 200) through their entry points:
+   their rows must be finite. Warm epochs/s and launches are logged.
 
 Before the last line it prints one JSON object of the kernels (each with
 its launches on the main path, max abs error, ms, plain_ms, bound_ms,
@@ -333,7 +349,7 @@ def synthetic_regression(seed: int, n_train=455, n_test=51, d=13):
 
 
 def run_slice(fc, dev, seed) -> dict:
-    from whvi_tpu_torch.models import WHVILinear, WHVIRegression, mlp_layers
+    from whvi_tpu_torch.models import WHVIRegression, mlp_layers
     from whvi_tpu_torch.train import TrainConfig, Trainer
 
     (X, y), (Xt, yt) = synthetic_regression(seed)
@@ -371,22 +387,59 @@ def run_slice(fc, dev, seed) -> dict:
         check(math.isfinite(metrics[k]), f"non-finite {k}")
 
     # the trained net on the card (kernels) against a CPU copy (plain)
-    cpu_net = copy.deepcopy(trainer.net).cpu()
-    rng = np.random.RandomState(seed + 2)
-    xb, yb = torch.from_numpy(X[:64]), torch.from_numpy(y[:64])
-    eps = [
-        torch.from_numpy(rng.randn(4, 1, *l.matrix.g_mu.shape).astype(np.float32))
-        if isinstance(l, WHVILinear) else None
-        for l in cpu_net.layers
-    ]
-    results = []
-    for model, d in ((trainer.net, dev), (cpu_net, torch.device("cpu"))):
+    net_vs_cpu(fc, "slice", trainer.net, X[:64], y[:64], len(X), np.random.RandomState(seed + 2))
+    return launches
+
+
+def given_noise(net, B: int, rng) -> list:
+    """Noise for each layer of ``net`` on x (train_samples, B, n_in), drawn
+    from ``rng`` in layer order: an array of the matrix's noise shape for a
+    WHVI layer (per row with per-example noise), a tuple of the branches'
+    for a Parallel, None otherwise."""
+    from whvi_tpu_torch.models import Parallel, WHVILinear
+
+    def noise(layer):
+        if isinstance(layer, Parallel):
+            return tuple(noise(b) for b in layer.branches)
+        if not isinstance(layer, WHVILinear):
+            return None
+        x = torch.empty(net.train_samples, B, layer.n_in, device="meta")
+        shape = layer.matrix.noise_shape(x, layer.lrt and layer.per_example_noise)
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    return [noise(layer) for layer in net.layers]
+
+
+def _to(tree, device):
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(t, device) for t in tree)
+    return tree.to(device)
+
+
+def net_vs_cpu(fc, label, net, X, Y, n, rng) -> dict:
+    """The net on the card (kernels) against a CPU copy (plain versions) on
+    the rows X, Y and the same noise (given_noise): the loss and the
+    predictions within SLICE_TOL, every parameter's gradient within
+    SLICE_GRAD_TOL. Returns the launches of the card's loss and backward
+    (one train step's kernels) and of its predictive call."""
+    cpu_net = copy.deepcopy(net).cpu()
+    S = net.train_samples
+    xb, yb = torch.from_numpy(X), torch.from_numpy(Y)
+    eps = given_noise(cpu_net, len(X), rng)
+    results, launches = [], {}
+    for model, d in ((net, next(net.parameters()).device), (cpu_net, torch.device("cpu"))):
         model.zero_grad(set_to_none=True)
-        e = [None if a is None else a.to(d) for a in eps]
-        loss, _ = model.loss(xb.to(d), yb.to(d), len(X), weights=None, eps=e)
+        e = _to(eps, d)
+        fc.reset_launches()
+        loss, _ = model.loss(xb.to(d), yb.to(d), n, weights=None, eps=e)
         loss.backward()
+        launches.setdefault("step", dict(fc.LAUNCHES))
+        fc.reset_launches()
         with torch.no_grad():
-            y_hat = model.predict(xb.to(d), 4, eps=e)
+            y_hat = model.predict(xb.to(d), S, eps=e)
+        launches.setdefault("predict", dict(fc.LAUNCHES))
         grads = [p.grad.detach().cpu() for p in model.parameters()]
         results.append((loss.detach().cpu(), y_hat.cpu(), grads))
     (l_k, y_k, g_k), (l_p, y_p, g_p) = results
@@ -394,8 +447,8 @@ def run_slice(fc, dev, seed) -> dict:
     grad_err = max(rel_err(a, b) for a, b in zip(g_k, g_p))
     log(f"  card vs CPU on the same noise: loss {loss_err:.2e}, predictions {pred_err:.2e} "
         f"(<= {SLICE_TOL}), gradients {grad_err:.2e} (<= {SLICE_GRAD_TOL})")
-    check(max(loss_err, pred_err) <= SLICE_TOL, "slice loss/predictions disagree with the CPU")
-    check(grad_err <= SLICE_GRAD_TOL, "slice gradients disagree with the CPU")
+    check(max(loss_err, pred_err) <= SLICE_TOL, f"{label} loss/predictions disagree with the CPU")
+    check(grad_err <= SLICE_GRAD_TOL, f"{label} gradients disagree with the CPU")
     return launches
 
 
@@ -807,6 +860,139 @@ def run_scaling_path(fc, dev, seed) -> dict:
     return launches
 
 
+# ------------------------------------------- 7. the rest of the model family
+
+MNIST_EPOCHS = ("1", "2")  # run_mnist's --epochs1, --epochs2 in the smoke
+HETERO_EPOCHS = (1, 3)  # the split-head net's epochs1, epochs2 (8 steps an epoch)
+FAMILY_KERNELS = ("fused_y", "fused_res", "fused_bwd")  # K1-K3; K4 too on the split head
+
+
+def _path_report(label, logs, launches, realigned, per_call) -> None:
+    """Logs a path's warm epochs/s (after the first chunk), its launches
+    and operands realigned (read just after the path), and its launches a
+    train step and a predictive call."""
+    warm_epochs = logs[-1]["epoch"] - logs[0]["epoch"]
+    warm_s = logs[-1]["seconds"] - logs[0]["seconds"]
+    log(f"  {label} warm epochs/s (after the first chunk): {warm_epochs / warm_s:.2f} "
+        f"({warm_epochs} epochs in {warm_s:.3f} s)")
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f"; operands realigned {realigned}")
+    for what, counts in per_call.items():
+        log(f"  launches a {'train step' if what == 'step' else 'predictive call'}: "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    check(realigned == 0, f"{label} copied {realigned} misaligned operands")
+    check(all(math.isfinite(e["loss"]) for e in logs), f"non-finite {label} training loss")
+
+
+def run_mnist_path(fc, dev, seed) -> None:
+    """(a) BASELINE config 4 through run_mnist.main: 784 -> 1024 -> 1024 ->
+    10 at batch 256 on synthetic_classification for 1 + 2 epochs."""
+    from whvi_tpu_torch.experiments import run_mnist
+
+    log(f"config 4: run_mnist --data synthetic, 784->1024->1024->10, batch 256, "
+        f"epochs {'+'.join(MNIST_EPOCHS)}")
+    fc.reset_launches()
+    row, trainer, logs = run_mnist.main([
+        "--data", "synthetic", "--epochs1", MNIST_EPOCHS[0], "--epochs2", MNIST_EPOCHS[1],
+        "--seed", str(seed),
+    ])
+    torch.cuda.synchronize()
+    launches, realigned = dict(fc.LAUNCHES), fc.REALIGNED
+    X, y = run_mnist.synthetic_classification(seed=seed)[0]
+    per_call = net_vs_cpu(fc, "config 4", trainer.net, X[:256], y[:256, None].astype(np.float32),
+                          len(X), np.random.RandomState(seed + 4))
+    _path_report("config 4", logs, launches, realigned, per_call)
+    for name in FAMILY_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by config 4")
+    check(logs[-1]["loss"] < logs[0]["loss"], "the config 4 loss did not fall")
+    check(0.0 <= row["test_accuracy"] <= 1.0, f"bad accuracy in {row}")
+
+
+def hetero_split_net():
+    """BASELINE config 3's 16 -> 512 -> 512 net with the protocol's split
+    head, as whvi_tpu/evaluation.py:169-240 builds it with
+    heteroscedastic=True: the mean branch at lambda_last 1e-5, the noise
+    branch at lambda_noise 1.0, every WHVI layer with s_init "auto",
+    per-example noise and the per-row column LRT."""
+    from whvi_tpu_torch.models import (
+        HeteroscedasticGaussianLikelihood, Parallel, WHVILinear, WHVINetwork, relu,
+    )
+
+    kw = dict(s_init="auto", per_example_noise=True, column_lrt=True, rect_mode="pad")
+    layers = [
+        WHVILinear(16, 512, 3.0, **kw), relu, WHVILinear(512, 512, 3.0, **kw), relu,
+        Parallel([WHVILinear(512, 1, 1e-5, **kw), WHVILinear(512, 1, 1.0, **kw)]),
+    ]
+    return WHVINetwork(layers, HeteroscedasticGaussianLikelihood(sigma0=0.3),
+                       train_samples=1, eval_samples=64)
+
+
+def run_hetero_path(fc, dev, seed) -> None:
+    """(b) the split-head config 3 net trained across a noise_freeze_steps
+    boundary at half its steps; the noise branch must equal its init up to
+    the boundary and differ after it."""
+    from whvi_tpu_torch.experiments.run_baseline_configs import synthetic_hetero_data
+    from whvi_tpu_torch.train import TrainConfig, Trainer
+
+    X, y, _ = synthetic_hetero_data(seed=seed)
+    n_tr = int(0.9 * len(X))
+    steps = sum(HETERO_EPOCHS) * -(-n_tr // 256)
+    cfg = TrainConfig(epochs1=HETERO_EPOCHS[0], epochs2=HETERO_EPOCHS[1], epochs_per_call=1,
+                      batch_size=256, kl_warmup_steps=int(0.2 * steps),
+                      noise_freeze_steps=steps // 2)
+    trainer = Trainer(hetero_split_net(), cfg, device=dev)
+    state = trainer.init(seed)
+    net = trainer.net
+    noise0 = [p.detach().clone() for p in net.layers[-1].branches[1].parameters()]
+    mean0 = [p.detach().clone() for p in net.layers[-1].branches[0].parameters()]
+    log(f"config 3 split head: 16->512(pad)->512->[1|1] column LRT, batch 256, "
+        f"{n_tr} train rows, epochs {'+'.join(map(str, HETERO_EPOCHS))} "
+        f"({steps} steps), noise frozen for {cfg.noise_freeze_steps} steps")
+
+    def frozen_as_it_should(entry):
+        same = all(torch.equal(p, q) for p, q in zip(net.layers[-1].branches[1].parameters(), noise0))
+        log(f"  epoch {entry['epoch']} step {state.step} loss {entry['loss']:.4f}: "
+            f"noise branch {'unchanged' if same else 'moved'}")
+        check(same == (state.step <= cfg.noise_freeze_steps),
+              f"noise branch at step {state.step}: unchanged={same}")
+
+    fc.reset_launches()
+    state, logs = trainer.fit(state, X[:n_tr], y[:n_tr], log_fn=frozen_as_it_should)
+    metrics = trainer.evaluate(X[n_tr:], y[n_tr:], torch.Generator(device=dev).manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    launches, realigned = dict(fc.LAUNCHES), fc.REALIGNED
+    check(state.step == steps, f"{state.step} steps, not {steps}")
+    check(not all(torch.equal(p, q) for p, q in zip(net.layers[-1].branches[0].parameters(), mean0)),
+          "the mean branch did not train")
+    log("  eval: " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    for k, v in metrics.items():
+        check(math.isfinite(v), f"non-finite {k}")
+    per_call = net_vs_cpu(fc, "config 3 split head", net, X[:256], y[:256], n_tr,
+                          np.random.RandomState(seed + 5))
+    _path_report("config 3 split head", logs, launches, realigned, per_call)
+    for name in (*FAMILY_KERNELS, "fwht"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the split-head net")
+
+
+def run_family_entry_points(fc, seed) -> None:
+    """(d) run_baseline_configs (config 3, short --epochs2) and toy_bench
+    (--epochs 200) through their entry points; their rows must be finite."""
+    from whvi_tpu_torch.bench import toy_bench
+    from whvi_tpu_torch.experiments import run_baseline_configs, run_scaling
+
+    log("entry points: run_baseline_configs --skip 5 --epochs2 20, toy_bench --epochs 200")
+    fc.reset_launches()
+    rows = run_baseline_configs.main(["--skip", "5", "--epochs2", "20", "--seed", str(seed)])
+    rows.append(toy_bench.main(["--epochs", "200"]))
+    torch.cuda.synchronize()
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in fc.LAUNCHES.items() if v))
+    check(len(rows) == 2, f"{len(rows)} rows, not 2")
+    for row in rows:
+        check(run_scaling.finite(row), f"non-finite row {row}")
+    check(all(math.isfinite(r) and r > 0 for r in rows[-1]["runs"]), f"bad runs in {rows[-1]}")
+    check(fc.REALIGNED == 0, "the entry points copied misaligned operands")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -829,6 +1015,9 @@ def main() -> int:
     times.update(fwht_times(fc, dev, args.seed))
     scaling = run_scaling_path(fc, dev, args.seed)
     launches.update({name: scaling[name] for name in BF16_KERNELS})
+    run_mnist_path(fc, dev, args.seed)
+    run_hetero_path(fc, dev, args.seed)
+    run_family_entry_points(fc, args.seed)
 
     kernels = [
         {

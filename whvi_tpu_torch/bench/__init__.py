@@ -7,7 +7,9 @@
   tiles (``benchmarks/pallas_tune.py``);
 - :mod:`~whvi_tpu_torch.bench.kernel_check`: the fused fp32 kernel (K1)
   against the plain paths, its bytes/s and flop rate
-  (``benchmarks/tpu_kernel_check.py``).
+  (``benchmarks/tpu_kernel_check.py``);
+- :mod:`~whvi_tpu_torch.bench.toy_bench`: the toy protocol's training
+  epochs/s, eager (``bench.py``).
 
 Each prints one JSON object a line, the first naming the card and its
 power limit, and raises without a CUDA device: there is no CPU fallback.

@@ -13,7 +13,8 @@ import torch
 from whvi_tpu_torch.utils.profiling import H100_HBM_GBPS, card, cuda_ms, require_cuda
 
 __all__ = [
-    "bound_ms", "emit", "header", "operands", "rates", "rel_err", "time_us", "unique_bytes",
+    "bound_ms", "device_name", "emit", "header", "operands", "rates", "rel_err", "time_us",
+    "unique_bytes",
 ]
 
 WARM_S = 0.2  # seconds of graph replays before timing
@@ -83,6 +84,11 @@ def bound_ms(inputs, outputs, ops: float, peak_flops: float) -> tuple[float, str
     t_bytes = nbytes / (H100_HBM_GBPS * 1e9) * 1e3
     t_ops = ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_name(device: torch.device) -> str:
+    """What a result row names its device: the card's name, or "cpu"."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 def emit(row: dict) -> dict:

@@ -62,7 +62,7 @@ import time
 import numpy as np
 import torch
 
-from whvi_tpu_torch.bench.common import emit, header
+from whvi_tpu_torch.bench.common import device_name, emit, header
 from whvi_tpu_torch.models import WHVILinear, WHVIRegression, relu
 from whvi_tpu_torch.ops import get_whvi_mul_precision, set_whvi_mul_precision
 from whvi_tpu_torch.train import TrainConfig, Trainer
@@ -184,7 +184,7 @@ def run(
             row.update(
                 tflops=flops / dt / 1e12,
                 mfu=None,
-                device=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+                device=device_name(device),
             )
             rows.append(emit(row))
         return rows

@@ -1,9 +1,13 @@
 """Likelihoods for the MC-ELBO (PyTorch).
 
-Counterpart of the Gaussian likelihood of
-:mod:`whvi_tpu.models.likelihoods`. Predictions carry the MC-sample axis
-first, ``y_hat (S, B, n_out)``; ``mnll(y, y_hat, n)`` is the
-total-dataset estimate ``-n * mean_{S,B} sum_out log p(y | y_hat)``.
+Counterpart of :mod:`whvi_tpu.models.likelihoods`: the homoscedastic and
+heteroscedastic Gaussian and the categorical (softmax) likelihoods.
+Predictions carry the MC-sample axis first, ``y_hat (S, B, n_out)``;
+``mnll(y, y_hat, n)`` is the total-dataset estimate
+``-n * mean_{S,B} sum_out log p(y | y_hat)``, and optional row
+``weights (B,)`` give padding rows weight 0. The JAX likelihoods take a
+parameter dict; here a likelihood is an ``nn.Module`` and the two new ones
+have no parameters (``{}`` in JAX).
 """
 
 from __future__ import annotations
@@ -14,7 +18,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["GaussianLikelihood"]
+__all__ = [
+    "GaussianLikelihood",
+    "HeteroscedasticGaussianLikelihood",
+    "CategoricalLikelihood",
+]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -77,3 +85,74 @@ class GaussianLikelihood(nn.Module):
         mean = torch.mean(y_hat, dim=0)
         var = torch.var(y_hat, dim=0, unbiased=False) + self.sigma().square()
         return mean, torch.sqrt(var)
+
+
+class HeteroscedasticGaussianLikelihood(nn.Module):
+    """Gaussian likelihood with input-dependent noise: the network emits
+    ``[mean, raw_sigma]`` on its last axis, ``sigma = softplus(raw_sigma
+    + shift) + sigma_min`` with ``shift = inv_softplus(max(sigma0 -
+    sigma_min, 1e-6))``, so a head near 0 at init starts at ``sigma0``
+    (``whvi_tpu/models/likelihoods.py:130-187``)."""
+
+    def __init__(self, sigma_min: float = 1e-4, sigma0: float = 1.0):
+        super().__init__()
+        self.sigma_min = sigma_min
+        self.sigma0 = sigma0
+
+    def reset_parameters(self, generator=None):
+        del generator
+
+    def split(self, y_hat):
+        """``(mean, sigma)``, each half of ``y_hat``'s last axis."""
+        if y_hat.shape[-1] % 2:
+            raise ValueError(f"needs an even last axis, got {tuple(y_hat.shape)}")
+        mean, raw = torch.chunk(y_hat, 2, dim=-1)
+        shift = _inv_softplus(max(self.sigma0 - self.sigma_min, 1e-6))
+        return mean, F.softplus(raw + shift) + self.sigma_min
+
+    def mnll(self, y, y_hat, n, weights=None):
+        mean, sigma = self.split(y_hat)
+        lp = _gauss_logpdf(y[None], mean, sigma)
+        return _weighted_total(torch.sum(lp, dim=-1), n, weights)
+
+    def log_prob(self, y, y_hat):
+        """Per-sample, per-point joint log density ``(S, B)``."""
+        mean, sigma = self.split(y_hat)
+        return torch.sum(_gauss_logpdf(y[None], mean, sigma), dim=-1)
+
+    def predict(self, y_hat):
+        """Predictive mean and stddev: the MC variance of the means (the
+        population variance, ``correction=0``, as ``jnp.var``) plus the
+        mean noise variance."""
+        mean, sigma = self.split(y_hat)
+        var = torch.var(mean, dim=0, correction=0) + torch.mean(sigma.square(), dim=0)
+        return torch.mean(mean, dim=0), torch.sqrt(var)
+
+
+class CategoricalLikelihood(nn.Module):
+    """Softmax likelihood over logits ``y_hat (S, B, C)``. Labels come as
+    ``(B,)`` or ``(B, 1)``, integers or floats (the trainer stores targets
+    as floats), and are read as ``long`` class indices, as JAX casts them
+    to int32 (``whvi_tpu/models/likelihoods.py:190-224``)."""
+
+    def reset_parameters(self, generator=None):
+        del generator
+
+    @staticmethod
+    def _label_log_prob(y, y_hat):
+        """``log softmax(y_hat)[..., y]``, ``(S, B)``."""
+        labels = y.reshape(-1).long()
+        logp = F.log_softmax(y_hat, dim=-1)
+        index = labels.view(1, -1, 1).expand(logp.shape[0], -1, 1)
+        return torch.gather(logp, -1, index)[..., 0]
+
+    def mnll(self, y, y_hat, n, weights=None):
+        return _weighted_total(self._label_log_prob(y, y_hat), n, weights)
+
+    def log_prob(self, y, y_hat):
+        """Per-sample, per-point class log probability ``(S, B)``."""
+        return self._label_log_prob(y, y_hat)
+
+    def predict(self, y_hat):
+        """Posterior-mean class probabilities ``(B, C)``."""
+        return torch.mean(F.softmax(y_hat, dim=-1), dim=0)

@@ -12,8 +12,9 @@ forward computes all samples:
 - ``loss``: negative ELBO = total-dataset MNLL + ``kl_scale`` * KL.
 
 ``eps`` is an optional per-layer list of noise tensors (None for
-activations) replacing the generator's draws, so tests can feed both
-packages the same noise.
+deterministic layers, a tuple of per-branch entries for ``Parallel``)
+replacing the generator's draws, so tests can feed both packages the same
+noise.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ import torch
 from torch import nn
 
 from whvi_tpu_torch.models.layers import WHVILinear, relu
-from whvi_tpu_torch.models.likelihoods import GaussianLikelihood
+from whvi_tpu_torch.models.likelihoods import CategoricalLikelihood, GaussianLikelihood
 
-__all__ = ["WHVINetwork", "WHVIRegression", "mlp_layers"]
+__all__ = ["WHVINetwork", "WHVIRegression", "WHVIClassification", "mlp_layers"]
 
 
 class WHVINetwork(nn.Module):
@@ -104,24 +105,30 @@ class WHVINetwork(nn.Module):
         return self.metrics_from_predictions(y, y_hat)
 
     def metrics_from_predictions(self, y, y_hat) -> dict:
-        """Total and per-point MNLL, posterior-predictive MNLL
-        (``-mean_i log mean_s p(y_i | f_s)``), RMSE of the MC mean and
-        95% interval coverage from ``y_hat (S, B, n_out)``."""
+        """Total and per-point MNLL, and from ``y_hat (S, B, n_out)`` what
+        applies: the posterior-predictive MNLL (``-mean_i log mean_s
+        p(y_i | f_s)``) where the likelihood has ``log_prob``, the RMSE of
+        the MC mean where ``y_hat`` has ``y``'s width, and 95% interval
+        coverage where ``predict`` gives ``(mean, sd)`` (not class
+        probabilities)."""
         S = y_hat.shape[0]
         n = y.shape[0]
         mnll = self.likelihood.mnll(y, y_hat, n)
         out = {"mnll": mnll, "mnll_per_point": mnll / n}
-        lp = self.likelihood.log_prob(y, y_hat)
-        pred_ll = torch.logsumexp(lp, dim=0) - math.log(S)
-        out["pred_mnll_per_point"] = -torch.mean(pred_ll)
+        if hasattr(self.likelihood, "log_prob"):
+            lp = self.likelihood.log_prob(y, y_hat)
+            pred_ll = torch.logsumexp(lp, dim=0) - math.log(S)
+            out["pred_mnll_per_point"] = -torch.mean(pred_ll)
         if y.ndim > 1 and y_hat.ndim == 3 and y_hat.shape[-1] == y.shape[-1]:
             out["rmse"] = torch.sqrt(
                 torch.mean((torch.mean(y_hat, dim=0) - y).square())
             )
-        mean, sd = self.likelihood.predict(y_hat)
-        if y.ndim == mean.ndim:
-            inside = torch.abs(y - mean) <= 1.9599640 * sd
-            out["coverage95"] = torch.mean(inside.to(y_hat.dtype))
+        if hasattr(self.likelihood, "predict"):
+            moments = self.likelihood.predict(y_hat)
+            if isinstance(moments, tuple) and y.ndim == moments[0].ndim:
+                mean, sd = moments
+                inside = torch.abs(y - mean) <= 1.9599640 * sd
+                out["coverage95"] = torch.mean(inside.to(y_hat.dtype))
         return out
 
 
@@ -132,19 +139,36 @@ def mlp_layers(
     lambda_hidden: float = 3.0,
     lambda_last: float = 1e-5,
     activation=None,
+    rect_mode: str = "stack",
     bias: bool = False,
 ) -> list:
     """The reference UCI architecture: a WHVI MLP with ReLU hidden
     activations, prior variance ``lambda_hidden`` on hidden layers and
-    ``lambda_last`` on the output layer."""
+    ``lambda_last`` on the output layer; ``rect_mode`` ("stack" or "pad")
+    builds its non-square layers."""
     act = activation if activation is not None else relu
     dims = [n_in, *hidden]
+    kw = dict(rect_mode=rect_mode, bias=bias)
     layers: list = []
     for a, b in zip(dims[:-1], dims[1:]):
-        layers.append(WHVILinear(a, b, lambda_=lambda_hidden, bias=bias))
+        layers.append(WHVILinear(a, b, lambda_=lambda_hidden, **kw))
         layers.append(act)
-    layers.append(WHVILinear(dims[-1], n_out, lambda_=lambda_last, bias=bias))
+    layers.append(WHVILinear(dims[-1], n_out, lambda_=lambda_last, **kw))
     return layers
+
+
+def WHVIClassification(
+    layers,
+    train_samples: int = 1,
+    eval_samples: int = 16,
+) -> WHVINetwork:
+    """Network plus a categorical (softmax) likelihood over its logits."""
+    return WHVINetwork(
+        layers,
+        CategoricalLikelihood(),
+        train_samples=train_samples,
+        eval_samples=eval_samples,
+    )
 
 
 def WHVIRegression(

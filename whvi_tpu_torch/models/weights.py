@@ -1,13 +1,14 @@
 """Structured variational weight matrices as ``nn.Module``s.
 
-Counterparts of ``SquarePow2Matrix``, ``StackedMatrix`` and
-``ColumnMatrix`` in :mod:`whvi_tpu.models.weights`, with the JAX
-parameter names (``s1``, ``s2``, ``g_mu``, ``g_rho``) and shapes; the
+Counterparts of ``SquarePow2Matrix``, ``StackedMatrix``, ``ColumnMatrix``
+and ``PaddedSquareMatrix`` in :mod:`whvi_tpu.models.weights`, with the
+JAX parameter names (``s1``, ``s2``, ``g_mu``, ``g_rho``) and shapes; the
 stacked matrix keeps its blocks on a leading ``stack`` axis.
 
 Every matrix has ``kl()``, ``sample_g``, ``forward`` (the counterpart of
-JAX ``apply``; ``nn.Module.apply`` keeps its PyTorch meaning) and
-``apply_given_g``. Inputs carry the MC-sample axes in front:
+JAX ``apply``; ``nn.Module.apply`` keeps its PyTorch meaning),
+``apply_given_g`` and ``sample_W``, the dense ``(n_out, n_in)`` sample
+(test oracle). Inputs carry the MC-sample axes in front:
 ``x (*S, B, n_in)``. One forward draws the posterior noise for every
 sample at once:
 
@@ -37,12 +38,13 @@ from whvi_tpu_torch.ops.hadamard import (
     kl_diag_normal,
     next_pow_of_2,
 )
-from whvi_tpu_torch.ops.whvi_op import whvi_mul
+from whvi_tpu_torch.ops.whvi_op import whvi_dense, whvi_mul
 
 __all__ = [
     "SquarePow2Matrix",
     "StackedMatrix",
     "ColumnMatrix",
+    "PaddedSquareMatrix",
     "setup_dimensions",
 ]
 
@@ -103,6 +105,13 @@ class _WHVIMatrix(nn.Module):
         )
         return self.g_mu + self.g_sigma() * eps
 
+    def sample_W(self, generator=None, eps=None) -> torch.Tensor:
+        """A dense ``(n_out, n_in)`` weight sample, ``eps`` of ``g_mu``'s
+        shape drawn from ``generator`` unless given."""
+        if eps is None:
+            return self.dense_given_g(self.sample_g((), generator))
+        return self.dense_given_g(self.g_mu + self.g_sigma() * eps)
+
     def noise_shape(self, x: torch.Tensor, per_example_noise: bool):
         lead = x.shape[:-1] if per_example_noise else x.shape[:-2] + (1,)
         return tuple(lead) + tuple(self.g_mu.shape)
@@ -152,6 +161,10 @@ class SquarePow2Matrix(_WHVIMatrix):
         (one row per batch row with ``per_example_noise``)."""
         return whvi_mul(self.s1, g, self.s2, x, per_example=per_example_noise)
 
+    def dense_given_g(self, g):
+        """``W = S1 H diag(g) H S2``, ``(D, D)``."""
+        return whvi_dense(self.s1, g, self.s2)
+
 
 class StackedMatrix(_WHVIMatrix):
     """``(n_in, n_out)`` matrix as ``stack`` square ``D_in`` blocks:
@@ -178,22 +191,37 @@ class StackedMatrix(_WHVIMatrix):
         out = out.reshape(out.shape[:-2] + (-1,))
         return out[..., : self.n_out]
 
+    def dense_given_g(self, g):
+        """The blocks stacked vertically and truncated, ``(n_out, n_in)``."""
+        D_in, D_out, _, _ = self.dims
+        W = whvi_dense(self.s1, g, self.s2).reshape(D_out, D_in)
+        return W[: self.n_out, : self.n_in]
+
 
 class ColumnMatrix(_WHVIMatrix):
     """``(n, 1)`` column (``(1, n)`` row when ``transposed``) matrix: the
     first ``n`` entries, row-major, of a square ``D_adj`` WHVI sample,
     ``D_adj = next_pow_of_2(n)``. Only the ``ceil(n / D_adj)`` surviving
     rows are computed, ``row_i = s1[i] * fwht(H[i, :] * g) * s2``, through
-    the FWHT kernel. Always the explicit-sample path (one column per MC
-    sample), as the reference; the opt-in per-row ``column_lrt`` is not
-    ported yet. Parameters ``(D_adj,)``."""
+    the FWHT kernel. Parameters ``(D_adj,)``.
+
+    By default one explicit column a sample, as the reference
+    (``whvi_tpu/models/weights.py:389-396``). With ``use_lrt`` and
+    per-example noise it draws ``eps (*S, B, D_adj)``, one column a batch
+    row: the column is linear in ``g``, so this is the local
+    reparameterization trick, a lower-variance estimator with the same
+    marginals. The layer passes per-example noise only when its ``lrt``
+    and ``per_example_noise`` are both on, so the matrix engages it
+    exactly when JAX does (``use_lrt and lrt and per_example_noise``)."""
 
     def __init__(
         self, n: int, lambda_: float = 1e-5, transposed: bool = False,
-        s_init=0.01, *, device=None, dtype=torch.float32,
+        s_init=0.01, use_lrt: bool = False, *, device=None,
+        dtype=torch.float32,
     ):
         self.n = n
         self.transposed = transposed
+        self.use_lrt = use_lrt
         self.D_adj = next_pow_of_2(n)
         super().__init__((self.D_adj,), lambda_, s_init, device, dtype)
         n_rows = -(-n // self.D_adj)
@@ -212,11 +240,11 @@ class ColumnMatrix(_WHVIMatrix):
         return 1 if self.transposed else self.n
 
     def noise_shape(self, x, per_example_noise):
-        del per_example_noise  # one explicit column per sample
-        return super().noise_shape(x, False)
+        return super().noise_shape(x, self.use_lrt and per_example_noise)
 
     def column_given_g(self, g):
-        """Column from ``g (..., D_adj)``; returns ``(..., n)``."""
+        """Column from ``g (..., D_adj)``; returns ``(..., n)``: one column
+        a row of ``g``, so ``g (*S, B, D_adj)`` gives one a batch row."""
         n_rows = self.H_rows.shape[0]
         rows = (
             self.s1[:n_rows, None]
@@ -230,8 +258,45 @@ class ColumnMatrix(_WHVIMatrix):
         return self.column_given_g(self.sample_g(sample_shape, generator))
 
     def apply_given_g(self, x, g, per_example_noise: bool = False):
-        del per_example_noise  # one explicit column per sample
+        """``x @ W^T`` for the column of ``g``; ``g``'s leading axes say
+        whether a column serves a sample or a row (``per_example_noise``
+        is not needed: the FWHT has no bf16 mode)."""
+        del per_example_noise
         col = self.column_given_g(g)
         if self.transposed:
             return torch.sum(x * col, dim=-1, keepdim=True)
         return x * col
+
+    def dense_given_g(self, g):
+        col = self.column_given_g(g)
+        return col[None, :] if self.transposed else col[:, None]
+
+
+class PaddedSquareMatrix(_WHVIMatrix):
+    """``(n_in, n_out)`` map as ONE square WHVI block of
+    ``D = next_pow_of_2(max(n_in, n_out))``: inputs zero-padded to ``D``,
+    outputs truncated to ``n_out``. Unlike the stacked construction every
+    output mixes every input (``whvi_tpu/models/weights.py:407-474``).
+    Parameters ``(D,)``."""
+
+    def __init__(
+        self, n_in: int, n_out: int, lambda_: float = 1e-5, s_init=0.01, *,
+        device=None, dtype=torch.float32,
+    ):
+        self.n_in = n_in
+        self.n_out = n_out
+        self.D = next_pow_of_2(max(n_in, n_out))
+        super().__init__((self.D,), lambda_, s_init, device, dtype)
+
+    def apply_given_g(self, x, g, per_example_noise: bool = False):
+        """``(..., n_in) -> (..., n_out)``; ``g (..., D)`` broadcasts
+        against ``x``'s leading axes (one row per batch row with
+        ``per_example_noise``, which ``whvi_mul`` must be told: at batch 1
+        the shape cannot say)."""
+        pad = self.D - self.n_in
+        xp = F.pad(x, (0, pad)) if pad else x
+        y = whvi_mul(self.s1, g, self.s2, xp, per_example=per_example_noise)
+        return y[..., : self.n_out]
+
+    def dense_given_g(self, g):
+        return whvi_dense(self.s1, g, self.s2)[: self.n_out, : self.n_in]

@@ -2,6 +2,8 @@ from whvi_tpu_torch.train.optim import (
     decay_schedule,
     decayed_adam,
     mask_likelihood_grads,
+    mask_noise_branch_grads,
+    validate_split_head,
 )
 from whvi_tpu_torch.train.trainer import (
     TrainConfig,
@@ -18,4 +20,6 @@ __all__ = [
     "decay_schedule",
     "decayed_adam",
     "mask_likelihood_grads",
+    "mask_noise_branch_grads",
+    "validate_split_head",
 ]

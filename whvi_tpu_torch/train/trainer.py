@@ -11,8 +11,10 @@ frozen, then ``epochs2`` with everything trained; batch 64 with the full
 dataset size ``n`` in the MNLL scaling; a fresh permutation per epoch
 (``shuffle``), wrap-padded to a multiple of the batch size with weight-0
 padding rows so every batch has the same shape and the padded batch's
-estimator equals the unpadded one's. Checkpoints, the mesh, vmapped
-splits and traced hyperparameters are not ported yet.
+estimator equals the unpadded one's. A heteroscedastic split head's
+noise branch can be frozen for the first ``noise_freeze_steps`` steps.
+Checkpoints, the mesh, vmapped splits and traced hyperparameters are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,12 @@ from typing import Callable
 
 import torch
 
-from whvi_tpu_torch.train.optim import decayed_adam, mask_likelihood_grads
+from whvi_tpu_torch.train.optim import (
+    decayed_adam,
+    mask_likelihood_grads,
+    mask_noise_branch_grads,
+    validate_split_head,
+)
 
 __all__ = ["TrainConfig", "TrainState", "Trainer", "batch_layout"]
 
@@ -33,7 +40,10 @@ class TrainConfig:
     """Hyperparameters of the two-phase ELBO protocol (defaults: the
     reference UCI protocol). ``kl_warmup_steps`` scales the KL term by
     ``min(1, step / kl_warmup_steps)`` with the step count before the
-    update (0 disables)."""
+    update (0 disables). ``noise_freeze_steps`` freezes the noise branch
+    of a heteroscedastic split head while the step count before the
+    update is below it (0 disables; any other value needs the split
+    head)."""
 
     lr0: float = 1e-3
     gamma: float = 5e-4
@@ -45,6 +55,7 @@ class TrainConfig:
     shuffle: bool = True
     ignore_kl: bool = False
     kl_warmup_steps: int = 0
+    noise_freeze_steps: int = 0
 
 
 @dataclasses.dataclass
@@ -85,6 +96,8 @@ class Trainer:
         self.net = net.to(self.device)
         self.config = config
         self.dtype = next(net.parameters()).dtype
+        if config.noise_freeze_steps > 0:
+            validate_split_head(net)
 
     def init(self, seed: int) -> TrainState:
         """Fresh parameters and optimizer from one ``torch.Generator`` on
@@ -127,6 +140,8 @@ class Trainer:
         )
         loss.backward()
         mask_likelihood_grads(self.net, train_likelihood)
+        if cfg.noise_freeze_steps > 0:
+            mask_noise_branch_grads(self.net, state.step >= cfg.noise_freeze_steps)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

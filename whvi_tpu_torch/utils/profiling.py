@@ -26,7 +26,7 @@ from typing import Callable
 
 import torch
 
-from whvi_tpu_torch.models.weights import SquarePow2Matrix, StackedMatrix
+from whvi_tpu_torch.models.weights import PaddedSquareMatrix, SquarePow2Matrix, StackedMatrix
 from whvi_tpu_torch.ops.hadamard import fwht_factors
 
 __all__ = [
@@ -84,13 +84,14 @@ def whvi_layer_train_flops(D: int, batch: int, stack: int = 1) -> int:
 
 def net_train_step_flops(net, batch: int, n_samples: int | None = None) -> int:
     """Matmul flops of one ELBO train step of a ``WHVINetwork``, from the
-    types of its layers' matrices: square and stacked matrices count,
-    column matrices (O(n), no matmul) and activations do not."""
+    types of its layers' matrices: square, stacked and padded matrices
+    count, column matrices (O(n), no matmul), activations and the layers
+    without a ``matrix`` (``Dense``, ``Parallel``) do not, as in JAX."""
     S = net.train_samples if n_samples is None else n_samples
     total = 0
     for layer in net.layers:
         m = getattr(layer, "matrix", None)
-        if isinstance(m, SquarePow2Matrix):
+        if isinstance(m, (SquarePow2Matrix, PaddedSquareMatrix)):
             total += whvi_layer_train_flops(m.D, batch)
         elif isinstance(m, StackedMatrix):
             D_in, _, _, stack = m.dims
