@@ -81,6 +81,25 @@ Phases, each of which raises on failure:
    step and one predictive call. (c) run_baseline_configs (config 3,
    --epochs2 20) and toy_bench (--epochs 200) through their entry points:
    their rows must be finite. Warm epochs/s and launches are logged.
+8. The UCI protocol (whvi_tpu_torch/evaluation.py), its splits stacked as
+   the replicas of one net, on K1-K4 in fp32: (a) K1-K3 against their
+   plain versions at the replica shapes, s1 (8,1,1,D), u (8,S,1,D), x
+   (8,S,B,D) and the stacked layer's (8,1,1,8,16) diagonals, which read
+   through 4 strided dims. (b) One stacked flagship step (R=8, 13 -> 128 ->
+   128 -> 1 as ProtocolConfig builds it, batch 64) against a CPU copy on
+   the same noise (SLICE_TOL, SLICE_GRAD_TOL), and a replica against its
+   own unreplicated net on the card (STEP_TOL); the launches of a train
+   step and of a predictive call must equal a single split's; ms a step of
+   each, host clock. (c) evaluate_bayesian_regression stacked, R=8, on
+   506 x 13 synthetic data, 2 + 6 epochs, calibrate, checkpoints every 2
+   epochs: every K1-K4 launched, no operand realigned, protocol_wall_s and
+   epochs_per_s_amortized logged; the same call again resumes and must give
+   equal metrics; a stacked fit interrupted and resumed must equal the
+   uninterrupted one (torch.equal); the sequential protocol on the same
+   data for comparison. (d) evaluate_config_grid, lambda_hidden 1.0 and
+   3.0 x 8 splits. (e) run_protocol_feasibility at n=8192, 8 features,
+   1 + 2 epochs; (f) run_uci yacht --splits 8 --epochs1 1 --epochs2 4 on a
+   synthetic 308 x 7 yacht file; their rows must be finite.
 
 Before the last line it prints one JSON object of the kernels (each with
 its launches on the main path, max abs error, ms, plain_ms, bound_ms,
@@ -94,11 +113,14 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -392,18 +414,21 @@ def run_slice(fc, dev, seed) -> dict:
 
 
 def given_noise(net, B: int, rng) -> list:
-    """Noise for each layer of ``net`` on x (train_samples, B, n_in), drawn
-    from ``rng`` in layer order: an array of the matrix's noise shape for a
-    WHVI layer (per row with per-example noise), a tuple of the branches'
-    for a Parallel, None otherwise."""
+    """Noise for each layer of ``net`` on x (train_samples, B, n_in) (with a
+    leading replica axis on a replicated net), drawn from ``rng`` in layer
+    order: an array of the matrix's noise shape for a WHVI layer (per row
+    with per-example noise), a tuple of the branches' for a Parallel, None
+    otherwise."""
     from whvi_tpu_torch.models import Parallel, WHVILinear
+
+    lead = () if net.replicas is None else (net.replicas,)
 
     def noise(layer):
         if isinstance(layer, Parallel):
             return tuple(noise(b) for b in layer.branches)
         if not isinstance(layer, WHVILinear):
             return None
-        x = torch.empty(net.train_samples, B, layer.n_in, device="meta")
+        x = torch.empty(*lead, net.train_samples, B, layer.n_in, device="meta")
         shape = layer.matrix.noise_shape(x, layer.lrt and layer.per_example_noise)
         return torch.from_numpy(rng.randn(*shape).astype(np.float32))
 
@@ -427,14 +452,14 @@ def net_vs_cpu(fc, label, net, X, Y, n, rng) -> dict:
     cpu_net = copy.deepcopy(net).cpu()
     S = net.train_samples
     xb, yb = torch.from_numpy(X), torch.from_numpy(Y)
-    eps = given_noise(cpu_net, len(X), rng)
+    eps = given_noise(cpu_net, X.shape[-2], rng)
     results, launches = [], {}
     for model, d in ((net, next(net.parameters()).device), (cpu_net, torch.device("cpu"))):
         model.zero_grad(set_to_none=True)
         e = _to(eps, d)
         fc.reset_launches()
         loss, _ = model.loss(xb.to(d), yb.to(d), n, weights=None, eps=e)
-        loss.backward()
+        loss.sum().backward()  # a replicated net's loss is one a replica
         launches.setdefault("step", dict(fc.LAUNCHES))
         fc.reset_launches()
         with torch.no_grad():
@@ -993,6 +1018,263 @@ def run_family_entry_points(fc, seed) -> None:
     check(fc.REALIGNED == 0, "the entry points copied misaligned operands")
 
 
+# ----------------------------------------------------- 8. the UCI protocol
+
+PROTOCOL_R = 8  # the protocol's n_splits, the replicas of one stacked fit
+PROTOCOL_EPOCHS = (2, 6)  # epochs1, epochs2 instead of 500 + 50000
+PROTOCOL_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")  # K1-K4, fp32
+# K1-K3 at the replica shapes: (label, D, s1/s2 lead, u lead, x lead); the
+# stacked layer's eval shape reads through 4 strided dims, the kernel's most
+REPLICA_SHAPES = [
+    ("replicas square128 train", 128, (8, 1, 1), (8, 1, 1), (8, 1, 64)),
+    ("replicas square128 eval", 128, (8, 1, 1), (8, 64, 1), (8, 64, 51)),
+    ("replicas stack8x16 train", 16, (8, 1, 1, 8), (8, 1, 1, 8), (8, 1, 64, 1)),
+    ("replicas stack8x16 eval", 16, (8, 1, 1, 8), (8, 64, 1, 8), (8, 64, 51, 1)),
+    ("replicas stack8x16 u/row", 16, (8, 1, 1, 8), (8, 8, 64, 8), (8, 8, 64, 1)),
+]
+STEP_TOL = 1e-6  # a replica against its own unreplicated net, both on the card
+
+
+def replica_shapes_vs_plain(fc, dev, seed) -> None:
+    """(a) K1-K3 at the replica shapes against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log(f"K1-K3 at the replica shapes (<= {KERNEL_TOL}; forward bit for bit):")
+    for label, D, s_lead, u_lead, x_lead in REPLICA_SHAPES:
+        compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead)
+
+
+def _flagship_trainer(dev, replicas, seeds, epochs=(0, 1)):
+    from whvi_tpu_torch.evaluation import ProtocolConfig, _build_net
+    from whvi_tpu_torch.train import TrainConfig, Trainer
+
+    trainer = Trainer(
+        _build_net(ProtocolConfig(), 13, 1),
+        TrainConfig(epochs1=epochs[0], epochs2=epochs[1], checkpoint_every=2, epochs_per_call=2),
+        device=dev, replicas=replicas,
+    )
+    return trainer, trainer.init(seeds if replicas else seeds[0])
+
+
+def protocol_step(fc, dev, seed) -> dict:
+    """(b) One stacked flagship step (R=8, 13 -> 128 -> 128 -> 1 as
+    ProtocolConfig builds it, batch 64) on the card against a CPU copy on
+    the same noise; replica r against its own unreplicated net on the card
+    (STEP_TOL), with the launches of a train step and a predictive call of
+    each, which must agree; then ms a train step of each, host clock, the
+    stacked one serving 8 splits. Returns the stacked net's launches."""
+    R, B = PROTOCOL_R, 64
+    seeds = [seed * 1000 + s for s in range(R)]
+    rng = np.random.RandomState(seed + 6)
+    X = rng.randn(R, B, 13).astype(np.float32)
+    Y = rng.randn(R, B, 1).astype(np.float32)
+    trainer, state = _flagship_trainer(dev, R, seeds)
+    log(f"protocol step: flagship 13->128->128->1 stacked R={R}, batch {B}, "
+        "train_samples 1, against a CPU copy:")
+    stacked = net_vs_cpu(fc, "stacked flagship", trainer.net, X, Y, 455, rng)
+    eps = given_noise(trainer.net, B, np.random.RandomState(seed + 7))
+    r = R - 1
+    single, _ = _flagship_trainer(dev, None, [seeds[r]])
+    outs, per_call = [], []
+    for model, x, y, e in (
+        (trainer.net, X, Y, eps),
+        (single.net, X[r], Y[r], [None if a is None else a[r] for a in eps]),
+    ):
+        model.zero_grad(set_to_none=True)
+        e = _to(e, dev)
+        fc.reset_launches()
+        loss, _ = model.loss(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), 455, eps=e)
+        loss.sum().backward()
+        counts = {"step": dict(fc.LAUNCHES)}
+        with torch.no_grad():
+            pred = model.predict(torch.from_numpy(x).to(dev), 1, eps=e)
+            fc.reset_launches()
+            model.predict(torch.from_numpy(x).to(dev), 64)
+        counts["predict"] = dict(fc.LAUNCHES)
+        per_call.append(counts)
+        outs.append((loss.detach(), pred, [p.grad.detach() for p in model.parameters()]))
+    (l_s, y_s, g_s), (l_1, y_1, g_1) = outs
+    errs = (rel_err(l_s[r], l_1), rel_err(y_s[r], y_1), max(rel_err(a[r], b) for a, b in zip(g_s, g_1)))
+    log(f"  replica {r} against its own net on the card: loss {errs[0]:.2e}, predictions "
+        f"{errs[1]:.2e}, gradients {errs[2]:.2e} (<= {STEP_TOL})")
+    check(max(errs) <= STEP_TOL, "a replica disagrees with its own net")
+    for what in ("step", "predict"):
+        log(f"  launches a {'train step' if what == 'step' else 'predictive call'}, stacked "
+            f"R={R} / one split: "
+            + ", ".join(f"{k} {per_call[0][what][k]}/{per_call[1][what][k]}"
+                        for k in per_call[0][what] if per_call[0][what][k] or per_call[1][what][k]))
+        check(per_call[0][what] == per_call[1][what],
+              f"a stacked {what} launches other kernels than a single split's")
+    # host-clock ms a train step, warm, stacked and single in turns
+    Xd, Yd = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+    w = torch.ones(B, device=dev)
+
+    def ms_a_step(tr, st, x, y, n=50):
+        for _ in range(5):
+            tr.train_step(st, x, y, 455, True, weights=w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.train_step(st, x, y, 455, True, weights=w)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    single, s_state = _flagship_trainer(dev, None, [seeds[0]])
+    trainer, state = _flagship_trainer(dev, R, seeds)
+    times = [ms_a_step(single, s_state, Xd[0], Yd[0]), ms_a_step(trainer, state, Xd, Yd)]
+    times += [ms_a_step(trainer, state, Xd, Yd), ms_a_step(single, s_state, Xd[0], Yd[0])]
+    one, stack = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+    log(f"  ms a train step (host clock, 50 warm steps, single/stacked/stacked/single): "
+        f"one split {one:.3f}, stacked R={R} {stack:.3f} ({stack / R:.3f} a split; "
+        + ", ".join(f"{t:.3f}" for t in times) + ")")
+    return stacked
+
+
+def _protocol_data(seed):
+    (X, y), (Xt, yt) = synthetic_regression(seed)
+    return np.concatenate([X, Xt]), np.concatenate([y, yt])
+
+
+def run_protocol_path(fc, dev, seed, tmp) -> None:
+    """(c) evaluate_bayesian_regression, stacked R=8, on the 506 x 13
+    synthetic data, 2 + 6 epochs, calibrate, checkpoint_every=2 into
+    ``tmp``: the main path of this phase, every K1-K4 launched and no
+    operand realigned; then the same call again, which resumes from the
+    last checkpoint and must give equal metrics; a fit interrupted after
+    epoch 4 and resumed, torch.equal to an uninterrupted one; and the
+    sequential protocol on the same data for comparison."""
+    from whvi_tpu_torch.evaluation import ProtocolConfig, evaluate_bayesian_regression
+
+    X, y = _protocol_data(seed)
+    cfg = ProtocolConfig(n_splits=PROTOCOL_R, epochs1=PROTOCOL_EPOCHS[0],
+                         epochs2=PROTOCOL_EPOCHS[1], checkpoint_every=2, calibrate=True,
+                         seed=seed)
+    log(f"protocol: evaluate_bayesian_regression stacked R={PROTOCOL_R} on {X.shape[0]}x"
+        f"{X.shape[1]}, epochs {'+'.join(map(str, PROTOCOL_EPOCHS))}, calibrate, "
+        "checkpoint_every 2")
+    chunks = []
+    fc.reset_launches()
+    out = evaluate_bayesian_regression(
+        X, y, cfg, ckpt_dir=tmp, device=dev,
+        log_fn=lambda e: chunks.append(e) if "phase" in e else None,
+    )
+    torch.cuda.synchronize()
+    launches, realigned = dict(fc.LAUNCHES), fc.REALIGNED
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; REALIGNED {realigned}")
+    check(realigned == 0, f"the protocol copied {realigned} misaligned operands")
+    for name in PROTOCOL_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the protocol")
+    steps = -(-(X.shape[0] - 51 - 46) // 64)  # train rows after test and calibration rows
+    warm = chunks[-1]["epoch"] - chunks[0]["epoch"], chunks[-1]["seconds"] - chunks[0]["seconds"]
+    log(f"  protocol_wall_s {out['protocol_wall_s']:.3f}, epochs_per_s_amortized "
+        f"{out['splits'][0]['epochs_per_s_amortized']:.2f}; warm {warm[0] / warm[1]:.2f} epochs/s "
+        f"of the stack ({warm[1] / (warm[0] * steps) * 1e3:.3f} ms a step of {steps} an epoch)")
+    keys = ("rmse_mean", "mnll_per_point_mean", "pred_mnll_per_point_mean", "coverage95_mean",
+            "temperature_mean", "coverage95_cal_mean")
+    log("  " + ", ".join(f"{k} {out[k]:.4f}" for k in keys))
+    for k in keys:
+        check(math.isfinite(out[k]), f"non-finite {k}")
+    again = evaluate_bayesian_regression(X, y, cfg, ckpt_dir=tmp, device=dev)
+    same = all(again[k] == out[k] for k in keys)
+    log(f"  the same call again (resumes at epoch {sum(PROTOCOL_EPOCHS)}): metrics equal {same}, "
+        f"protocol_wall_s {again['protocol_wall_s']:.3f}")
+    check(same, "the resumed protocol's metrics differ")
+
+    seq = evaluate_bayesian_regression(X, y, dataclasses.replace(cfg, vmap_splits=False),
+                                       device=dev)
+    log(f"  sequential protocol, same data: wall {sum(r['wall_s'] for r in seq['splits']):.3f} s "
+        f"over {PROTOCOL_R} fits; rmse_mean {seq['rmse_mean']:.4f} (stacked {out['rmse_mean']:.4f}),"
+        f" pred_mnll_per_point_mean {seq['pred_mnll_per_point_mean']:.4f} "
+        f"(stacked {out['pred_mnll_per_point_mean']:.4f})")
+
+    # interrupted after epoch 4 and resumed against uninterrupted, stacked R=8
+    rows = np.random.RandomState(seed + 8).randn(PROTOCOL_R, 130, 14).astype(np.float32)
+    Xs, ys = rows[..., :13], rows[..., 13:]
+    seeds = [seed * 1000 + s for s in range(PROTOCOL_R)]
+    ref, ref_state = _flagship_trainer(dev, PROTOCOL_R, seeds, epochs=(1, 5))
+    ref.fit(ref_state, Xs, ys, ckpt_dir=os.path.join(tmp, "ref"))
+
+    def stop_at_5(entry):
+        if entry["epoch"] == 5:
+            raise KeyboardInterrupt
+
+    cut, cut_state = _flagship_trainer(dev, PROTOCOL_R, seeds, epochs=(1, 5))
+    try:
+        cut.fit(cut_state, Xs, ys, ckpt_dir=os.path.join(tmp, "cut"), log_fn=stop_at_5)
+    except KeyboardInterrupt:
+        pass
+    check(sorted(os.listdir(os.path.join(tmp, "cut")))[::2] == ["ckpt-3.npz"],
+          "the interrupted fit left other checkpoints than ckpt-3")
+    res, res_state = _flagship_trainer(dev, PROTOCOL_R, seeds, epochs=(1, 5))
+    res.fit(res_state, Xs, ys, ckpt_dir=os.path.join(tmp, "cut"))
+    equal = res_state.step == ref_state.step and all(
+        torch.equal(p, q) and all(
+            torch.equal(res_state.optimizer.state[p][k], ref_state.optimizer.state[q][k])
+            for k in ("exp_avg", "exp_avg_sq"))
+        for p, q in zip(res.net.parameters(), ref.net.parameters())
+    )
+    log(f"  a stacked fit interrupted after epoch 5 and resumed from ckpt-3: torch.equal to the "
+        f"uninterrupted fit (parameters and Adam moments): {equal}")
+    check(equal, "the resumed fit differs from the uninterrupted one")
+
+
+def run_grid_path(fc, dev, seed) -> None:
+    """(d) evaluate_config_grid: lambda_hidden 1.0 and 3.0 x 8 splits."""
+    from whvi_tpu_torch.evaluation import ProtocolConfig, evaluate_config_grid
+
+    X, y = _protocol_data(seed)
+    base = ProtocolConfig(n_splits=PROTOCOL_R, epochs1=PROTOCOL_EPOCHS[0],
+                          epochs2=PROTOCOL_EPOCHS[1], seed=seed)
+    fc.reset_launches()
+    out = evaluate_config_grid(X, y, base, [{"lambda_hidden": 1.0}, {"lambda_hidden": 3.0}],
+                               device=dev)
+    torch.cuda.synchronize()
+    log(f"grid: 2 configs x {PROTOCOL_R} splits (R={out['stack_size']}): protocol_wall_s "
+        f"{out['protocol_wall_s']:.3f}; "
+        + "; ".join(f"lambda_hidden {c['config_overrides']['lambda_hidden']}: rmse_mean "
+                    f"{c['rmse_mean']:.4f}, pred_mnll_per_point_mean "
+                    f"{c['pred_mnll_per_point_mean']:.4f}" for c in out["configs"])
+        + "; launches " + ", ".join(f"{k} {v}" for k, v in fc.LAUNCHES.items() if v))
+    check(fc.REALIGNED == 0, "the grid copied misaligned operands")
+    for c in out["configs"]:
+        check(all(math.isfinite(c[k]) for k in ("rmse_mean", "mnll_mean")), f"non-finite {c}")
+
+
+def run_protocol_entry_points(fc, seed, tmp) -> None:
+    """(e) run_protocol_feasibility at n=8192, 8 features, 1 + 2 epochs;
+    (f) run_uci yacht --splits 8 --epochs1 1 --epochs2 4 on a synthetic
+    yacht_hydrodynamics.data of yacht's shape (308 x 7) in a temporary
+    WHVI_DATA_DIR. Their rows must be finite."""
+    from whvi_tpu_torch.experiments import run_protocol_feasibility, run_uci
+
+    log("entry points: run_protocol_feasibility --epochs1 1 --epochs2 2 (n=8192, 8 features); "
+        "run_uci yacht --splits 8 --epochs1 1 --epochs2 4 (synthetic 308x7)")
+    fc.reset_launches()
+    feas = run_protocol_feasibility.main(["--epochs1", "1", "--epochs2", "2", "--seed", str(seed)])
+    rng = np.random.RandomState(seed + 9)
+    table = rng.rand(308, 7)
+    table[:, -1] = np.exp(3 * table[:, 0]) + 0.1 * rng.randn(308)
+    data_dir = os.path.join(tmp, "data")
+    os.makedirs(data_dir)
+    np.savetxt(os.path.join(data_dir, "yacht_hydrodynamics.data"), table)
+    os.environ["WHVI_DATA_DIR"] = data_dir
+    try:
+        uci = run_uci.main(["yacht", "--splits", "8", "--epochs1", "1", "--epochs2", "4",
+                            "--ckpt-dir", os.path.join(tmp, "uci"), "--quiet",
+                            "--seed", str(seed)])
+    finally:
+        del os.environ["WHVI_DATA_DIR"]
+    torch.cuda.synchronize()
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in fc.LAUNCHES.items() if v)
+        + f"; REALIGNED {fc.REALIGNED}")
+    check(fc.REALIGNED == 0, "the protocol entry points copied misaligned operands")
+    for row in (feas, uci):
+        check(all(math.isfinite(v) for v in row.values() if isinstance(v, float)),
+              f"non-finite row {row}")
+    for name in PROTOCOL_KERNELS:
+        check(fc.LAUNCHES[name] > 0, f"kernel {name} was not launched by the entry points")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1018,6 +1300,12 @@ def main() -> int:
     run_mnist_path(fc, dev, args.seed)
     run_hetero_path(fc, dev, args.seed)
     run_family_entry_points(fc, args.seed)
+    replica_shapes_vs_plain(fc, dev, args.seed)
+    protocol_step(fc, dev, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_protocol_path(fc, dev, args.seed, tmp)
+        run_grid_path(fc, dev, args.seed)
+        run_protocol_entry_points(fc, args.seed, tmp)
 
     kernels = [
         {

@@ -9,7 +9,10 @@
   against the plain paths, its bytes/s and flop rate
   (``benchmarks/tpu_kernel_check.py``);
 - :mod:`~whvi_tpu_torch.bench.toy_bench`: the toy protocol's training
-  epochs/s, eager (``bench.py``).
+  epochs/s, eager (``bench.py``);
+- :mod:`~whvi_tpu_torch.bench.protocol_bench`: the UCI protocol's wall
+  clock, replica-stacked against sequential, and the device's busy share
+  in a profiled train step of each.
 
 Each prints one JSON object a line, the first naming the card and its
 power limit, and raises without a CUDA device: there is no CPU fallback.

@@ -12,17 +12,32 @@ entry per layer:
 
 and ``{"rho"}`` or ``{}`` for the likelihood. Leaves are numpy arrays
 (``np.asarray`` of a JAX array). The port's modules keep the same names
-and shapes, so the conversion is a copy per leaf.
+and shapes, so the conversion is a copy per leaf. A replicated net
+(:func:`whvi_tpu_torch.models.networks.stack_replicas`) takes the JAX
+package's stacked parameters, each leaf with the leading replica axis of
+its ``vmap_splits`` trainer.
+
+:func:`load_jax_checkpoint` reads a JAX ``ckpt-*.npz``
+(``whvi_tpu/train/checkpoint.py``): its ``leaf_{i}`` arrays are the
+leaves of the JAX ``TrainState(params, opt_state, key, step)`` in JAX's
+flatten order, which is rebuilt here without JAX (dict keys sorted,
+tuples in order): the parameters, then optax's ``scale_by_adam`` count,
+first and second moments and the schedule's count, then the PRNG key and
+the step.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
 
 from whvi_tpu_torch.models.layers import Dense, Parallel, WHVILinear
+from whvi_tpu_torch.train.checkpoint import flatten, unflatten
 
-__all__ = ["export_params", "load_jax_params", "param_tree"]
+__all__ = ["export_params", "load_jax_checkpoint", "load_jax_params", "param_tree"]
 
 _MATRIX_KEYS = ("s1", "s2", "g_mu", "g_rho")
 
@@ -86,3 +101,32 @@ def export_params(net) -> dict:
         return tree.detach().cpu().numpy().copy()
 
     return host(param_tree(net))
+
+
+def load_jax_checkpoint(net, path: str) -> dict:
+    """Load the parameters of the JAX checkpoint ``path`` (a
+    ``save_checkpoint`` of a ``TrainState``, stacked or not) into ``net``
+    through :func:`load_jax_params`; returns the checkpoint's metadata
+    with ``step`` added (the JAX step counter, per replica when stacked).
+    Raises unless the file holds exactly the leaves of a ``TrainState`` of
+    ``net``'s parameters under the JAX package's ``decayed_adam`` (``3 P +
+    4`` for ``P`` parameter leaves) and each parameter leaf has the port's
+    shape."""
+    template = param_tree(net)
+    n_params = len(flatten(template))
+    with np.load(path) as data:
+        n_saved = len(data.files)
+        if n_saved != 3 * n_params + 4:
+            raise ValueError(
+                f"checkpoint {path} holds {n_saved} leaves, not the {3 * n_params + 4} "
+                f"of a TrainState of this net's {n_params} parameter leaves"
+            )
+        leaves = [data[f"leaf_{i}"] for i in range(n_saved)]
+    load_jax_params(net, unflatten(template, leaves[:n_params]))
+    meta = {}
+    if os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+    step = leaves[-1]
+    meta["step"] = step.tolist()
+    return meta

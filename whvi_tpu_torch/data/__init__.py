@@ -4,10 +4,14 @@ from whvi_tpu_torch.data.mnist import (
     synthetic_classification,
 )
 from whvi_tpu_torch.data.toy import cubic_data, polynomial_data
+from whvi_tpu_torch.data.uci import UCI_DATASETS, dataset_info, load_uci
 
 __all__ = [
+    "UCI_DATASETS",
     "cubic_data",
+    "dataset_info",
     "load_mnist",
+    "load_uci",
     "mnist_available",
     "polynomial_data",
     "synthetic_classification",

@@ -14,5 +14,11 @@
   (``experiments/run_mnist.py``);
 - :mod:`~whvi_tpu_torch.experiments.run_baseline_configs`: BASELINE
   configs 3 (deep heteroscedastic) and 5 (large D) on data made from a
-  seed (``experiments/run_baseline_configs.py``).
+  seed (``experiments/run_baseline_configs.py``);
+- :mod:`~whvi_tpu_torch.experiments.run_uci`: the UCI protocol (or a
+  config grid) on one dataset (``experiments/run_uci.py``; ``--cpu`` asks
+  for the CPU);
+- :mod:`~whvi_tpu_torch.experiments.run_protocol_feasibility`: the whole
+  protocol at kin8nm's shape on synthetic data, with its wall clock
+  (``experiments/run_protocol_feasibility.py``; ``--cpu`` too).
 """

@@ -12,8 +12,12 @@ follows the same dispatch (``whvi_tpu/models/layers.py:85-108``):
 
 Every layer's ``forward(x, generator=None, eps=None)`` is one stochastic
 pass over ``x (*S, B, n_in)`` (JAX ``apply`` under the vmap over MC
-samples), and ``kl()`` is its KL term (0 for deterministic layers). A
-``Parallel`` layer's ``eps`` is a tuple with one entry per branch.
+samples), and ``kl(lambda_=None)`` is its KL term (0 for deterministic
+layers), ``lambda_`` overriding the prior variance as JAX's
+``kl(params, lambda_)`` does (a tuple of per-branch entries for a
+``Parallel``). A ``Parallel`` layer's ``eps`` is a tuple with one entry
+per branch. Replicated layers (``replicas = R``, see
+:mod:`whvi_tpu_torch.models.weights`) take ``x (R, *S, B, n_in)``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from whvi_tpu_torch.models.weights import (
     PaddedSquareMatrix,
     SquarePow2Matrix,
     StackedMatrix,
+    replica_view,
 )
 from whvi_tpu_torch.ops.hadamard import is_pow_of_2
 
@@ -55,6 +60,8 @@ class WHVILinear(nn.Module):
     non-column matrix as stacked square blocks (``"stack"``) or one padded
     block (``"pad"``); ``bias`` adds a deterministic bias vector.
     """
+
+    replicas: int | None = None
 
     def __init__(
         self,
@@ -99,16 +106,18 @@ class WHVILinear(nn.Module):
             self.register_parameter("bias", None)
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator | None = None):
-        self.matrix.reset_parameters(generator)
+    def reset_parameters(self, generator: torch.Generator | None = None, replica=None):
+        self.matrix.reset_parameters(generator, replica)
         if self.bias is not None:
-            self.bias.zero_()
+            (self.bias if replica is None else self.bias[replica]).zero_()
 
-    def kl(self) -> torch.Tensor:
-        return self.matrix.kl()
+    def kl(self, lambda_=None) -> torch.Tensor:
+        return self.matrix.kl(lambda_)
 
     def _add_bias(self, y):
-        return y if self.bias is None else y + self.bias
+        if self.bias is None:
+            return y
+        return y + replica_view(self.bias, y.dim(), self.replicas)
 
     def forward(self, x, generator=None, eps=None):
         y = self.matrix(
@@ -136,6 +145,8 @@ class Dense(nn.Module):
     weight is ``(n_out, n_in)``). Init ``w ~ U(-1/sqrt(n_in),
     1/sqrt(n_in))``, ``b = 0``; KL 0."""
 
+    replicas: int | None = None
+
     def __init__(
         self, n_in: int, n_out: int, bias: bool = True, *, device=None,
         dtype=torch.float32,
@@ -151,19 +162,22 @@ class Dense(nn.Module):
         self.reset_parameters()
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator | None = None):
+    def reset_parameters(self, generator: torch.Generator | None = None, replica=None):
         scale = 1.0 / math.sqrt(self.n_in)
-        self.w.uniform_(-scale, scale, generator=generator)
+        (self.w if replica is None else self.w[replica]).uniform_(
+            -scale, scale, generator=generator
+        )
         if self.b is not None:
-            self.b.zero_()
+            (self.b if replica is None else self.b[replica]).zero_()
 
-    def kl(self) -> torch.Tensor:
-        return self.w.new_zeros(())
+    def kl(self, lambda_=None) -> torch.Tensor:
+        del lambda_
+        return self.w.new_zeros(self.w.shape[:1] if self.replicas else ())
 
     def forward(self, x, generator=None, eps=None):
         del generator, eps
-        y = x @ self.w
-        return y if self.b is None else y + self.b
+        y = x @ replica_view(self.w, x.dim(), self.replicas)
+        return y if self.b is None else y + replica_view(self.b, y.dim(), self.replicas)
 
 
 class Parallel(nn.Module):
@@ -178,12 +192,21 @@ class Parallel(nn.Module):
         self.branches = nn.ModuleList(branches)
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator | None = None):
+    def reset_parameters(self, generator: torch.Generator | None = None, replica=None):
         for branch in self.branches:
-            branch.reset_parameters(generator)
+            branch.reset_parameters(generator, replica)
 
-    def kl(self) -> torch.Tensor:
-        return sum(branch.kl() for branch in self.branches)
+    def kl(self, lambda_=None) -> torch.Tensor:
+        """Sum of the branches' KL terms; ``lambda_`` is None or a tuple of
+        per-branch overrides (each None, a float or a tensor)."""
+        if lambda_ is None:
+            lambda_ = (None,) * len(self.branches)
+        if len(lambda_) != len(self.branches):
+            raise ValueError(
+                f"lambda_ must have one entry per branch ({len(self.branches)}), "
+                f"got {len(lambda_)}"
+            )
+        return sum(b.kl(lam) for b, lam in zip(self.branches, lambda_))
 
     def forward(self, x, generator=None, eps=None):
         if eps is None:
@@ -206,10 +229,11 @@ class Activation(nn.Module):
         self.fn = fn
         self.name = name
 
-    def reset_parameters(self, generator=None):
-        del generator
+    def reset_parameters(self, generator=None, replica=None):
+        del generator, replica
 
-    def kl(self) -> float:
+    def kl(self, lambda_=None) -> float:
+        del lambda_
         return 0.0
 
     def forward(self, x, generator=None, eps=None):

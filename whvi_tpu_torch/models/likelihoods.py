@@ -8,6 +8,12 @@ Predictions carry the MC-sample axis first, ``y_hat (S, B, n_out)``;
 ``weights (B,)`` give padding rows weight 0. The JAX likelihoods take a
 parameter dict; here a likelihood is an ``nn.Module`` and the two new ones
 have no parameters (``{}`` in JAX).
+
+The Gaussian likelihoods also take a leading replica axis (``replicas =
+R``, :func:`whvi_tpu_torch.models.networks.stack_replicas`): ``y (R, B, n_out)``,
+``y_hat (R, S, B, n_out)``, the homoscedastic ``rho (R,)``; ``mnll``,
+``log_prob`` and ``predict`` then reduce per replica, each replica over its
+own ``S`` and ``B_eff``. The categorical one takes none.
 """
 
 from __future__ import annotations
@@ -28,18 +34,18 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _weighted_total(lp_per_point, n, weights):
-    """``-(n / (S * B_eff)) * sum(w * lp)`` over ``lp (S, B)`` with
-    ``B_eff = sum(w)``; ``weights=None`` means all ones. Padding rows of a
-    wrap-padded batch have weight 0, so the estimate equals the unpadded
-    batch's."""
-    S = lp_per_point.shape[0]
+    """``-(n / (S * B_eff)) * sum(w * lp)`` over the last two axes of
+    ``lp (..., S, B)`` with ``B_eff = sum(w)``, one value per leading
+    index (per replica); ``weights (..., B)``, or None for all ones.
+    Padding rows of a wrap-padded batch have weight 0, so the estimate
+    equals the unpadded batch's."""
+    S = lp_per_point.shape[-2]
     if weights is None:
-        B_eff = lp_per_point.shape[1]
-        total = torch.sum(lp_per_point)
+        B_eff = lp_per_point.shape[-1]
+        total = torch.sum(lp_per_point, dim=(-2, -1))
     else:
-        w = weights.reshape(-1)
-        B_eff = torch.sum(w)
-        total = torch.sum(lp_per_point * w[None, :])
+        B_eff = torch.sum(weights, dim=-1)
+        total = torch.sum(lp_per_point * weights.unsqueeze(-2), dim=(-2, -1))
     return -(n / (S * B_eff)) * total
 
 
@@ -56,6 +62,8 @@ class GaussianLikelihood(nn.Module):
     """Homoscedastic Gaussian likelihood with learnable noise stddev
     ``sigma = softplus(rho)``, initialized to ``sigma0``."""
 
+    replicas: int | None = None
+
     def __init__(self, sigma0: float = 1.0, *, device=None, dtype=torch.float32):
         super().__init__()
         self.sigma0 = sigma0
@@ -63,27 +71,32 @@ class GaussianLikelihood(nn.Module):
         self.reset_parameters()
 
     @torch.no_grad()
-    def reset_parameters(self, generator=None):
+    def reset_parameters(self, generator=None, replica=None):
         del generator
-        self.rho.fill_(_inv_softplus(self.sigma0))
+        (self.rho if replica is None else self.rho[replica]).fill_(_inv_softplus(self.sigma0))
 
-    def sigma(self) -> torch.Tensor:
-        return F.softplus(self.rho)
+    def sigma(self, ndim: int = 0) -> torch.Tensor:
+        """``softplus(rho)``; a replicated ``(R,)`` one viewed to rank
+        ``ndim`` to broadcast against ``(R, ...)``."""
+        sigma = F.softplus(self.rho)
+        if self.replicas is None:
+            return sigma
+        return sigma.reshape(sigma.shape + (1,) * (ndim - 1))
 
     def mnll(self, y, y_hat, n, weights=None):
         """Total-dataset MNLL from ``y (B, n_out)``, ``y_hat (S, B, n_out)``
         and the dataset size ``n``; optional ``weights (B,)``."""
-        lp = _gauss_logpdf(y[None], y_hat, self.sigma())
+        lp = _gauss_logpdf(y.unsqueeze(-3), y_hat, self.sigma(y_hat.dim()))
         return _weighted_total(torch.sum(lp, dim=-1), n, weights)
 
     def log_prob(self, y, y_hat):
         """Per-sample, per-point joint log density ``(S, B)``."""
-        return torch.sum(_gauss_logpdf(y[None], y_hat, self.sigma()), dim=-1)
+        return torch.sum(_gauss_logpdf(y.unsqueeze(-3), y_hat, self.sigma(y_hat.dim())), dim=-1)
 
     def predict(self, y_hat):
         """Predictive mean and stddev of the MC mixture ``(S, B, n_out)``."""
-        mean = torch.mean(y_hat, dim=0)
-        var = torch.var(y_hat, dim=0, unbiased=False) + self.sigma().square()
+        mean = torch.mean(y_hat, dim=-3)
+        var = torch.var(y_hat, dim=-3, unbiased=False) + self.sigma(mean.dim()).square()
         return mean, torch.sqrt(var)
 
 
@@ -99,8 +112,8 @@ class HeteroscedasticGaussianLikelihood(nn.Module):
         self.sigma_min = sigma_min
         self.sigma0 = sigma0
 
-    def reset_parameters(self, generator=None):
-        del generator
+    def reset_parameters(self, generator=None, replica=None):
+        del generator, replica
 
     def split(self, y_hat):
         """``(mean, sigma)``, each half of ``y_hat``'s last axis."""
@@ -112,21 +125,21 @@ class HeteroscedasticGaussianLikelihood(nn.Module):
 
     def mnll(self, y, y_hat, n, weights=None):
         mean, sigma = self.split(y_hat)
-        lp = _gauss_logpdf(y[None], mean, sigma)
+        lp = _gauss_logpdf(y.unsqueeze(-3), mean, sigma)
         return _weighted_total(torch.sum(lp, dim=-1), n, weights)
 
     def log_prob(self, y, y_hat):
         """Per-sample, per-point joint log density ``(S, B)``."""
         mean, sigma = self.split(y_hat)
-        return torch.sum(_gauss_logpdf(y[None], mean, sigma), dim=-1)
+        return torch.sum(_gauss_logpdf(y.unsqueeze(-3), mean, sigma), dim=-1)
 
     def predict(self, y_hat):
         """Predictive mean and stddev: the MC variance of the means (the
         population variance, ``correction=0``, as ``jnp.var``) plus the
         mean noise variance."""
         mean, sigma = self.split(y_hat)
-        var = torch.var(mean, dim=0, correction=0) + torch.mean(sigma.square(), dim=0)
-        return torch.mean(mean, dim=0), torch.sqrt(var)
+        var = torch.var(mean, dim=-3, correction=0) + torch.mean(sigma.square(), dim=-3)
+        return torch.mean(mean, dim=-3), torch.sqrt(var)
 
 
 class CategoricalLikelihood(nn.Module):
@@ -135,8 +148,8 @@ class CategoricalLikelihood(nn.Module):
     as floats), and are read as ``long`` class indices, as JAX casts them
     to int32 (``whvi_tpu/models/likelihoods.py:190-224``)."""
 
-    def reset_parameters(self, generator=None):
-        del generator
+    def reset_parameters(self, generator=None, replica=None):
+        del generator, replica
 
     @staticmethod
     def _label_log_prob(y, y_hat):

@@ -15,6 +15,11 @@ forward computes all samples:
 deterministic layers, a tuple of per-branch entries for ``Parallel``)
 replacing the generator's draws, so tests can feed both packages the same
 noise.
+
+:func:`stack_replicas` turns a network into ``R`` independent replicas
+trained together (the JAX trainer's ``vmap_splits``): every parameter
+gains a leading ``R`` axis, ``predict`` takes ``x (R, B, n_in)``, and the
+loss, KL and metrics come back per replica, ``(R,)``.
 """
 
 from __future__ import annotations
@@ -25,16 +30,20 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from whvi_tpu_torch.models.layers import WHVILinear, relu
+from whvi_tpu_torch.models.layers import Activation, WHVILinear, relu
 from whvi_tpu_torch.models.likelihoods import CategoricalLikelihood, GaussianLikelihood
 
-__all__ = ["WHVINetwork", "WHVIRegression", "WHVIClassification", "mlp_layers"]
+__all__ = [
+    "WHVINetwork", "WHVIRegression", "WHVIClassification", "mlp_layers", "stack_replicas",
+]
 
 
 class WHVINetwork(nn.Module):
     """A sequential model over WHVI layers and activations plus a
     likelihood; ``train_samples``/``eval_samples`` are the default MC
     sample counts."""
+
+    replicas: int | None = None
 
     def __init__(
         self,
@@ -50,14 +59,26 @@ class WHVINetwork(nn.Module):
         self.eval_samples = eval_samples
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator | None = None):
+    def reset_parameters(self, generator: torch.Generator | None = None, replica=None):
+        """Fresh parameters from ``generator``; of replica ``replica`` only
+        when given (a replicated net)."""
         for layer in self.layers:
-            layer.reset_parameters(generator)
-        self.likelihood.reset_parameters(generator)
+            layer.reset_parameters(generator, replica)
+        self.likelihood.reset_parameters(generator, replica)
 
-    def kl(self) -> torch.Tensor:
-        """Sum of the layers' KL terms."""
-        return sum(layer.kl() for layer in self.layers)
+    def kl(self, lambdas=None) -> torch.Tensor:
+        """Sum of the layers' KL terms. ``lambdas``: None, or one entry a
+        layer overriding its prior variance (None keeps the layer's; a
+        float, a tensor, ``(R,)`` per replica, or a tuple of per-branch
+        entries for a ``Parallel``), as JAX's ``kl(params, lambdas)``."""
+        if lambdas is None:
+            lambdas = (None,) * len(self.layers)
+        if len(lambdas) != len(self.layers):
+            raise ValueError(
+                f"lambdas must have one entry per layer ({len(self.layers)}), "
+                f"got {len(lambdas)}"
+            )
+        return sum(layer.kl(lam) for layer, lam in zip(self.layers, lambdas))
 
     def forward(self, x, generator=None, eps=None):
         """One stochastic pass over ``x (S, B, n_in)`` for all S samples."""
@@ -73,8 +94,12 @@ class WHVINetwork(nn.Module):
         return x
 
     def predict(self, x, n_samples: int, generator=None, eps=None):
-        """``(S, B, n_out)`` MC predictions for ``x (B, n_in)``."""
-        return self(x.expand(n_samples, *x.shape), generator, eps)
+        """``(S, B, n_out)`` MC predictions for ``x (B, n_in)``; ``(R, S,
+        B, n_out)`` for ``x (R, B, n_in)`` on a replicated net."""
+        if self.replicas is None:
+            return self(x.expand(n_samples, *x.shape), generator, eps)
+        R = x.shape[0]
+        return self(x[:, None].expand(R, n_samples, *x.shape[1:]), generator, eps)
 
     def loss(
         self,
@@ -87,14 +112,16 @@ class WHVINetwork(nn.Module):
         kl_scale: float = 1.0,
         weights=None,
         eps=None,
+        lambdas=None,
     ):
         """``(loss, {"mnll", "kl"})`` with ``loss = mnll + kl_scale * kl``
         (``mnll`` alone under ``ignore_kl``); ``weights (B,)`` mark
-        padding rows with 0."""
+        padding rows with 0; ``lambdas`` as :meth:`kl`. Each is ``(R,)`` on
+        a replicated net, and so may ``kl_scale`` be."""
         S = self.train_samples if n_samples is None else n_samples
         y_hat = self.predict(x, S, generator, eps)
         mnll = self.likelihood.mnll(y, y_hat, n, weights=weights)
-        kl = self.kl()
+        kl = self.kl(lambdas)
         loss = mnll if ignore_kl else mnll + kl_scale * kl
         return loss, {"mnll": mnll, "kl": kl}
 
@@ -110,25 +137,32 @@ class WHVINetwork(nn.Module):
         p(y_i | f_s)``) where the likelihood has ``log_prob``, the RMSE of
         the MC mean where ``y_hat`` has ``y``'s width, and 95% interval
         coverage where ``predict`` gives ``(mean, sd)`` (not class
-        probabilities)."""
-        S = y_hat.shape[0]
-        n = y.shape[0]
+        probabilities). A replicated net gives each metric per replica:
+        ``y (R, B, n_out)``, ``y_hat (R, S, B, n_out)``, metrics ``(R,)``."""
+        lead = 0 if self.replicas is None else 1
+        per_point = tuple(range(lead, y.ndim))  # the axes a metric averages
+        S = y_hat.shape[lead]
+        n = y.shape[lead]
         mnll = self.likelihood.mnll(y, y_hat, n)
         out = {"mnll": mnll, "mnll_per_point": mnll / n}
         if hasattr(self.likelihood, "log_prob"):
             lp = self.likelihood.log_prob(y, y_hat)
-            pred_ll = torch.logsumexp(lp, dim=0) - math.log(S)
-            out["pred_mnll_per_point"] = -torch.mean(pred_ll)
-        if y.ndim > 1 and y_hat.ndim == 3 and y_hat.shape[-1] == y.shape[-1]:
+            pred_ll = torch.logsumexp(lp, dim=lead) - math.log(S)
+            out["pred_mnll_per_point"] = -torch.mean(pred_ll, dim=-1)
+        if (
+            y.ndim > 1 + lead
+            and y_hat.ndim == 3 + lead
+            and y_hat.shape[-1] == y.shape[-1]
+        ):
             out["rmse"] = torch.sqrt(
-                torch.mean((torch.mean(y_hat, dim=0) - y).square())
+                torch.mean((torch.mean(y_hat, dim=lead) - y).square(), dim=per_point)
             )
         if hasattr(self.likelihood, "predict"):
             moments = self.likelihood.predict(y_hat)
             if isinstance(moments, tuple) and y.ndim == moments[0].ndim:
                 mean, sd = moments
                 inside = torch.abs(y - mean) <= 1.9599640 * sd
-                out["coverage95"] = torch.mean(inside.to(y_hat.dtype))
+                out["coverage95"] = torch.mean(inside.to(y_hat.dtype), dim=per_point)
         return out
 
 
@@ -184,3 +218,26 @@ def WHVIRegression(
         train_samples=train_samples,
         eval_samples=eval_samples,
     )
+
+
+@torch.no_grad()
+def stack_replicas(net: WHVINetwork, replicas: int) -> WHVINetwork:
+    """Make ``net`` ``replicas`` independent replicas of itself, in place:
+    every parameter ``p`` becomes ``(replicas,) + p.shape`` (each replica a
+    copy of ``p``) and every module gets ``replicas``. The counterpart of
+    the JAX trainer's ``vmap_splits``: one forward, one backward and one
+    Adam step serve all replicas, which share no parameter, so each
+    replica's gradient and update are its own. Returns ``net``."""
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    if net.replicas is not None:
+        raise ValueError(f"the net already has {net.replicas} replicas")
+    if isinstance(net.likelihood, CategoricalLikelihood):
+        raise ValueError("the categorical likelihood takes no replica axis")
+    for module in net.modules():
+        if isinstance(module, Activation):  # stateless, often a shared instance
+            continue
+        for name, p in list(module.named_parameters(recurse=False)):
+            setattr(module, name, nn.Parameter(p.expand(replicas, *p.shape).clone()))
+        module.replicas = replicas
+    return net

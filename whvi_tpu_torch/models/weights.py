@@ -5,15 +5,25 @@ and ``PaddedSquareMatrix`` in :mod:`whvi_tpu.models.weights`, with the
 JAX parameter names (``s1``, ``s2``, ``g_mu``, ``g_rho``) and shapes; the
 stacked matrix keeps its blocks on a leading ``stack`` axis.
 
-Every matrix has ``kl()``, ``sample_g``, ``forward`` (the counterpart of
-JAX ``apply``; ``nn.Module.apply`` keeps its PyTorch meaning),
-``apply_given_g`` and ``sample_W``, the dense ``(n_out, n_in)`` sample
-(test oracle). Inputs carry the MC-sample axes in front:
+Every matrix has ``kl(lambda_=None)``, ``sample_g``, ``forward`` (the
+counterpart of JAX ``apply``; ``nn.Module.apply`` keeps its PyTorch
+meaning), ``apply_given_g`` and ``sample_W``, the dense ``(n_out, n_in)``
+sample (test oracle). Inputs carry the MC-sample axes in front:
 ``x (*S, B, n_in)``. One forward draws the posterior noise for every
 sample at once:
 
 - shared noise, one ``eps`` per sample: ``(*S, 1) + g_mu.shape``;
 - per-example noise, one per row: ``(*S, B) + g_mu.shape``.
+
+Replicas. :func:`whvi_tpu_torch.models.networks.stack_replicas` gives every
+parameter a leading axis of ``R`` independent replicas (the counterpart of
+the JAX trainer's ``vmap_splits``, which vmaps the whole model over a
+leading axis) and sets ``replicas = R`` on every module. A replicated
+matrix takes ``x (R, *S, B, n_in)``, draws ``eps`` of ``(R, *S, 1) +
+core`` (``(R, *S, B) + core`` per example), ``core`` the unreplicated
+parameter shape, and its ``kl`` is ``(R,)``. Its diagonals enter the
+product as ``(R, 1, .., 1) + core`` views, so the kernels read each
+replica's diagonals through a leading stride (no copy).
 
 ``W_bar`` is linear in ``u``, so the local reparameterization trick's
 mean and noise products merge into one product with
@@ -41,6 +51,7 @@ from whvi_tpu_torch.ops.hadamard import (
 from whvi_tpu_torch.ops.whvi_op import whvi_dense, whvi_mul
 
 __all__ = [
+    "replica_view",
     "SquarePow2Matrix",
     "StackedMatrix",
     "ColumnMatrix",
@@ -59,10 +70,33 @@ def setup_dimensions(n_in: int, n_out: int) -> tuple[int, int, int, int]:
     return D_in, stack * D_in, padding, stack
 
 
+def replica_view(p: torch.Tensor, ndim: int, replicas: int | None) -> torch.Tensor:
+    """``p`` itself when ``replicas`` is None; else ``p (R, *core)`` viewed
+    as ``(R, 1, .., 1, *core)`` of rank ``ndim``, to broadcast against an
+    operand whose leading axis is the replica axis."""
+    if replicas is None:
+        return p
+    return p.reshape(p.shape[:1] + (1,) * (ndim - p.dim()) + p.shape[1:])
+
+
+def prior_kl(mu, sigma, lambda_, replicas: int | None) -> torch.Tensor:
+    """KL of ``N(mu, diag sigma^2)`` from ``N(0, lambda_ I)``: a scalar, or
+    ``(R,)`` per replica. ``lambda_`` is a float, or a tensor (the traced
+    override of the JAX package's ``kl(params, lambda_)``): a scalar, or
+    ``(R,)`` with one prior variance per replica."""
+    if torch.is_tensor(lambda_):
+        sigma_p = replica_view(torch.sqrt(lambda_.to(mu.dtype)), mu.dim(), replicas)
+    else:
+        sigma_p = math.sqrt(lambda_)
+    return kl_diag_normal(mu, sigma, 0.0, sigma_p, keep=0 if replicas is None else 1)
+
+
 class _WHVIMatrix(nn.Module):
     """Parameters ``s1, s2, g_mu, g_rho`` of ``shape`` (last axis ``D``);
     posterior ``q(g) = N(g_mu, diag softplus(g_rho)^2)``, prior
     ``N(0, lambda_ I)``."""
+
+    replicas: int | None = None
 
     def __init__(self, shape, lambda_, s_init, device, dtype):
         super().__init__()
@@ -76,24 +110,33 @@ class _WHVIMatrix(nn.Module):
         self.reset_parameters()
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator | None = None):
+    def reset_parameters(self, generator: torch.Generator | None = None, replica=None):
         """The reference init (``whvi_tpu/models/weights.py:109-120``):
         ``s1, s2 ~ scale * N(0, 1)`` with ``scale`` 0.01 or ``D**-0.5``
-        for ``s_init="auto"``, ``g_mu = 0``, ``g_rho ~ U(-3, -2)``."""
-        D = self.s1.shape[-1]
+        for ``s_init="auto"``, ``g_mu = 0``, ``g_rho ~ U(-3, -2)``; only
+        replica ``replica`` of a replicated matrix when given."""
+        s1, s2, g_mu, g_rho = (
+            p if replica is None else p[replica]
+            for p in (self.s1, self.s2, self.g_mu, self.g_rho)
+        )
+        D = s1.shape[-1]
         scale = D**-0.5 if self.s_init == "auto" else float(self.s_init)
-        self.s1.normal_(generator=generator).mul_(scale)
-        self.s2.normal_(generator=generator).mul_(scale)
-        self.g_mu.zero_()
-        self.g_rho.uniform_(-3.0, -2.0, generator=generator)
+        s1.normal_(generator=generator).mul_(scale)
+        s2.normal_(generator=generator).mul_(scale)
+        g_mu.zero_()
+        g_rho.uniform_(-3.0, -2.0, generator=generator)
 
     def g_sigma(self) -> torch.Tensor:
         return F.softplus(self.g_rho)
 
-    def kl(self) -> torch.Tensor:
-        return kl_diag_normal(
-            self.g_mu, self.g_sigma(), 0.0, math.sqrt(self.lambda_)
-        )
+    def kl(self, lambda_=None) -> torch.Tensor:
+        """KL from the prior ``N(0, lambda_ I)``; ``lambda_`` overrides the
+        layer's own (a float or a tensor, ``(R,)`` per replica)."""
+        lam = self.lambda_ if lambda_ is None else lambda_
+        return prior_kl(self.g_mu, self.g_sigma(), lam, self.replicas)
+
+    def _view(self, p: torch.Tensor, ndim: int) -> torch.Tensor:
+        return replica_view(p, ndim, self.replicas)
 
     def sample_g(self, sample_shape, generator=None) -> torch.Tensor:
         """``g ~ q`` of shape ``sample_shape + g_mu.shape``."""
@@ -113,8 +156,9 @@ class _WHVIMatrix(nn.Module):
         return self.dense_given_g(self.g_mu + self.g_sigma() * eps)
 
     def noise_shape(self, x: torch.Tensor, per_example_noise: bool):
+        core = self.g_mu.shape[1:] if self.replicas else self.g_mu.shape
         lead = x.shape[:-1] if per_example_noise else x.shape[:-2] + (1,)
-        return tuple(lead) + tuple(self.g_mu.shape)
+        return tuple(lead) + tuple(core)
 
     def forward(
         self,
@@ -133,7 +177,8 @@ class _WHVIMatrix(nn.Module):
                 device=x.device,
                 dtype=x.dtype,
             )
-        return self.apply_given_g(x, self.g_mu + self.g_sigma() * eps, per_example_noise)
+        g = self._view(self.g_mu, eps.dim()) + self._view(self.g_sigma(), eps.dim()) * eps
+        return self.apply_given_g(x, g, per_example_noise)
 
 
 class SquarePow2Matrix(_WHVIMatrix):
@@ -159,7 +204,10 @@ class SquarePow2Matrix(_WHVIMatrix):
     def apply_given_g(self, x, g, per_example_noise: bool = False):
         """``x @ W_bar(g)^T``; ``g`` broadcasts against ``x``'s leading axes
         (one row per batch row with ``per_example_noise``)."""
-        return whvi_mul(self.s1, g, self.s2, x, per_example=per_example_noise)
+        return whvi_mul(
+            self._view(self.s1, x.dim()), g, self._view(self.s2, x.dim()), x,
+            per_example=per_example_noise, replicated=self.replicas is not None,
+        )
 
     def dense_given_g(self, g):
         """``W = S1 H diag(g) H S2``, ``(D, D)``."""
@@ -187,7 +235,11 @@ class StackedMatrix(_WHVIMatrix):
         broadcasts against ``x``'s leading axes."""
         padding = self.dims[2]
         xp = F.pad(x, (0, padding)) if padding else x
-        out = whvi_mul(self.s1, g, self.s2, xp[..., None, :], per_example=per_example_noise)
+        out = whvi_mul(
+            self._view(self.s1, x.dim() + 1), g, self._view(self.s2, x.dim() + 1),
+            xp[..., None, :], per_example=per_example_noise,
+            replicated=self.replicas is not None,
+        )
         out = out.reshape(out.shape[:-2] + (-1,))
         return out[..., : self.n_out]
 
@@ -246,10 +298,11 @@ class ColumnMatrix(_WHVIMatrix):
         """Column from ``g (..., D_adj)``; returns ``(..., n)``: one column
         a row of ``g``, so ``g (*S, B, D_adj)`` gives one a batch row."""
         n_rows = self.H_rows.shape[0]
+        rank = g.dim() + 1
         rows = (
-            self.s1[:n_rows, None]
+            self._view(self.s1[..., :n_rows, None], rank)
             * fwht_cuda(self.H_rows * g[..., None, :])
-            * self.s2
+            * self._view(self.s2, rank)
         )
         return rows.reshape(g.shape[:-1] + (n_rows * self.D_adj,))[..., : self.n]
 
@@ -295,7 +348,10 @@ class PaddedSquareMatrix(_WHVIMatrix):
         the shape cannot say)."""
         pad = self.D - self.n_in
         xp = F.pad(x, (0, pad)) if pad else x
-        y = whvi_mul(self.s1, g, self.s2, xp, per_example=per_example_noise)
+        y = whvi_mul(
+            self._view(self.s1, x.dim()), g, self._view(self.s2, x.dim()), xp,
+            per_example=per_example_noise, replicated=self.replicas is not None,
+        )
         return y[..., : self.n_out]
 
     def dense_given_g(self, g):

@@ -162,8 +162,10 @@ def fwht_kron(
     return t.reshape(*batch, D).to(dtype)
 
 
-def kl_diag_normal(mu_q, sigma_q, mu_p, sigma_p) -> torch.Tensor:
-    """KL(N(mu_q, diag sigma_q^2) || N(mu_p, diag sigma_p^2)), summed.
+def kl_diag_normal(mu_q, sigma_q, mu_p, sigma_p, keep: int = 0) -> torch.Tensor:
+    """KL(N(mu_q, diag sigma_q^2) || N(mu_p, diag sigma_p^2)), summed over
+    all axes but the first ``keep`` (the replica axis of a replicated
+    parameter).
 
     Arguments are standard deviations (the paper-correct form; see
     ``whvi_tpu.ops.hadamard.kl_diag_normal``)::
@@ -178,9 +180,12 @@ def kl_diag_normal(mu_q, sigma_q, mu_p, sigma_p) -> torch.Tensor:
         log_sigma_p = torch.log(sigma_p)
     else:
         log_sigma_p = math.log(sigma_p)
-    return torch.sum(
+    terms = (
         log_sigma_p
         - torch.log(sigma_q)
         + (sigma_q.square() + (mu_q - mu_p) ** 2) / (2.0 * sigma_p * sigma_p)
         - 0.5
     )
+    if keep:
+        return torch.sum(terms, dim=tuple(range(keep, terms.dim())))
+    return torch.sum(terms)

@@ -56,7 +56,7 @@ def get_whvi_mul_precision() -> str:
     return _PRECISION
 
 
-def bf16_eligible(s1, u, s2, x, per_example: bool = False) -> bool:
+def bf16_eligible(s1, u, s2, x, per_example: bool = False, replicated: bool = False) -> bool:
     """Whether the JAX ``"pallas"`` backend sends this product to its bf16
     kernel (``whvi_tpu/ops/whvi_op.py:150-176``): ``(D,)`` diagonals ``s1``
     and ``s2``; a ``u`` that varies only over sample axes (1-D, or its row
@@ -67,19 +67,35 @@ def bf16_eligible(s1, u, s2, x, per_example: bool = False) -> bool:
     ``per_example`` says that ``u`` has one row per batch row. JAX decides
     by ``u``'s rank, and its per-example ``u (B, D)`` is 2-D even at
     ``B = 1``; here a batch of one gives ``u (..., 1, D)``, the shape of a
-    shared ``u``, so the caller that drew it per example has to say so."""
+    shared ``u``, so the caller that drew it per example has to say so.
+
+    ``replicated`` says that the operands' leading axis is a replica axis
+    (:func:`whvi_tpu_torch.models.networks.stack_replicas`), the counterpart of the
+    JAX trainer's vmap over replicas, which the JAX backend does not see:
+    a diagonal ``(R, 1, .., 1, D)`` is then each replica's 1-D diagonal,
+    so a stacked product rounds exactly where each replica's own product
+    does."""
     D = x.shape[-1]
+
+    def diagonal(s):
+        if replicated:
+            return all(n == 1 for n in s.shape[1:-1])
+        return s.dim() == 1
+
     return (
         not per_example
-        and s1.dim() == 1
-        and s2.dim() == 1
+        and diagonal(s1)
+        and diagonal(s2)
         and (u.dim() == 1 or u.shape[-2] == 1)
         and is_pow_of_2(D)
         and MIN_D_BF16 <= D <= MAX_D
     )
 
 
-def whvi_mul(s1, u, s2, x, precision: str | None = None, per_example: bool = False):
+def whvi_mul(
+    s1, u, s2, x, precision: str | None = None, per_example: bool = False,
+    replicated: bool = False,
+):
     """Compute ``x @ W_bar(u)^T`` with ``W_bar(u) = S1 H diag(u) H S2``.
 
     ``s1, u, s2`` are diagonals of shape ``(D,)`` or any shape whose
@@ -93,7 +109,9 @@ def whvi_mul(s1, u, s2, x, precision: str | None = None, per_example: bool = Fal
     ``(D,)`` diagonals with a shared-noise ``u``, ``4 <= D <= 16384``.
     Stacked ``(stack, D)`` products, per-example-noise ``u (..., B, D)``
     (``per_example``, which also covers ``B = 1``) and other widths
-    compute fp32, as JAX sends them to XLA.
+    compute fp32, as JAX sends them to XLA. ``replicated`` (the leading
+    axis is a replica axis) makes a per-replica ``(R, 1, .., 1, D)``
+    diagonal count as ``(D,)``, as each replica's own product would.
 
     With a gradient to record this is :class:`WhviMulFunction` (the
     kernel with residuals forward, the swapped kernel backward);
@@ -101,7 +119,7 @@ def whvi_mul(s1, u, s2, x, precision: str | None = None, per_example: bool = Fal
     """
     if precision is None:
         precision = _PRECISION
-    if precision == "bf16" and not bf16_eligible(s1, u, s2, x, per_example):
+    if precision == "bf16" and not bf16_eligible(s1, u, s2, x, per_example, replicated):
         precision = "fp32"
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (s1, u, s2, x)

@@ -1,3 +1,8 @@
+from whvi_tpu_torch.train.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from whvi_tpu_torch.train.optim import (
     decay_schedule,
     decayed_adam,
@@ -10,6 +15,7 @@ from whvi_tpu_torch.train.trainer import (
     Trainer,
     TrainState,
     batch_layout,
+    hyper_schedule,
 )
 
 __all__ = [
@@ -19,7 +25,11 @@ __all__ = [
     "batch_layout",
     "decay_schedule",
     "decayed_adam",
+    "hyper_schedule",
+    "latest_checkpoint",
     "mask_likelihood_grads",
     "mask_noise_branch_grads",
+    "restore_checkpoint",
+    "save_checkpoint",
     "validate_split_head",
 ]

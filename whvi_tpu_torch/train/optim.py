@@ -12,6 +12,14 @@ parameter whose gradient is None, so a skipped parameter would come out
 of a freeze with a bias correction behind everyone else's, where optax
 counts steps globally. A zero gradient keeps its moments at exactly 0,
 so its update is exactly 0 and its count advances with the others.
+
+On a replicated net (:func:`whvi_tpu_torch.models.networks.stack_replicas`) a
+freeze may differ between replicas: the flag is then a ``(R,)`` 0/1
+tensor multiplied into each parameter's gradient along its replica axis,
+so a frozen replica's gradient, moments and update are exactly 0 while
+the others train. Adam is elementwise and all replicas share one step
+count, so one ``torch.optim.Adam`` over the stacked parameters is ``R``
+independent Adams, as optax under the JAX trainer's vmap.
 """
 
 from __future__ import annotations
@@ -71,18 +79,28 @@ def decayed_adam(
     return opt, sched
 
 
-def mask_likelihood_grads(net, train_likelihood: bool) -> None:
-    """Zero the likelihood's gradients in place unless ``train_likelihood``."""
-    if not train_likelihood:
-        for param in net.likelihood.parameters():
+def _mask(params, flag) -> None:
+    """Zero the gradients of ``params`` unless ``flag``: a bool (or a 0/1
+    float), or a ``(R,)`` 0/1 tensor, one entry a replica (the parameters'
+    leading axis)."""
+    if torch.is_tensor(flag):
+        for param in params:
+            param.grad.mul_(flag.reshape(flag.shape + (1,) * (param.dim() - 1)))
+    elif not flag:
+        for param in params:
             param.grad.zero_()
 
 
-def mask_noise_branch_grads(net, train_noise: bool) -> None:
+def mask_likelihood_grads(net, train_likelihood) -> None:
+    """Zero the likelihood's gradients in place unless ``train_likelihood``
+    (a bool, or a ``(R,)`` 0/1 tensor on a replicated net)."""
+    _mask(net.likelihood.parameters(), train_likelihood)
+
+
+def mask_noise_branch_grads(net, train_noise) -> None:
     """Zero the gradients of the last layer's ``branches[1:]`` (the noise
     branch of a split head checked by :func:`validate_split_head`) in
-    place unless ``train_noise``."""
-    if not train_noise:
-        for branch in net.layers[-1].branches[1:]:
-            for param in branch.parameters():
-                param.grad.zero_()
+    place unless ``train_noise`` (a bool, or a ``(R,)`` 0/1 tensor on a
+    replicated net)."""
+    for branch in net.layers[-1].branches[1:]:
+        _mask(branch.parameters(), train_noise)

@@ -1,3 +1,4 @@
+from whvi_tpu_torch.utils.metrics import JsonlLogger, Throughput
 from whvi_tpu_torch.utils.profiling import (
     H100_HBM_GBPS,
     H100_PEAK_BF16_FLOPS,
@@ -17,6 +18,8 @@ __all__ = [
     "H100_HBM_GBPS",
     "H100_PEAK_BF16_FLOPS",
     "H100_PEAK_TF32_FLOPS",
+    "JsonlLogger",
+    "Throughput",
     "card",
     "cuda_ms",
     "elbo_step_flops",
