@@ -101,6 +101,24 @@ Phases, each of which raises on failure:
    1 + 2 epochs; (f) run_uci yacht --splits 8 --epochs1 1 --epochs2 4 on a
    synthetic 308 x 7 yacht file; their rows must be finite.
 
+9. The golden samplers (whvi_tpu_torch/mcmc/), on K1-K4 in fp32: (a) the
+   g log posterior and its gradient at 4 walkers on the card against a
+   CPU copy (SLICE_TOL, MCMC_GRAD_TOL) at config 4's full width (784 ->
+   1024 -> 1024 -> 10, 256 rows of synthetic_classification, 3072 g's)
+   and on run_vi_vs_hmc's 6 -> 8 -> 1 net, with the launches of one
+   gradient evaluation and of one value, and no operand realigned; (b) 5
+   HMC and 5 NUTS draws of 2 chains on config 4's posterior from the same
+   random numbers on the card and on a CPU copy (MCMC_DRAW_TOL); (c) the
+   path: NUTS at config 4 (4 chains, depth 4, 10 + 10 draws) and
+   parallel tempering on the 6 -> 8 -> 1 posterior (2 ladders of 4 rungs,
+   10 + 10 rounds), each under torch.cuda.set_sync_debug_mode("error"),
+   then the predictive of the tempering draws on held-out rows: every
+   K1-K4 launched, no operand realigned, draws/s and gradient
+   evaluations/s logged; (d) run_vi_vs_hmc's analytic tier cut to 4
+   chains x (100 + 100) draws at depth 5: no divergence, the NUTS mean
+   within ANALYTIC_MEAN_TOL_SD exact posterior sds of the exact mean and
+   its sd within ANALYTIC_SD_RATIO_TOL of the exact sd.
+
 Before the last line it prints one JSON object of the kernels (each with
 its launches on the main path, max abs error, ms, plain_ms, bound_ms,
 bound_by and library_ms; the error and the times both at the scaling
@@ -438,6 +456,8 @@ def given_noise(net, B: int, rng) -> list:
 def _to(tree, device):
     if tree is None:
         return None
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_to(t, device) for t in tree)
     return tree.to(device)
@@ -1275,10 +1295,253 @@ def run_protocol_entry_points(fc, seed, tmp) -> None:
         check(fc.LAUNCHES[name] > 0, f"kernel {name} was not launched by the entry points")
 
 
+# ------------------------------------------------- 9. the golden samplers
+
+SAMPLER_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")  # K1-K4, fp32
+MCMC_GRAD_TOL = 1e-4  # log-posterior gradients sum 256 rows in another order
+MCMC_DRAW_TOL = 1e-4  # draws after a few transitions, card vs CPU
+# the analytic tier's NUTS at the cut size against its exact posterior: the
+# mean's RMSE over the 16 coordinates, in units of the exact marginal sd
+# (averaged over coordinates; 0.0154 at seed 0). At the cut size's ESS of
+# 100-300 the Monte Carlo error of a mean is 0.06-0.1 sd, so 0.25 sd leaves
+# room for it and still catches a bias of a quarter sd. The NUTS sd over the
+# exact sd (averaged over coordinates) is held to the JAX script's gate.
+ANALYTIC_MEAN_TOL_SD = 0.25
+ANALYTIC_SD_RATIO_TOL = 0.1
+
+
+def nonlinear_net(seed: int):
+    """run_vi_vs_hmc's nonlinear-tier net, 6 -> 8 (stacked) -> 1 (column
+    head), bias and per-example noise, random weights, on the CPU."""
+    from whvi_tpu_torch.experiments.run_vi_vs_hmc import _lin
+    from whvi_tpu_torch.models import WHVIRegression, relu
+
+    torch.manual_seed(seed)
+    net = WHVIRegression([_lin(6, 8, 1.0), relu, _lin(8, 1, 1.0)], sigma0=0.3, train_samples=4)
+    with torch.no_grad():
+        for layer in net.layers[::2]:
+            layer.matrix.g_mu.normal_(0.0, 0.5)
+            layer.bias.normal_(0.0, 0.1)
+    return net
+
+
+def sampler_posteriors(seed: int) -> dict:
+    """The two g posteriors of the phase, each ``(cpu_net, X, y)``: config
+    4 (random weights, sampler_bench.config4_net) on 256 rows of
+    synthetic_classification, and the nonlinear tier's net on its 64-row
+    synthetic subset (yacht's fallback)."""
+    from whvi_tpu_torch.bench.sampler_bench import config4_net
+    from whvi_tpu_torch.data import synthetic_classification
+    from whvi_tpu_torch.experiments.run_vi_vs_hmc import _load_subset
+
+    (X4, y4), _ = synthetic_classification(seed=seed)
+    X6, y6, _, _, _ = _load_subset(seed, 64, 0)
+    return {"config 4": (config4_net(seed), X4[:256], y4[:256]),
+            "6-8-1": (nonlinear_net(seed), X6, y6)}
+
+
+def log_posterior_vs_cpu(fc, dev, seed, posteriors) -> dict:
+    """(a) The g log posterior and its gradient at 4 walkers on the card
+    (kernels) against a CPU copy (plain versions), with the launches of
+    one gradient evaluation and of one value without a gradient."""
+    from whvi_tpu_torch.mcmc import make_whvi_g_log_posterior
+    from whvi_tpu_torch.mcmc.chains import jittered_inits, ravel, value_and_grad
+
+    per_eval = {}
+    for label, (net, X, y) in posteriors.items():
+        lp_cpu, init = make_whvi_g_log_posterior(net, X, y)
+        lp_card, _ = make_whvi_g_log_posterior(copy.deepcopy(net).to(dev), X, y)
+        qv, unflat = ravel(jittered_inits(init, torch.Generator().manual_seed(seed + 9), 4, 0.1))
+        v_cpu, g_cpu = value_and_grad(lp_cpu, unflat)(qv)
+        vg_card = value_and_grad(lp_card, unflat)
+        vg_card(qv.to(dev))  # warm
+        torch.cuda.synchronize()
+        fc.reset_launches()
+        v_card, g_card = vg_card(qv.to(dev))
+        torch.cuda.synchronize()
+        grad_launches, realigned = dict(fc.LAUNCHES), fc.REALIGNED
+        fc.reset_launches()
+        with torch.no_grad():
+            v_nograd = lp_card(unflat(qv.to(dev)))
+        torch.cuda.synchronize()
+        value_launches = dict(fc.LAUNCHES)
+        v_err, g_err = rel_err(v_card.cpu(), v_cpu), rel_err(g_card.cpu(), g_cpu)
+        log(f"  {label}: {qv.shape[1]} g coordinates, 4 walkers, {X.shape[0]} rows: value "
+            f"{v_err:.2e} (<= {SLICE_TOL}), gradient {g_err:.2e} (<= {MCMC_GRAD_TOL}); a gradient "
+            "evaluation launches " + ", ".join(f"{k} {v}" for k, v in grad_launches.items() if v)
+            + "; a value without one " + ", ".join(f"{k} {v}" for k, v in value_launches.items() if v)
+            + f"; operands realigned {realigned}")
+        check(v_err <= SLICE_TOL, f"{label} log posterior disagrees with the CPU")
+        check(g_err <= MCMC_GRAD_TOL, f"{label} log-posterior gradient disagrees with the CPU")
+        check(torch.equal(v_nograd, v_card), f"{label}: the value without a gradient differs")
+        check(realigned == 0, f"{label} copied misaligned operands")
+        check(grad_launches["fused_res"] > 0 and grad_launches["fused_bwd"] > 0,
+              f"{label}: a gradient evaluation launched no K2/K3")
+        check(value_launches["fused_y"] > 0, f"{label}: a value launched no K1")
+        per_eval[label] = {"gradient": grad_launches, "value": value_launches}
+    check(per_eval["6-8-1"]["gradient"]["fwht"] > 0, "the column head launched no K4")
+    return per_eval
+
+
+def draws_vs_cpu(dev, seed, posteriors) -> None:
+    """(b) 5 HMC and 5 NUTS draws of 2 chains on config 4's posterior,
+    from the same random numbers on the card and on a CPU copy."""
+    from whvi_tpu_torch.mcmc import HMCConfig, NUTSConfig, make_whvi_g_log_posterior
+    from whvi_tpu_torch.mcmc import hmc, nuts
+    from whvi_tpu_torch.mcmc.chains import jittered_inits
+
+    net, X, y = posteriors["config 4"]
+    lp_cpu, init = make_whvi_g_log_posterior(net, X, y)
+    lp_card, _ = make_whvi_g_log_posterior(copy.deepcopy(net).to(dev), X, y)
+    inits = jittered_inits(init, torch.Generator().manual_seed(seed + 10), 2, 0.1)
+    dim = sum(g[0].numel() for g in inits.values())
+    gen = torch.Generator().manual_seed(seed + 11)
+    runs = {
+        "HMC": (hmc._hmc_chains, HMCConfig(n_samples=5, n_warmup=0, n_leapfrog=3,
+                                           init_step_size=2e-3, adapt=False),
+                hmc.hmc_draws(gen, 2, dim, "cpu")),
+        "NUTS": (nuts._nuts_chains, NUTSConfig(n_samples=5, n_warmup=0, max_tree_depth=3,
+                                               init_step_size=2e-3, adapt=False),
+                 nuts.nuts_draws(gen, 2, dim, 3, "cpu")),
+    }
+    for label, (sample_fn, cfg, make) in runs.items():
+        draws = [make(t) for t in range(cfg.n_samples)]
+        got = {}
+        for where, d, lp in (("card", dev, lp_card), ("cpu", torch.device("cpu"), lp_cpu)):
+            feed = lambda t, d=d: _to(draws[t], d)
+            got[where] = sample_fn(lp, _to(inits, d), None, cfg, feed)
+        err = max(rel_err(got["card"][0][i].cpu(), got["cpu"][0][i]) for i in init)
+        acc_key = "accept_rate" if label == "HMC" else "accept_stat"
+        log(f"  {label}, 2 chains x 5 draws from the same numbers: draws card vs CPU {err:.2e} "
+            f"(<= {MCMC_DRAW_TOL}); accept {got['card'][1][acc_key].cpu().numpy().round(4)}")
+        check(err <= MCMC_DRAW_TOL, f"{label} draws disagree with the CPU")
+
+
+def _no_sync(fn):
+    """``fn()`` with every host sync an error (torch.cuda.set_sync_debug_mode),
+    timed by the host clock between two synchronizes outside it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_sampler_path(fc, dev, seed, posteriors) -> dict:
+    """(c) The path: NUTS at config 4 (4 chains, depth 4, 10 + 10 draws)
+    and parallel tempering on the 6-8-1 posterior (2 ladders of 4 rungs,
+    10 + 10 rounds), each under sync debug mode "error", then the
+    posterior predictive of the tempering draws on held-out rows. Every
+    K1-K4 must launch, no operand be realigned."""
+    from whvi_tpu_torch.experiments.run_vi_vs_hmc import _load_subset, _predictive_from_g_draws
+    from whvi_tpu_torch.mcmc import (
+        NUTSConfig, PTConfig, ess, make_whvi_g_log_posterior, nuts_sample_chains,
+        pt_sample_chains, split_rhat,
+    )
+    from whvi_tpu_torch.mcmc.nuts import gradient_evaluations
+
+    # the mode must catch a sync at all: a read of a device value
+    caught = False
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.ones(1, device=dev).item()
+    except RuntimeError:
+        caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(caught, 'set_sync_debug_mode("error") let .item() through')
+    net4 = copy.deepcopy(posteriors["config 4"][0]).to(dev)
+    net6 = copy.deepcopy(posteriors["6-8-1"][0]).to(dev)
+    _, X6, y6 = posteriors["6-8-1"]
+    _, _, X_te, y_te, _ = _load_subset(seed, 64, 100)
+    ncfg = NUTSConfig(n_samples=10, n_warmup=10, max_tree_depth=4)
+    pcfg = PTConfig(n_samples=10, n_warmup=10, n_rungs=4, n_leapfrog=8)
+    fc.reset_launches()
+    lp4, init4 = make_whvi_g_log_posterior(net4, *posteriors["config 4"][1:])
+    lp6, init6 = make_whvi_g_log_posterior(net6, X6, y6)
+    (s4, st4), wall4 = _no_sync(lambda: nuts_sample_chains(
+        lp4, init4, torch.Generator(device=dev).manual_seed(seed + 12), ncfg, n_chains=4))
+    (s6, st6), wall6 = _no_sync(lambda: pt_sample_chains(
+        lp6, init6, torch.Generator(device=dev).manual_seed(seed + 13), pcfg, n_chains=2))
+    pred = _predictive_from_g_draws(net6, X_te, y_te, s6)
+    torch.cuda.synchronize()
+    launches, realigned = dict(fc.LAUNCHES), fc.REALIGNED
+    evals4 = gradient_evaluations(ncfg)
+    evals6 = 1 + 20 * pcfg.n_leapfrog
+    rates = {
+        "nuts_config4_draws_per_s": 4 * 20 / wall4,
+        "nuts_config4_grad_evals_per_s": evals4 / wall4,
+        "pt_681_rounds_per_s": 2 * 20 / wall6,
+        "pt_681_grad_evals_per_s": evals6 / wall6,
+    }
+    log(f"  NUTS config 4, 4 chains x (10 + 10) draws, depth 4, no host sync: {wall4:.3f} s, "
+        f"{rates['nuts_config4_draws_per_s']:.2f} draws/s, "
+        f"{rates['nuts_config4_grad_evals_per_s']:.1f} gradient evaluations/s ({evals4} of 4 "
+        f"walkers); divergences {st4['divergences'].tolist()}, accept "
+        f"{st4['accept_stat'].cpu().numpy().round(3)}, R-hat max "
+        f"{max(float(split_rhat(s4[i]).max()) for i in s4):.3f}, ESS min "
+        f"{min(float(ess(s4[i]).min()) for i in s4):.1f}")
+    log(f"  PT 6-8-1, 2 ladders x 4 rungs x (10 + 10) rounds, 8 leapfrog steps, no host sync: "
+        f"{wall6:.3f} s, {rates['pt_681_rounds_per_s']:.2f} cold draws/s, "
+        f"{rates['pt_681_grad_evals_per_s']:.1f} gradient evaluations/s ({evals6} of 8 walkers); "
+        f"swap rates {st6['swap_rate'].cpu().numpy().round(2).tolist()}")
+    log(f"  predictive of the PT draws on 100 held-out rows: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pred.items()))
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; operands realigned {realigned}")
+    check(realigned == 0, "the sampler path copied misaligned operands")
+    for name in SAMPLER_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the sampler path")
+    for s in (s4, s6):
+        check(all(bool(torch.isfinite(v).all()) for v in s.values()), "non-finite draws")
+    check(s4[0].shape == (4, 10, 1, 1024) and s6[0].shape == (2, 10, 1, 8),
+          f"draw shapes {tuple(s4[0].shape)}, {tuple(s6[0].shape)}")
+    check(all(math.isfinite(v) for v in pred.values()), f"non-finite predictive {pred}")
+    return rates
+
+
+def run_analytic_path(dev, seed) -> dict:
+    """(d) run_vi_vs_hmc's analytic tier at a cut size (16-dim exact
+    posterior, 4 chains x (100 + 100) NUTS draws at depth 5, 300 VI
+    steps): no divergence, the NUTS mean within ANALYTIC_MEAN_TOL_SD exact
+    posterior sds of the exact mean, and the NUTS sd within
+    ANALYTIC_SD_RATIO_TOL of the exact sd."""
+    from whvi_tpu_torch.experiments.run_vi_vs_hmc import (
+        analytic_gates,
+        analytic_problem,
+        analytic_tier,
+    )
+
+    a = analytic_tier(seed=seed, n_vi_steps=300, n_nuts=100, n_warmup=100, tree_depth=5,
+                      device=dev)
+    nuts_row = a["nuts"]
+    exact_sd = float(torch.diagonal(analytic_problem(seed=seed, device=dev)["Sigma"]).sqrt().mean())
+    rmse_sd = nuts_row["mean_rmse_vs_exact"] / exact_sd
+    sd_ratio = nuts_row["sd_ratio_vs_exact_mean"]
+    log(f"  analytic tier, 4 chains x (100 + 100) draws, depth 5: NUTS mean RMSE vs exact "
+        f"{nuts_row['mean_rmse_vs_exact']:.5f} = {rmse_sd:.4f} exact sd (exact sd {exact_sd:.5f}; "
+        f"<= {ANALYTIC_MEAN_TOL_SD} sd), sd ratio {sd_ratio:.4f} (within "
+        f"{ANALYTIC_SD_RATIO_TOL} of 1), R-hat {nuts_row['rhat_max']:.4f}, ESS "
+        f"{nuts_row['ess_min']:.1f}, divergences {nuts_row['divergences']}; "
+        f"{nuts_row['draws_per_s']:.1f} draws/s, {nuts_row['grad_evals_per_s']:.1f} gradient "
+        f"evaluations/s; VI mean corr {a['vi']['mean_corr_vs_exact']:.4f}; gates at this cut "
+        f"size (not held): {analytic_gates(a)}")
+    check(nuts_row["divergences"] == 0, "the analytic tier's NUTS diverged")
+    check(rmse_sd <= ANALYTIC_MEAN_TOL_SD, "the analytic tier's NUTS mean misses the exact mean")
+    check(abs(sd_ratio - 1) < ANALYTIC_SD_RATIO_TOL,
+          "the analytic tier's NUTS sd misses the exact sd")
+    return a
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     smi = probe()
     from whvi_tpu_torch.ops import fwht_cuda as fc
@@ -1306,6 +1569,15 @@ def main() -> int:
         run_protocol_path(fc, dev, args.seed, tmp)
         run_grid_path(fc, dev, args.seed)
         run_protocol_entry_points(fc, args.seed, tmp)
+    t9 = time.perf_counter()
+    log("phase 9: the golden samplers")
+    posteriors = sampler_posteriors(args.seed)
+    log_posterior_vs_cpu(fc, dev, args.seed, posteriors)
+    draws_vs_cpu(dev, args.seed, posteriors)
+    run_sampler_path(fc, dev, args.seed, posteriors)
+    run_analytic_path(dev, args.seed)
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s; the smoke so far: "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {

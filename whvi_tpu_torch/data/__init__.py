@@ -1,5 +1,7 @@
 from whvi_tpu_torch.data.mnist import (
+    load_digits_classification,
     load_mnist,
+    load_sklearn_classification,
     mnist_available,
     synthetic_classification,
 )
@@ -10,7 +12,9 @@ __all__ = [
     "UCI_DATASETS",
     "cubic_data",
     "dataset_info",
+    "load_digits_classification",
     "load_mnist",
+    "load_sklearn_classification",
     "load_uci",
     "mnist_available",
     "polynomial_data",

@@ -1,12 +1,14 @@
-"""MNIST from IDX files, and a synthetic classification stand-in (numpy).
+"""MNIST from IDX files, scikit-learn's bundled classification sets, and
+a synthetic classification stand-in (numpy).
 
-The port's own copy of the IDX reader and of ``synthetic_classification``
-of :mod:`whvi_tpu.data.mnist`. :func:`load_mnist` reads the standard IDX
-files (optionally gzipped) from ``$WHVI_DATA_DIR``, ``data/mnist/`` or
-``data/`` of the repository; nothing is downloaded.
-:func:`synthetic_classification` makes class prototypes plus noise at
-MNIST's shapes from a seed, so the classifier runs anywhere. The
-sklearn-backed loaders of the JAX module are not ported.
+The port's own copy of :mod:`whvi_tpu.data.mnist`. :func:`load_mnist`
+reads the standard IDX files (optionally gzipped) from
+``$WHVI_DATA_DIR``, ``data/mnist/`` or ``data/`` of the repository;
+nothing is downloaded. :func:`synthetic_classification` makes class
+prototypes plus noise at MNIST's shapes from a seed, so the classifier
+runs anywhere. :func:`load_digits_classification` and
+:func:`load_sklearn_classification` read the real sets that scikit-learn
+ships (offline), importing it only when called.
 """
 
 from __future__ import annotations
@@ -17,7 +19,13 @@ import struct
 
 import numpy as np
 
-__all__ = ["load_mnist", "mnist_available", "synthetic_classification"]
+__all__ = [
+    "load_digits_classification",
+    "load_mnist",
+    "load_sklearn_classification",
+    "mnist_available",
+    "synthetic_classification",
+]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SEARCH_DIRS = [
@@ -101,3 +109,41 @@ def synthetic_classification(
         return X.astype(np.float32), y
 
     return make(n_train), make(n_test)
+
+
+def load_digits_classification(test_frac: float = 0.2, seed: int = 0):
+    """Scikit-learn's bundled 8x8 handwritten digits (1797 samples, 10
+    classes, UCI Optical Recognition of Handwritten Digits), split by a
+    seeded permutation: ``((X_tr, y_tr), (X_te, y_te))``, X float32 in
+    [0, 1], flattened to 64, y int32."""
+    from sklearn.datasets import load_digits
+
+    d = load_digits()
+    X = (d.data / 16.0).astype(np.float32)
+    y = d.target.astype(np.int32)
+    perm = np.random.RandomState(seed).permutation(len(X))
+    n_te = int(round(test_frac * len(X)))
+    te, tr = perm[:n_te], perm[n_te:]
+    return (X[tr], y[tr]), (X[te], y[te])
+
+
+def load_sklearn_classification(name: str, test_frac: float = 0.2, seed: int = 0):
+    """Scikit-learn's bundled ``wine`` (178 x 13, 3 classes) or
+    ``breast_cancer`` (569 x 30, 2 classes), split by a seeded permutation,
+    features standardized on the train split: ``((X_tr, y_tr), (X_te,
+    y_te))``."""
+    from sklearn import datasets as skd
+
+    loaders = {"wine": skd.load_wine, "breast_cancer": skd.load_breast_cancer}
+    if name not in loaders:
+        raise ValueError(f"unknown sklearn set {name!r}; have {sorted(loaders)}")
+    d = loaders[name]()
+    X = d.data.astype(np.float32)
+    y = d.target.astype(np.int32)
+    perm = np.random.RandomState(seed).permutation(len(X))
+    n_te = int(round(test_frac * len(X)))
+    te, tr = perm[:n_te], perm[n_te:]
+    mu = X[tr].mean(axis=0)
+    sd = X[tr].std(axis=0) + 1e-8
+    X = (X - mu) / sd
+    return (X[tr], y[tr]), (X[te], y[te])

@@ -10,8 +10,12 @@
   two toy regressions (``experiments/run_toy_cubic.py``,
   ``run_toy_polynomial.py``);
 - :mod:`~whvi_tpu_torch.experiments.run_mnist`: the Bayesian classifier of
-  BASELINE config 4 on MNIST's IDX files or synthetic data
-  (``experiments/run_mnist.py``);
+  BASELINE config 4 on MNIST's IDX files, scikit-learn's sets (``--cpu``)
+  or synthetic data, with calibration and the NUTS check of its VI
+  moments (``experiments/run_mnist.py``; ``--cpu`` asks for the CPU);
+- :mod:`~whvi_tpu_torch.experiments.run_vi_vs_hmc`: VI against NUTS
+  against the exact posterior, in three tiers
+  (``experiments/run_vi_vs_hmc.py``; ``--cpu`` too);
 - :mod:`~whvi_tpu_torch.experiments.run_baseline_configs`: BASELINE
   configs 3 (deep heteroscedastic) and 5 (large D) on data made from a
   seed (``experiments/run_baseline_configs.py``);

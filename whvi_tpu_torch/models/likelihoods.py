@@ -153,10 +153,11 @@ class CategoricalLikelihood(nn.Module):
 
     @staticmethod
     def _label_log_prob(y, y_hat):
-        """``log softmax(y_hat)[..., y]``, ``(S, B)``."""
+        """``log softmax(y_hat)[..., y]``, ``(S, B)``; ``y_hat`` may carry
+        axes ahead of ``S`` (the samplers' walkers), kept in the result."""
         labels = y.reshape(-1).long()
         logp = F.log_softmax(y_hat, dim=-1)
-        index = labels.view(1, -1, 1).expand(logp.shape[0], -1, 1)
+        index = labels.view(-1, 1).expand(*logp.shape[:-1], 1)
         return torch.gather(logp, -1, index)[..., 0]
 
     def mnll(self, y, y_hat, n, weights=None):
