@@ -119,11 +119,28 @@ Phases, each of which raises on failure:
    within ANALYTIC_MEAN_TOL_SD exact posterior sds of the exact mean and
    its sd within ANALYTIC_SD_RATIO_TOL of the exact sd.
 
+10. bf16 storage (the JAX package's dtype=bfloat16) through K1-K4: (a)
+   each bf16-storage kernel (fused_y_bf16s, fused_res_bf16s,
+   fused_bwd_bf16s, fwht_bf16s) against its plain version at the scaling
+   path's shapes, u (8,1,D) over x (256,D) expanded to 2048 rows at D =
+   4096 and 8192, and the column head (8,1,1,4096): every forward and the
+   backward (against vjp_plain) bit for bit. (b) run_scaling.main
+   --dtype bf16 at --sizes 4096 8192, train and --predict, --profile 10:
+   its rows finite, each bf16-storage kernel launched, no fp32-storage
+   product and no operand realigned; then the fp32 rows at the same D,
+   step ms and peak memory logged beside them. (c) The
+   bf16 scaling net at D=4096 on the card against a CPU copy on the same
+   weights and noise: loss and every gradient within 2^-7 of its max. (d)
+   Device times (CUDA graph replay) of the four kernels and their plain
+   versions at D=4096, 2048 rows (K4 at the column head, beside
+   torch.matmul(x, H_D) in bf16), each with its bound at 2 bytes an
+   element; then bench/fwht_sweep.py at D = 256, 4096, 16384.
+
 Before the last line it prints one JSON object of the kernels (each with
 its launches on the main path, max abs error, ms, plain_ms, bound_ms,
 bound_by and library_ms; the error and the times both at the scaling
-path's shapes for K1-K4, at D=16384, B=512, TB=4 for the large-D
-kernels) and the nvidia-smi line; the last line is {"ok": true,
+path's shapes for K1-K4 in both storages, at D=16384, B=512, TB=4 for
+the large-D kernels) and the nvidia-smi line; the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -162,9 +179,14 @@ KERNELS = {
     "fused_y_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_res_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
+    "fused_y_bf16s": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
+    "fused_res_bf16s": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
+    "fused_bwd_bf16s": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
+    "fwht_bf16s": ("whvi_tpu_torch/csrc/fwht.cu", "whvi_tpu/ops/fwht_pallas.py:191"),
 }
 FLAGSHIP_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")  # phases 3-4
 BF16_KERNELS = ("fused_y_bf16", "fused_res_bf16", "fused_bwd_bf16")  # phase 6
+BF16S_KERNELS = ("fused_y_bf16s", "fused_res_bf16s", "fused_bwd_bf16s", "fwht_bf16s")  # phase 10
 
 
 def log(*parts) -> None:
@@ -1537,6 +1559,200 @@ def run_analytic_path(dev, seed) -> dict:
     return a
 
 
+# ------------------------------------------------ 10. bf16 storage (K1-K4)
+
+BF16S_WIDTHS = (4096, 8192)  # run_scaling --dtype bf16's sizes in the smoke
+BF16S_NET_TOL = 2.0**-7  # the bf16 scaling net, card vs CPU: loss and gradients
+
+
+def bf16s_vs_plain(fc, dev, seed) -> dict:
+    """K1-K4 on bf16 storage against their plain versions at the scaling
+    path's shapes: u (8,1,D) over x (256,D) expanded to 2048 rows, D = 4096
+    and 8192, and the column head (8,1,1,4096). Every forward (y; y, i1,
+    i2; the bare transform) and the backward (against vjp_plain: the same
+    kernel on the swapped operands, then the same reductions) bit for bit.
+    Returns the max abs errors (at D=8192, the last shape)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    log("bf16-storage kernels vs plain (forwards and the backward bit for bit):")
+    max_abs = {}
+    S, B = SCALING_S, SCALING_B
+    for D in BF16S_WIDTHS:
+        s1, s2 = (torch.randn(D, device=dev, generator=gen).to(bf16) for _ in range(2))
+        u = torch.randn(S, 1, D, device=dev, generator=gen).to(bf16)
+        x0 = torch.randn(B, D, device=dev, generator=gen).to(bf16)
+        x = x0.expand(S, B, D)
+        ref = fc.fused_plain(s1, u, s2, x, True)
+        y = fc.fused_raw(s1, u, s2, x, False)[0]
+        res = fc.fused_raw(s1, u, s2, x, True)
+        check(y.dtype == bf16 and torch.equal(y, ref[0]), f"fused_y_bf16s at D={D}")
+        check(all(torch.equal(a, b) for a, b in zip(res, ref)), f"fused_res_bf16s at D={D}")
+        leaves = [a.clone().requires_grad_() for a in (s1, u, s2, x0)]
+        out = fc.WhviMulFunction.apply(*leaves[:3], leaves[3].expand(S, B, D))
+        g = torch.randn(out.shape, device=dev, generator=gen).to(bf16)
+        grads = torch.autograd.grad(out, leaves, g)
+        want = [r.sum_to_size(a.shape) for r, a in zip(fc.vjp_plain(s1, u, s2, x, g), grads)]
+        check(all(torch.equal(a, b) for a, b in zip(grads, want)), f"fused_bwd_bf16s at D={D}")
+        max_abs["fused_y_bf16s"] = (y.float() - ref[0].float()).abs().max().item()
+        max_abs["fused_res_bf16s"] = max(
+            (a.float() - b.float()).abs().max().item() for a, b in zip(res, ref))
+        max_abs["fused_bwd_bf16s"] = max(
+            (a.float() - b.float()).abs().max().item() for a, b in zip(grads, want))
+        log(f"  u ({S},1,D), x ({S},{B},D) D={D}: y, y/i1/i2 and the gradients equal")
+    xh = torch.randn(S, 1, 1, SCALING_D, device=dev, generator=gen).to(bf16)
+    yh = fc.fwht_raw(xh)
+    check(torch.equal(yh, fc.fwht_plain(xh)), "fwht_bf16s at the column head")
+    gh = torch.randn(xh.shape, device=dev, generator=gen).to(bf16)
+    xg = xh.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(fc.FwhtFunction.apply(xg), xg, gh)
+    check(torch.equal(dx, fc.fwht_plain(gh)), "fwht_bf16s backward at the column head")
+    max_abs["fwht_bf16s"] = (yh.float() - fc.fwht_plain(xh).float()).abs().max().item()
+    log(f"  column head {tuple(xh.shape)}: forward and backward equal")
+    torch.cuda.synchronize()
+    return max_abs
+
+
+def bf16s_times(fc, dev, seed) -> dict:
+    """Device ms a call (CUDA graph) of the four bf16-storage kernels and
+    their plain versions at the scaling shape (D=4096, 2048 rows; K4 at
+    the column head (8,1,1,4096), beside torch.matmul(x, H_D) in bf16),
+    each with its bound at 2 bytes an element."""
+    from whvi_tpu_torch.bench.common import bound_ms
+    from whvi_tpu_torch.ops.hadamard import factor_H
+    from whvi_tpu_torch.utils.profiling import H100_PEAK_FP32_FLOPS as PEAK
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    D, S, B = SCALING_D, SCALING_S, SCALING_B
+    s1, s2 = (torch.randn(D, device=dev, generator=gen).to(bf16) for _ in range(2))
+    u = torch.randn(S, 1, D, device=dev, generator=gen).to(bf16)
+    x = torch.randn(B, D, device=dev, generator=gen).to(bf16).expand(S, B, D)
+    g = torch.randn(S, B, D, device=dev, generator=gen).to(bf16)
+    ops = fused_ops(D, S * B)
+    times = {}
+    log(f"bf16-storage times at D={D}, u ({S},1,D), x ({S},{B},D) (device ms per call, "
+        "20 calls in a CUDA graph, median of 5 replays; bound at 2 bytes an element):")
+    for name, kernel, plain, ins, n_out in (
+        ("fused_y_bf16s", lambda: fc.fused_raw(s1, u, s2, x, False),
+         lambda: fc.fused_plain(s1, u, s2, x, False), (x, u, s1, s2), 1),
+        ("fused_res_bf16s", lambda: fc.fused_raw(s1, u, s2, x, True),
+         lambda: fc.fused_plain(s1, u, s2, x, True), (x, u, s1, s2), 3),
+        ("fused_bwd_bf16s", lambda: fc.fused_bwd_raw(s1, u, s2, g),
+         lambda: fc.fused_plain(s2, u, s1, g, True), (g, u, s1, s2), 3),
+    ):
+        times[name] = _timed(kernel, plain, bound_ms(ins, [g] * n_out, ops, PEAK))
+        _log_time(name, times[name])
+    xh = torch.randn(S, 1, 1, D, device=dev, generator=gen).to(bf16)
+    H = factor_H(D, bf16, dev)
+    times["fwht_bf16s"] = _timed(
+        lambda: fc.fwht_raw(xh), lambda: fc.fwht_plain(xh),
+        bound_ms((xh,), (xh,), xh.numel() * int(math.log2(D)), PEAK),
+        library=lambda: torch.matmul(xh, H))
+    _log_time("fwht_bf16s", times["fwht_bf16s"])
+    xb = torch.randn(S * B, D, device=dev, generator=gen).to(bf16)
+    tb = _timed(lambda: fc.fwht_raw(xb), lambda: fc.fwht_plain(xb),
+                bound_ms((xb,), (xb,), xb.numel() * int(math.log2(D)), PEAK))
+    _log_time(f"fwht_bf16s ({S * B}, {D})", tb)
+    return times
+
+
+def bf16s_net_vs_cpu(fc, dev, seed) -> None:
+    """The bf16 scaling net (D=4096) on the card (kernels) against a CPU
+    copy (plain versions) on the same weights, data and noise: loss and
+    every gradient within BF16S_NET_TOL of its max. The products equal
+    their plain versions bit for bit; the elementwise ops and the fp32
+    sums of the reductions may differ in the last fp32 bit between the two
+    devices, and a bf16 rounding then lands on its other side. Logs the
+    launches of the card's loss and backward (a train step's: Adam
+    launches no kernel of the port) and of one predictive call."""
+    from whvi_tpu_torch.experiments import run_scaling
+    from whvi_tpu_torch.models import WHVILinear
+
+    D, S, B = SCALING_D, SCALING_S, SCALING_B
+    net = run_scaling.build_net(D, S, dev, torch.bfloat16)
+    net.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    cpu_net = copy.deepcopy(net).cpu()
+    X, y = run_scaling.data(D, B, seed, "cpu", torch.bfloat16)
+    rng = np.random.RandomState(seed + 3)
+    eps = [
+        torch.from_numpy(rng.randn(S, 1, *l.matrix.g_mu.shape).astype(np.float32)).to(torch.bfloat16)
+        if isinstance(l, WHVILinear) else None
+        for l in cpu_net.layers
+    ]
+    results = []
+    fc.reset_launches()
+    for model, d in ((net, dev), (cpu_net, torch.device("cpu"))):
+        e = [None if a is None else a.to(d) for a in eps]
+        loss, _ = model.loss(X.to(d), y.to(d), B, eps=e)
+        loss.backward()
+        results.append((loss.detach().cpu(), [p.grad.detach().cpu() for p in model.parameters()]))
+    step = {k: v for k, v in fc.LAUNCHES.items() if v}
+    fc.reset_launches()
+    with torch.no_grad():
+        net.predict(X.to(dev), S)
+    call = {k: v for k, v in fc.LAUNCHES.items() if v}
+    log(f"  launches of a bf16-storage train step: {step}; of a predictive call: {call}")
+    (l_k, g_k), (l_p, g_p) = results
+    err = rel_err(l_k.float(), l_p.float())
+    grad_err = max(rel_err(a.float(), b.float()) for a, b in zip(g_k, g_p))
+    log(f"  bf16-storage net D={D} card vs CPU on the same noise: loss {err:.2e}, "
+        f"gradients {grad_err:.2e} (<= {BF16S_NET_TOL:.2e})")
+    check(max(err, grad_err) <= BF16S_NET_TOL, "the bf16-storage net disagrees with its CPU copy")
+
+
+def run_bf16s_path(fc, dev, seed) -> dict:
+    """run_scaling --dtype bf16 at D = 4096 and 8192, train and predict,
+    through its entry point: its rows finite, each bf16-storage kernel
+    launched and no fp32-storage product, no operand realigned. Then the
+    fp32 rows at the same D, for step ms and peak memory beside them.
+    Returns the launch counts of the bf16 run."""
+    from whvi_tpu_torch.experiments import run_scaling
+
+    sizes = [str(D) for D in BF16S_WIDTHS]
+    log(f"bf16-storage path: run_scaling --dtype bf16 --sizes {' '.join(sizes)}, train and predict")
+    fc.reset_launches()
+    rows = []
+    for predict in ([], ["--predict"]):
+        rows += run_scaling.main(["--sizes", *sizes, "--seed", str(seed), "--dtype", "bf16",
+                                  "--profile", "10", *predict])
+    torch.cuda.synchronize()
+    launches = dict(fc.LAUNCHES)
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; operands realigned {fc.REALIGNED}")
+    check(fc.REALIGNED == 0, "the bf16-storage path copied misaligned operands")
+    for name in BF16S_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the bf16-storage path")
+    for name in ("fused_y", "fused_res", "fused_bwd", "fwht", *BF16_KERNELS):
+        check(launches[name] == 0, f"the bf16-storage path launched the fp32-storage {name}")
+    log("  the fp32 rows beside them:")
+    for predict in ([], ["--predict"]):
+        rows += run_scaling.main(["--sizes", *sizes, "--seed", str(seed), *predict])
+    check(len(rows) == 8, f"run_scaling gave {len(rows)} rows, not 8")
+    for row in rows:
+        check(run_scaling.finite(row), f"non-finite row {row}")
+    for row in rows:
+        what = f"call {row['call_ms']:.3f} ms" if "call_ms" in row else f"step {row['step_ms']:.3f} ms"
+        log(f"  D={row['D']} {row['dtype']:>4} {row.get('mode', 'train'):>7}: {what}, "
+            f"peak {row['max_memory_gb']} GB")
+        if "kernel_ms" in row:  # the profiled bf16 rows
+            log(f"    kernels {row['kernel_ms']} ms, busy {row['busy_share']}, "
+                f"Optimizer.step host {row['optimizer_host_ms']} ms; top kernels "
+                f"(ms a step): {row['top_kernels']}")
+    return launches
+
+
+def run_fwht_sweep() -> None:
+    """The FWHT sweep's entry point at three widths, few iterations: every
+    row's kernel equal to its plain version (the sweep checks), times
+    finite."""
+    from whvi_tpu_torch.bench import fwht_sweep
+
+    rows, crossover = fwht_sweep.main(["--sizes", "256", "4096", "16384", "--iters", "10"])
+    check(len(rows) == 3 and all(math.isfinite(v) for r in rows for v in r.values()),
+          "fwht_sweep rows")
+    log(f"  fwht_sweep crossover: {crossover}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1578,6 +1794,22 @@ def main() -> int:
     run_analytic_path(dev, args.seed)
     log(f"phase 9: {time.perf_counter() - t9:.1f} s; the smoke so far: "
         f"{time.perf_counter() - t_start:.1f} s")
+    t10 = time.perf_counter()
+    log("phase 10: bf16 storage through K1-K4")
+    max_abs.update(bf16s_vs_plain(fc, dev, args.seed))
+    t_a = time.perf_counter()
+    bf16s = run_bf16s_path(fc, dev, args.seed)
+    launches.update({name: bf16s[name] for name in BF16S_KERNELS})
+    t_b = time.perf_counter()
+    bf16s_net_vs_cpu(fc, dev, args.seed)
+    t_c = time.perf_counter()
+    times.update(bf16s_times(fc, dev, args.seed))
+    t_d = time.perf_counter()
+    run_fwht_sweep()
+    t_e = time.perf_counter()
+    log(f"phase 10: {t_e - t10:.1f} s ((a) {t_a - t10:.1f}, (b) {t_b - t_a:.1f}, (c) "
+        f"{t_c - t_b:.1f}, (d) {t_d - t_c:.1f}, fwht_sweep {t_e - t_d:.1f}); the smoke: "
+        f"{t_e - t_start:.1f} s")
 
     kernels = [
         {

@@ -1,7 +1,8 @@
 """The port's kernel-design tools without a card: the parsers of
 ``bench/kernel_sass.py`` on sample ptxas and cuobjdump output, the bounds
-of ``bench/common.py``, and the source edits of ``bench/kron_variants.py``
-against the shipped sources.
+of ``bench/common.py``, the source edits of ``bench/kron_variants.py``
+against the shipped sources, and ``bench/fwht_sweep.py`` on the CPU with
+a stub timer (no time is taken there).
 """
 
 import os
@@ -9,11 +10,15 @@ import os
 import pytest
 import torch
 
-from whvi_tpu_torch.bench import common, kernel_sass, kron_variants
+from whvi_tpu_torch.bench import common, fwht_sweep, kernel_sass, kron_variants
 from whvi_tpu_torch.ops.fwht_cuda import CSRC
 
-FUSED_12 = "_ZN4whvi17whvi_fused_kernelILi12ELb1ELb0EEEvPKfS2_S2_S2_PfS3_S3_lNS_8GeometryE"
-FWHT_14 = "_ZN4whvi11fwht_kernelILi14EEEvPKfPfl"
+FUSED_12 = "_ZN4whvi17whvi_fused_kernelILi12ELb1ELb0EfEEvPKT2_S3_S3_S3_PS1_S4_S4_lNS_8GeometryE"
+FWHT_14 = "_ZN4whvi11fwht_kernelILi14EfEEvPKT0_PS1_l"
+FUSED_12_BF16S = (
+    "_ZN4whvi17whvi_fused_kernelILi12ELb0ELb0E13__nv_bfloat16EEvPKT2_S4_S4_S4_PS2_S5_S5_lNS_8GeometryE"
+)
+FWHT_13_BF16S = "_ZN4whvi11fwht_kernelILi13E13__nv_bfloat16EEvPKT0_PS2_l"
 EMIT_COPY = "_ZN4kron16emit_copy_kernelEPKcPclll"
 CUR_14 = "_ZN4kron15kron_cur_kernelILi14EEEvPKfS2_S2_S2_Pfl"
 FULL = "_ZN4kron16kron_full_kernelILi4EEEvPKfS2_S2_S2_Pfli"
@@ -71,9 +76,13 @@ SASS = f"""\
 
 def test_kernel_instances_are_named_from_their_symbols():
     assert kernel_sass._instance(FUSED_12) == {
-        "kernel": "whvi_fused", "L": 12, "residuals": True, "bf16": False,
+        "kernel": "whvi_fused", "L": 12, "storage": "fp32", "residuals": True, "bf16": False,
     }
-    assert kernel_sass._instance(FWHT_14) == {"kernel": "fwht", "L": 14}
+    assert kernel_sass._instance(FWHT_14) == {"kernel": "fwht", "L": 14, "storage": "fp32"}
+    assert kernel_sass._instance(FUSED_12_BF16S) == {
+        "kernel": "whvi_fused", "L": 12, "storage": "bf16", "residuals": False, "bf16": False,
+    }
+    assert kernel_sass._instance(FWHT_13_BF16S) == {"kernel": "fwht", "L": 13, "storage": "bf16"}
     assert kernel_sass._instance("_ZN4whvi16kron_stage_kernelILi7EEEvPKf") is None
 
 
@@ -173,3 +182,33 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     assert (ms, by) == (pytest.approx(t_bytes), "bytes")
     ms, by = common.bound_ms((x,), (x,), 1e9, 1e12)
     assert (ms, by) == (pytest.approx(1.0), "operations")
+
+
+@pytest.mark.parametrize("sizes", [[64], [256, 1024]])
+def test_fwht_sweep_on_the_cpu(sizes):
+    """The sweep's rows and crossover on the CPU at two sizes, each route
+    called once by a stub timer that takes no time (the kernel there is
+    the plain version, so a row's own check passes; the times are the
+    stub's)."""
+    calls = []
+
+    def stub(fn, iters):
+        fn()
+        calls.append(iters)
+        return 2.0 if len(calls) % 3 == 0 else 1.0  # the matmul the slowest
+
+    rows, crossover = fwht_sweep.sweep(sizes, 8, 3, torch.device("cpu"), time_fn=stub)
+    assert [r["D"] for r in rows] == sizes and len(calls) == 6 * len(sizes)
+    for row in rows:
+        for name in fwht_sweep.STORAGE:
+            assert row[f"matmul_err_{name}"] <= (2.0**-7 if name == "bf16" else 1e-6)
+            assert row[f"bound_us_{name}"] > 0
+    assert rows[0]["bound_us_f32"] == 2 * rows[0]["bound_us_bf16"]
+    assert crossover == {"f32": sizes[0], "bf16": sizes[0]}
+
+
+def test_fwht_sweep_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError):
+        fwht_sweep.main(["--sizes", "64"])

@@ -11,8 +11,11 @@ Tolerance of the flagship kernels: ``max|kernel - plain| / max|plain| <=
 1e-5`` (fp32; the backward's reductions sum in another order). Their fp32
 forward adds in the plain version's order with the diagonal products
 never fused into an add, so it is also held bit for bit. The tolerances
-of their bf16 mode and of the large-D kernels are stated below.
+of their bf16 mode and of the large-D kernels are stated below; on bf16
+storage every forward and the backward are held bit for bit.
 """
+
+import ctypes
 
 import pytest
 import torch
@@ -245,6 +248,138 @@ def test_mixed_devices_and_strided_rows_raise(dev):
         fc.fused_raw(d, d, d, torch.ones(16, 3, device=dev).t(), False)
     with pytest.raises(ValueError):
         fc.fwht_raw(torch.ones(16, 3, device=dev).t())
+
+
+# ---------------------------------------------- K1-K4 on bf16 storage
+#
+# Every tensor bf16, each op rounded to bf16 and each transform summed in
+# fp32 in the plain version's order: the forwards (y, i1, i2, the bare
+# transform) equal the plain versions bit for bit, and so does the
+# backward against vjp_plain (the same kernel on the swapped operands,
+# then the same PyTorch reductions).
+
+BF16S_SHAPES = [
+    *SHAPES,
+    (4096, (), (8, 1), (8, 256)),
+    (8192, (), (8, 1), (8, 256)),
+]
+
+
+def _bf16s_operands(dev, D, s_lead, u_lead, x_lead, seed=0):
+    return [a.to(torch.bfloat16) for a in _operands(dev, D, s_lead, u_lead, x_lead, seed)]
+
+
+@pytest.mark.parametrize("shape", BF16S_SHAPES, ids=lambda s: f"D{s[0]}-{s[2]}-{s[3]}")
+def test_bf16_storage_forward_is_the_plain_version_bit_for_bit(dev, shape):
+    s1, u, s2, x = _bf16s_operands(dev, *shape)
+    fc.reset_launches()
+    for want_residuals in (False, True):
+        got = fc.fused_raw(s1, u, s2, x, want_residuals)
+        ref = fc.fused_plain(s1, u, s2, x, want_residuals)
+        for a, b in zip(got, ref):
+            if b is None:
+                assert a is None
+            else:
+                assert a.dtype == torch.bfloat16 and a.shape == b.shape and a.is_contiguous()
+                assert torch.equal(a, b)
+    want = {"fused_y_bf16s": 1, "fused_res_bf16s": 1}
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | want and fc.REALIGNED == 0
+
+
+@pytest.mark.parametrize("shape", BF16S_SHAPES, ids=lambda s: f"D{s[0]}-{s[2]}-{s[3]}")
+def test_bf16_storage_backward_is_vjp_plain_bit_for_bit(dev, shape):
+    ops = _bf16s_operands(dev, *shape, seed=1)
+    leaves = [a.clone().requires_grad_() for a in ops]
+    fc.reset_launches()
+    y = whvi_mul(*leaves)
+    g = torch.randn(y.shape, device=dev).to(torch.bfloat16)
+    y.backward(g)
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res_bf16s": 1, "fused_bwd_bf16s": 1}
+    for leaf, r in zip(leaves, fc.vjp_plain(*ops, g)):
+        assert leaf.grad.dtype == torch.bfloat16
+        assert torch.equal(leaf.grad, r.sum_to_size(leaf.shape))
+
+
+@pytest.mark.parametrize("D", WIDTHS)
+def test_bf16_storage_fwht_is_the_plain_version_bit_for_bit(dev, D):
+    x = torch.randn(37 if D <= 1024 else 3, D, device=dev).to(torch.bfloat16)
+    fc.reset_launches()
+    y = fc.fwht_raw(x)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, fc.fwht_plain(x))
+    g = torch.randn_like(x)
+    xg = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(fc.fwht_cuda(xg), xg, g)
+    assert torch.equal(dx, fc.fwht_plain(g))
+    assert fc.LAUNCHES["fwht_bf16s"] == 3 and fc.LAUNCHES["fwht"] == 0
+
+
+def test_bf16_storage_misaligned_operands_are_copied_once(dev):
+    """x 2 bytes past a 16-byte boundary and u read through an odd row
+    stride: copied to aligned allocations (REALIGNED), then one launch
+    equal to the plain version."""
+    D, B = 256, 7
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(B * D + 1, device=dev, generator=gen).to(torch.bfloat16)[1:].view(B, D)
+    u = torch.randn(B, D + 3, device=dev, generator=gen).to(torch.bfloat16)[:, :D]
+    s1, s2 = (torch.randn(D, device=dev, generator=gen).to(torch.bfloat16) for _ in range(2))
+    assert not fc.vector_aligned(x, 16) and not fc.vector_aligned(u, 16)
+    fc.reset_launches()
+    got = fc.fused_raw(s1, u, s2, x, True)
+    assert fc.REALIGNED == 2 and fc.LAUNCHES["fused_res_bf16s"] == 1
+    for a, b in zip(got, fc.fused_plain(s1, u, s2, x, True)):
+        assert torch.equal(a, b)
+    assert torch.equal(fc.fwht_raw(x), fc.fwht_plain(x)) and fc.REALIGNED == 3
+    torch.cuda.synchronize()
+
+
+def test_bf16_storage_entries_refuse_misaligned_operands_and_the_bf16_precision(dev):
+    """whvi_fused_bf16s refuses any operand whose rows are off 16 bytes (a
+    base pointer, or a leading stride it reads through) and the bf16
+    precision (the Pallas kernels have no bf16-storage form); fwht_bf16s
+    refuses x or y off 16 bytes: cudaErrorInvalidValue, nothing launched,
+    nothing written, the context intact."""
+    lib = fc.load_library()
+    D, B = 256, 8
+    s1, u, s2, x = _bf16s_operands(dev, D, (), (), (B,))
+    y, i1, i2 = (torch.zeros_like(x) for _ in range(3))
+    stream = torch.cuda.current_stream().cuda_stream
+    invalid_value = 1  # cudaErrorInvalidValue
+
+    def fused(ptrs, geom, bf16=0):
+        return lib.whvi_fused_bf16s(*ptrs, 1, bf16, B, 8, ctypes.byref(geom), stream)
+
+    geom = fc._geometry(x.shape[:-1], (x, s1, u, s2))
+    ptrs = [t.data_ptr() for t in (x, s1, u, s2, y, i1, i2)]
+    assert fused(ptrs, geom, bf16=1) == invalid_value
+    for k in range(7):
+        for off in (2, 4, 8):
+            bad = list(ptrs)
+            bad[k] += off
+            assert fused(bad, geom) == invalid_value
+    odd = fc._geometry(x.shape[:-1], (x, s1, u, s2))
+    odd.stride[4 * 2 + 3] = D + 1  # u read through a row stride of D + 1 elements
+    odd.size[3] = B
+    assert fused(ptrs, odd) == invalid_value
+    for off in (2, 4, 8):
+        assert lib.fwht_bf16s(x.data_ptr() + off, y.data_ptr(), B, 8, stream) == invalid_value
+        assert lib.fwht_bf16s(x.data_ptr(), y.data_ptr() + off, B, 8, stream) == invalid_value
+    torch.cuda.synchronize()
+    assert not y.any() and not i1.any() and not i2.any()
+    assert fused(ptrs, geom) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, fc.fused_plain(s1, u, s2, x, False)[0])
+
+
+def test_bf16_storage_wrappers_refuse_the_bf16_precision(dev):
+    s1, u, s2, x = _bf16s_operands(dev, 64, (), (), (4,))
+    fc.reset_launches()
+    with pytest.raises(ValueError):
+        fc.fused_raw(s1, u, s2, x, False, "bf16")
+    with pytest.raises(ValueError):
+        whvi_mul(s1, u, s2, x, precision="bf16")
+    with pytest.raises(TypeError):
+        fc.fused_raw(s1, u, s2, x.float(), False)
+    assert all(v == 0 for v in fc.LAUNCHES.values())
 
 
 # ------------------------------------------ the large-D diagnosis kernels

@@ -458,6 +458,30 @@ def test_flop_counters_match_jax(batch):
                 jax_profiling.elbo_step_flops(dims, batch, 8, lrt)
 
 
+def test_device_profile_on_the_cpu():
+    """``utils.profiling.device_profile``, the one profiler reader of
+    ``run_scaling --profile``, ``protocol_bench`` and ``sampler_bench``: on
+    the CPU a window of Adam steps has host time in ``Optimizer.step`` and
+    no device events, so no device time and a busy share of 0;
+    ``run_scaling.profile`` gives it a step at a time."""
+    p = torch.nn.Parameter(torch.ones(4))
+    opt = torch.optim.Adam([p])
+
+    def go(k):
+        for _ in range(k):
+            p.grad = torch.ones(4)
+            opt.step()
+
+    reading = profiling.device_profile(lambda: go(3), top=2)
+    assert reading["wall_s"] > 0 and reading["optimizer_host_us"] > 0
+    assert reading["device_us"] == 0 and reading["device_events"] == 0
+    assert reading["busy_share"] == 0 and reading["top"] == []
+    row = run_scaling.profile(go, 3)
+    assert set(row) == {"kernel_ms", "top_kernels", "busy_share", "device_events",
+                        "optimizer_host_ms"}
+    assert row["optimizer_host_ms"] > 0 and row["kernel_ms"] == 0
+
+
 # ----------------------------------------------------------- entry point
 
 

@@ -13,17 +13,18 @@ Every variant is built into its own library, one ``nvcc`` a source, all
 started together, then loaded in turn. The diagnostic variants
 (``DIAGNOSTIC``) compute wrong results on purpose: their time is what the
 kernels take without the step they cut out. Every other variant is first
-held against the plain versions (fp32 bit for bit, bf16 within
-``fwht_cuda.bf16_tol``).
+held against the plain versions (fp32 and bf16 storage bit for bit, the
+bf16 precision within ``fwht_cuda.bf16_tol``).
 
 JSON rows: first the card and its power limit; then per variant the
 ptxas report of the fused kernel at D = 4096, 8192, 16384 (registers and
-spill bytes, fp32 and bf16, with residuals and without); then per variant
-and kernel the device ms a call (``time_us``: 20 calls in a CUDA graph,
-median of 5 replays) of K1-K3 in both precisions at the scaling path's
-shape (u (8,1,D), x (256,D) expanded to 2048 rows) at D = 4096 and 8192,
-of K1 at D=16384, B=512 and of K4 at (2048, 4096), with the bound (bytes
-read once and written once over 3.35 TB/s) and its share. ``base`` runs first and last,
+spill bytes, fp32 and bf16, with residuals and without, in both
+storages); then per variant and kernel the device ms a call
+(``time_us``: 20 calls in a CUDA graph, median of 5 replays) of K1-K3 in
+both precisions and on bf16 storage at the scaling path's shape (u
+(8,1,D), x (256,D) expanded to 2048 rows) at D = 4096 and 8192, of K1 at
+D=16384, B=512 and of K4 at (2048, 4096) in both storages, with the
+bound (bytes read once and written once over 3.35 TB/s) and its share. ``base`` runs first and last,
 so that drift of the card's clock shows.
 
 Run from the repository root: python -m tools.kernel_variants [base large_r16 ...]
@@ -136,6 +137,11 @@ def check(name: str, dev) -> None:
                     raise AssertionError(f"variant {name}: D={D} {prec} output {t} is wrong")
         if not torch.equal(fc.fwht_raw(x), fc.fwht_plain(x)):
             raise AssertionError(f"variant {name}: fwht D={D} is wrong")
+        h = [t.to(torch.bfloat16) for t in (s1, u, s2, x)]  # bf16 storage: bit for bit
+        if not all(torch.equal(a, b) for a, b in zip(fc.fused_raw(*h, True), fc.fused_plain(*h, True))):
+            raise AssertionError(f"variant {name}: D={D} bf16 storage is wrong")
+        if not torch.equal(fc.fwht_raw(h[3]), fc.fwht_plain(h[3])):
+            raise AssertionError(f"variant {name}: fwht D={D} bf16 storage is wrong")
 
 
 def cases(dev):
@@ -167,6 +173,23 @@ def cases(dev):
                     lambda p=prec: fc.fused_raw(d1, du, d2, xl, False, p), (xl, du, d1, d2), (xl,)))
     xb = torch.randn(2048, D, device=dev, generator=gen)
     out.append(("fwht", "D=4096 2048 rows", lambda: fc.fwht_raw(xb), (xb,), (xb,)))
+    for D in SCALING_WIDTHS:  # bf16 storage
+        bf = torch.bfloat16
+        s1, s2 = (torch.randn(D, device=dev, generator=gen).to(bf) for _ in range(2))
+        u = torch.randn(8, 1, D, device=dev, generator=gen).to(bf)
+        x = torch.randn(256, D, device=dev, generator=gen).to(bf).expand(8, 256, D)
+        g = torch.randn(8, 256, D, device=dev, generator=gen).to(bf)
+        label = f"D={D} 2048 rows"
+        out += [
+            ("fused_y_bf16s", label, lambda a=(s1, u, s2, x): fc.fused_raw(*a, False),
+             (x, u, s1, s2), (g,)),
+            ("fused_res_bf16s", label, lambda a=(s1, u, s2, x): fc.fused_raw(*a, True),
+             (x, u, s1, s2), (g, g, g)),
+            ("fused_bwd_bf16s", label, lambda a=(s1, u, s2, g): fc.fused_bwd_raw(*a),
+             (g, u, s1, s2), (g, g, g)),
+        ]
+    xh = xb.to(torch.bfloat16)
+    out.append(("fwht_bf16s", "D=4096 2048 rows", lambda: fc.fwht_raw(xh), (xh,), (xh,)))
     return out
 
 

@@ -8,6 +8,9 @@
 - :mod:`~whvi_tpu_torch.bench.kernel_check`: the fused fp32 kernel (K1)
   against the plain paths, its bytes/s and flop rate
   (``benchmarks/tpu_kernel_check.py``);
+- :mod:`~whvi_tpu_torch.bench.fwht_sweep`: the bare FWHT (K4) against
+  the dense ``x @ H_D`` across D, fp32 and bf16 storage, and their
+  crossover (``benchmarks/fwht_sweep.py``);
 - :mod:`~whvi_tpu_torch.bench.toy_bench`: the toy protocol's training
   epochs/s, eager (``bench.py``);
 - :mod:`~whvi_tpu_torch.bench.protocol_bench`: the UCI protocol's wall

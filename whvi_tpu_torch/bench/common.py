@@ -20,12 +20,13 @@ __all__ = [
 WARM_S = 0.2  # seconds of graph replays before timing
 
 
-def operands(D: int, B: int, seed: int = 0):
+def operands(D: int, B: int, seed: int = 0, dtype=torch.float32):
     """``(s1, u, s2, x)`` on the card: standard normal ``(D,)`` diagonals
-    and a ``(B, D)`` input, float32, made with numpy from ``seed``."""
+    and a ``(B, D)`` input of ``dtype`` (float32, or bfloat16 storage),
+    made with numpy from ``seed``."""
     rng = np.random.RandomState(seed)
     arrays = [rng.randn(D) for _ in range(3)] + [rng.randn(B, D)]
-    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays]
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in arrays]
 
 
 def rel_err(got, want) -> float:
@@ -63,10 +64,11 @@ def time_us(fn, iters: int) -> float:
     return cuda_ms(graph.replay, reps=1, rounds=5) * 1e3 / iters
 
 
-def rates(B: int, D: int, us: float) -> dict:
+def rates(B: int, D: int, us: float, element_size: int = 4) -> dict:
     """The streaming rate of a call that reads x and writes y once
-    (``2 * B * D * 4`` bytes), and its share of the H100's 3.35 TB/s."""
-    gbps = 2 * B * D * 4 / (us * 1e-6) / 1e9
+    (``2 * B * D * element_size`` bytes: 4 in fp32 storage, 2 in bf16),
+    and its share of the H100's 3.35 TB/s."""
+    gbps = 2 * B * D * element_size / (us * 1e-6) / 1e9
     return {"GBps": gbps, "hbm_frac": gbps / H100_HBM_GBPS}
 
 

@@ -4,8 +4,9 @@ of the SASS instructions that show the design.
 
 Builds the kernels' library (``fwht_cuda.build_kernels``, ``-Xptxas -v``)
 and disassembles it with ``cuobjdump -sass``. One JSON row per instance of
-``whvi_fused_kernel`` (K1-K3: ``L`` = log2 D, ``residuals``, ``bf16``),
-``fwht_kernel`` (K4), ``kron_swap_kernel`` (``k_swap``) and
+``whvi_fused_kernel`` (K1-K3: ``L`` = log2 D, ``storage`` fp32 or bf16,
+``residuals``, ``bf16`` the operand precision), ``fwht_kernel`` (K4, with
+its ``storage``), ``kron_swap_kernel`` (``k_swap``) and
 ``kron_cur_kernel`` (``k_cur``, which ``k_onecast`` launches too; the
 last two from ``L`` = 7) at the widths asked for, and one each for
 ``kron_kernel<kCopy>`` (``k_copy``), ``kron_kernel<kScale>``
@@ -47,7 +48,9 @@ from whvi_tpu_torch.ops import fwht_cuda as fc
 OPS = ("HGMMA", "BAR.SYNC", "SHFL.BFLY", "LDG.E.128", "LDG.E.EF.128", "STG.E.128", "STG.E.EF.128", "LDS", "STS",
        "LDL", "STL", "LDGSTS", "UBLKCP.S.G", "UBLKCP.G.S", "SYNCS.ARRIVE.TRANS64",
        "SYNCS.PHASECHK.TRANS64.TRYWAIT")
-_KERNEL = re.compile(r"_ZN4whvi(?:17whvi_fused_kernel|11fwht_kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?")
+_KERNEL = re.compile(
+    r"_ZN4whvi(?:17whvi_fused_kernel|11fwht_kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?(f|13__nv_bfloat16)E"
+)
 # kron_kernel<stage> of the copy (0) and the scale (1); kron_full_kernel<n>
 # after n contractions (1 k_mm1, 2 k_mm2, 4 the whole product: k_full,
 # k_flat, emit_full) and kron_whole_kernel<n>; emit_copy_kernel
@@ -60,7 +63,7 @@ _RING = "_ZN9kron_copy14copy_2d_kernelE"  # hbm_copy and copy_2d
 
 
 def _instance(symbol: str) -> dict | None:
-    """``{"kernel", "L", "residuals", "bf16"}`` of a K1-K4 symbol,
+    """``{"kernel", "L", "storage", "residuals", "bf16"}`` of a K1-K4 symbol,
     ``{"kernel", "L"}`` of ``k_swap`` or ``k_cur``, ``{"kernel"}`` (the
     wrapper's name) of a large-D copy or scale, else None."""
     if m := _ROW.search(symbol):
@@ -78,9 +81,10 @@ def _instance(symbol: str) -> dict | None:
     m = _KERNEL.search(symbol)
     if m is None:
         return None
+    storage = "fp32" if m.group(4) == "f" else "bf16"
     if m.group(2) is None:
-        return {"kernel": "fwht", "L": int(m.group(1))}
-    return {"kernel": "whvi_fused", "L": int(m.group(1)),
+        return {"kernel": "fwht", "L": int(m.group(1)), "storage": storage}
+    return {"kernel": "whvi_fused", "L": int(m.group(1)), "storage": storage,
             "residuals": m.group(2) == "1", "bf16": m.group(3) == "1"}
 
 

@@ -15,8 +15,8 @@ sequential fits take hours), sequential (one fit a split). The kernels
 are built (or loaded) before either, so no fit's time holds the build.
 Then ``--profile-steps`` warm
 train steps of the stacked net and of one split run under
-``torch.profiler``: the device's kernel time over the window's host-clock
-time is its busy share.
+``torch.profiler``: the device's own events' time over the window's
+host-clock time is its busy share (``utils.profiling.device_profile``).
 
 Output: the first line names the card and its power limit; then one JSON
 row a protocol run (wall seconds, warm ms a train step from the fit's
@@ -38,6 +38,7 @@ import torch
 from whvi_tpu_torch.bench.common import device_name, emit, header
 from whvi_tpu_torch.evaluation import ProtocolConfig, evaluate_bayesian_regression
 from whvi_tpu_torch.ops import fwht_cuda
+from whvi_tpu_torch.utils.profiling import device_profile
 
 __all__ = ["boston_like", "main", "profile_steps", "run"]
 
@@ -62,34 +63,29 @@ def _warm_ms_a_step(chunks: list, steps_per_epoch: int) -> float | None:
 
 
 def profile_steps(trainer, state, X, Y, steps: int) -> dict:
-    """ms a train step (host clock, synchronized), kernel ms a step and
-    busy share from ``torch.profiler`` over ``steps`` warm steps on the
-    batch ``X``, ``Y``, and the port's kernel launches a step."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """ms a train step (host clock, synchronized), kernel ms a step, busy
+    share and host ms in ``Optimizer.step`` from
+    :func:`~whvi_tpu_torch.utils.profiling.device_profile` over ``steps``
+    warm steps on the batch ``X``, ``Y``, and the port's kernel launches a
+    step."""
     w = torch.ones(X.shape[-2], device=X.device)
     for _ in range(5):
         trainer.train_step(state, X, Y, 455, True, weights=w)
     torch.cuda.synchronize()
     fwht_cuda.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def window():
         for _ in range(steps):
             trainer.train_step(state, X, Y, 455, True, weights=w)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = {k: v / steps for k, v in fwht_cuda.LAUNCHES.items() if v}
-    device_us = sum(
-        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        for e in prof.key_averages()
-    )
-    device_events = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+
+    p = device_profile(window)
     return {
-        "ms_a_step_profiled": wall / steps * 1e3,
-        "kernel_ms_a_step": device_us / steps / 1e3,
-        "busy_share": device_us / 1e6 / wall,
-        "device_events_a_step": device_events / steps,
-        "port_launches_a_step": launches,
+        "ms_a_step_profiled": p["wall_s"] / steps * 1e3,
+        "kernel_ms_a_step": p["device_us"] / steps / 1e3,
+        "busy_share": p["busy_share"],
+        "device_events_a_step": p["device_events"] / steps,
+        "optimizer_host_ms_a_step": p["optimizer_host_us"] / steps / 1e3,
+        "port_launches_a_step": {k: v / steps for k, v in fwht_cuda.LAUNCHES.items() if v},
     }
 
 

@@ -14,8 +14,10 @@ Two g posteriors, 4 walkers each: BASELINE config 4's (784 -> 1024 ->
   (``nuts.nuts_draw``: 63 leapfrog steps, one gradient evaluation each),
   over ``--draws`` draws after a warm one; ``tree_ms``, the draw less 63
   gradient evaluations: the tree's bookkeeping;
-- under ``torch.profiler`` over the same draws: ``kernel_ms_a_draw``,
-  ``busy_share`` (kernel time over the profiled window's wall clock),
+- under ``torch.profiler`` over the same draws
+  (``utils.profiling.device_profile``): ``kernel_ms_a_draw``,
+  ``busy_share`` (the device's own events' time over the profiled
+  window's wall clock),
   ``device_events_a_draw`` and the port's kernel launches a draw.
 
 The first line names the card and its power limit; it raises without a
@@ -31,6 +33,7 @@ import torch
 
 from whvi_tpu_torch.bench.common import emit, header
 from whvi_tpu_torch.ops import fwht_cuda
+from whvi_tpu_torch.utils.profiling import device_profile
 
 __all__ = ["config4_net", "main", "run"]
 
@@ -65,29 +68,24 @@ def _host_ms(fn, reps: int) -> float:
 
 def profile_draws(vg, state, draws, eps, m_inv, n: int) -> dict:
     """Kernel ms a draw, busy share, device events and the port's launches
-    a draw over ``n`` NUTS draws under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    a draw over ``n`` NUTS draws, from
+    :func:`~whvi_tpu_torch.utils.profiling.device_profile`."""
     from whvi_tpu_torch.mcmc.nuts import nuts_draw
 
     torch.cuda.synchronize()
     fwht_cuda.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def window():
+        s = state
         for t in range(n):
-            state = nuts_draw(vg, state, draws(t), eps, m_inv, DEPTH, False)[0]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device_us = sum(
-        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        for e in prof.key_averages()
-    )
-    events = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+            s = nuts_draw(vg, s, draws(t), eps, m_inv, DEPTH, False)[0]
+
+    p = device_profile(window)
     return {
-        "profiled_draw_ms": wall / n * 1e3,
-        "kernel_ms_a_draw": device_us / n / 1e3,
-        "busy_share": device_us / 1e6 / wall,
-        "device_events_a_draw": events / n,
+        "profiled_draw_ms": p["wall_s"] / n * 1e3,
+        "kernel_ms_a_draw": p["device_us"] / n / 1e3,
+        "busy_share": p["busy_share"],
+        "device_events_a_draw": p["device_events"] / n,
         "port_launches_a_draw": {k: v / n for k, v in fwht_cuda.LAUNCHES.items() if v},
     }
 

@@ -24,6 +24,17 @@ flatten order, which is rebuilt here without JAX (dict keys sorted,
 tuples in order): the parameters, then optax's ``scale_by_adam`` count,
 first and second moments and the schedule's count, then the PRNG key and
 the step.
+
+bf16 leaves (the JAX package's ``dtype=bfloat16``). ``np.asarray`` of a
+JAX bf16 array has ``ml_dtypes``' bfloat16 dtype (kind ``V``, 2 bytes),
+and a JAX checkpoint stores it as raw 2-byte ``|V2``; ``torch.from_numpy``
+takes neither, so such a leaf comes in through its bits, viewed as int16
+and then as ``torch.bfloat16`` (exact). Going out, numpy has no bf16 of
+its own: :func:`export_params` gives a bf16 parameter as a float32 array
+of the same values (exact), which ``jnp.asarray(a, jnp.bfloat16)`` takes
+back without a rounding. :func:`load_jax_adam` and :func:`export_adam`
+carry optax's ``decayed_adam`` state (moments in the parameters' dtype)
+the same ways.
 """
 
 from __future__ import annotations
@@ -35,9 +46,17 @@ import numpy as np
 import torch
 
 from whvi_tpu_torch.models.layers import Dense, Parallel, WHVILinear
-from whvi_tpu_torch.train.checkpoint import flatten, unflatten
+from whvi_tpu_torch.train.checkpoint import flatten, to_tensor, unflatten
 
-__all__ = ["export_params", "load_jax_checkpoint", "load_jax_params", "param_tree"]
+__all__ = [
+    "export_adam",
+    "export_params",
+    "host_array",
+    "load_jax_adam",
+    "load_jax_checkpoint",
+    "load_jax_params",
+    "param_tree",
+]
 
 _MATRIX_KEYS = ("s1", "s2", "g_mu", "g_rho")
 
@@ -63,6 +82,14 @@ def param_tree(net) -> dict:
     }
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``; bf16 (which numpy lacks) as float32, exact."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
 def _copy_tree(dst, src, path: str) -> None:
     if isinstance(dst, dict):
         if not isinstance(src, dict) or set(src) != set(dst):
@@ -76,10 +103,10 @@ def _copy_tree(dst, src, path: str) -> None:
         for i, (d, s) in enumerate(zip(dst, src)):
             _copy_tree(d, s, f"{path}[{i}]")
     else:
-        src = np.asarray(src)
+        src = to_tensor(src)
         if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{path}: JAX shape {src.shape}, port shape {tuple(dst.shape)}")
-        dst.copy_(torch.tensor(src, dtype=dst.dtype))
+            raise ValueError(f"{path}: JAX shape {tuple(src.shape)}, port shape {tuple(dst.shape)}")
+        dst.copy_(src.to(dst.dtype))
 
 
 @torch.no_grad()
@@ -89,18 +116,74 @@ def load_jax_params(net, params) -> None:
     _copy_tree(param_tree(net), params, "params")
 
 
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_host_tree(v) for v in tree)
+    return host_array(tree)
+
+
 def export_params(net) -> dict:
     """The inverse of :func:`load_jax_params`: the JAX pytree of numpy
-    arrays for ``net``'s current parameters."""
+    arrays for ``net``'s current parameters (bf16 ones as float32)."""
+    return _host_tree(param_tree(net))
 
-    def host(tree):
+
+def _moment_tree(net, optimizer, key: str):
+    """Adam's ``key`` moment of each parameter in the JAX pytree's layout
+    (zeros before the first step)."""
+    state = optimizer.state
+
+    def moment(p):
+        return state[p][key] if key in state.get(p, {}) else torch.zeros_like(p)
+
+    def walk(tree):
         if isinstance(tree, dict):
-            return {k: host(v) for k, v in tree.items()}
+            return {k: walk(v) for k, v in tree.items()}
         if isinstance(tree, tuple):
-            return tuple(host(v) for v in tree)
-        return tree.detach().cpu().numpy().copy()
+            return tuple(walk(v) for v in tree)
+        return moment(tree)
 
-    return host(param_tree(net))
+    return walk(param_tree(net))
+
+
+def export_adam(net, optimizer, scheduler) -> tuple:
+    """optax's ``decayed_adam`` state for ``net`` under the port's
+    ``(optimizer, scheduler)`` (:func:`whvi_tpu_torch.train.decayed_adam`)
+    as numpy: ``((count, mu, nu), (count,))``, the leaves of
+    ``(ScaleByAdamState, ScaleByScheduleState)``, ``mu`` and ``nu`` in the
+    parameter pytree's layout (bf16 moments as float32)."""
+    params = list(net.parameters())
+    steps = {int(optimizer.state[p]["step"]) for p in params if p in optimizer.state}
+    count = np.int32(steps.pop() if steps else 0)
+    return (
+        (count, _host_tree(_moment_tree(net, optimizer, "exp_avg")),
+         _host_tree(_moment_tree(net, optimizer, "exp_avg_sq"))),
+        (np.int32(scheduler.last_epoch),),
+    )
+
+
+@torch.no_grad()
+def load_jax_adam(net, optimizer, scheduler, opt_state) -> None:
+    """Set the port's Adam and schedule from optax's ``decayed_adam`` state
+    ``opt_state`` (``((count, mu, nu), (count,))``, or the NamedTuples
+    themselves): the moments in each parameter's dtype, the step count of
+    every parameter, and the LambdaLR at the schedule's count with the
+    learning rate it sets there."""
+    (count, mu, nu), (sched_count,) = opt_state
+    for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+        dst = _moment_tree(net, optimizer, key)
+        _copy_tree(dst, tree, f"opt_state.{key}")
+        for p, m in zip(flatten(param_tree(net)), flatten(dst)):
+            optimizer.state[p][key] = m
+    for p in net.parameters():
+        optimizer.state[p]["step"] = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    epoch = int(np.asarray(sched_count))
+    for group, base, lam in zip(optimizer.param_groups, scheduler.base_lrs, scheduler.lr_lambdas):
+        group["lr"] = base * lam(epoch)  # what LambdaLR.step sets there
+    scheduler.last_epoch = epoch
+    scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]
 
 
 def load_jax_checkpoint(net, path: str) -> dict:

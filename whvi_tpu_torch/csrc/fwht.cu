@@ -1,4 +1,5 @@
-// Bare batched FWHT y = x @ H_D along the last axis, fp32.
+// Bare batched FWHT y = x @ H_D along the last axis, in fp32 storage
+// (fwht_f32) and in bf16 storage (fwht_bf16s).
 //
 // Replaces _kernel_1f_t and _kernel_2f_t of whvi_tpu/ops/fwht_pallas.py
 // (launched by _fwht_raw / fwht_pallas, whose VJP is the transform
@@ -13,6 +14,13 @@
 // fwht_pallas's own default, precision="fp32" (H stored fp32,
 // Precision.HIGHEST).
 //
+// bf16 storage: rows load as bf16, 4 to an 8-byte access (fwht_core.cuh),
+// the transform sums in fp32 registers and the store rounds once to bf16
+// (nearest even): R(H x), what the JAX package's fwht computes on bf16
+// leaves (fp32 accumulation, one cast) and what the column head of a
+// bf16 net runs (whvi_tpu/models/weights.py:341-346). Bit for bit the
+// plain version's, which transforms in fp32 and rounds once.
+//
 // What bounds it on an H100: memory. One read and one write of 4 bytes
 // per element, in 16-byte accesses, against log2 D adds. Small D packs
 // many rows into a block so that a block is not a handful of active
@@ -23,15 +31,15 @@
 
 namespace whvi {
 
-template <int L>
+template <int L, typename T>
 __global__ void __launch_bounds__(RowShape<L>::kBlock, RowShape<L>::kMinBlocks)
-    fwht_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n_rows) {
+    fwht_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n_rows) {
   using S = RowShape<L>;
   extern __shared__ __align__(16) char smem[];
   const int tid = threadIdx.x;
   const int64_t row = (int64_t)blockIdx.x * S::kRows + tid / S::kTpr;
   const bool active = row < n_rows;
-  const int64_t at = (row << L) + (tid % S::kTpr) * 4;  // the thread's first float4
+  const int64_t at = (row << L) + (tid % S::kTpr) * 4;  // the thread's first group of 4
   RowExchange<L> ex{smem, tid};
 
   float v[S::R];
@@ -47,9 +55,10 @@ __global__ void __launch_bounds__(RowShape<L>::kBlock, RowShape<L>::kMinBlocks)
 }
 
 // The launch at L = log2 D.
+template <typename T>
 struct FwhtLaunch {
-  const float* x;
-  float* y;
+  const T* x;
+  T* y;
   int64_t n_rows;
   cudaStream_t stream;
 
@@ -59,11 +68,11 @@ struct FwhtLaunch {
     const size_t smem = exchange_bytes(L);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          fwht_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          fwht_kernel<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
     }
     const int64_t blocks = (n_rows + S::kRows - 1) / S::kRows;
-    fwht_kernel<L><<<(unsigned)blocks, S::kBlock, smem, stream>>>(x, y, n_rows);
+    fwht_kernel<L, T><<<(unsigned)blocks, S::kBlock, smem, stream>>>(x, y, n_rows);
     return cudaGetLastError();
   }
 };
@@ -79,7 +88,25 @@ extern "C" int fwht_f32(const void* x, void* y, int64_t n_rows, int log2d,
       n_rows > (int64_t)0x7fffffff * rows_per_block(log2d))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
-  const FwhtLaunch launch{static_cast<const float*>(x), static_cast<float*>(y), n_rows,
-                          static_cast<cudaStream_t>(stream)};
+  const FwhtLaunch<float> launch{static_cast<const float*>(x), static_cast<float*>(y), n_rows,
+                                 static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_log2d(log2d, launch);
+}
+
+// bf16 storage: x and y contiguous (n_rows, D) bf16. Refuses x or y off
+// min(2 D, 16) bytes (cudaErrorInvalidValue, nothing launched).
+extern "C" int fwht_bf16s(const void* x, void* y, int64_t n_rows, int log2d,
+                          void* stream) {
+  using namespace whvi;
+  using T = __nv_bfloat16;
+  if (log2d < 1 || log2d > kMaxLog2D || n_rows < 0 ||
+      n_rows > (int64_t)0x7fffffff * rows_per_block(log2d))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t width = (2 << log2d) < 16 ? (2 << log2d) : 16;
+  if (reinterpret_cast<uintptr_t>(x) % width || reinterpret_cast<uintptr_t>(y) % width)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return (int)cudaSuccess;
+  const FwhtLaunch<T> launch{static_cast<const T*>(x), static_cast<T*>(y), n_rows,
+                             static_cast<cudaStream_t>(stream)};
   return (int)dispatch_log2d(log2d, launch);
 }

@@ -120,6 +120,72 @@ __device__ __forceinline__ void store_regs(float* __restrict__ p, const float (&
   }
 }
 
+// bf16 storage: four bf16 (8 bytes) to or from four registers, the
+// conversion to bf16 rounding to nearest even
+__device__ __forceinline__ void unpack4(uint2 q, float* v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ uint2 pack4(const float* v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
+}
+
+// The same I/O window over a row of bf16. A thread holding its whole row
+// (kTpr = 1) reads its groups directly, 16 bytes at a time (8 and 4 bytes
+// at D = 4 and 2); otherwise (D >= 32) each register group of 4 moves in
+// its own 8-byte access, a warp's consecutive. (16-byte accesses through
+// lane pairs swapping halves by a shuffle were slower on the H100 at every
+// shape of the scaling path: PERF.md §6.) Row starts are aligned to
+// min(2 D, 16) bytes (the wrapper and the C entries check).
+template <int R, int kTpr>
+__device__ __forceinline__ void load_regs(float (&v)[R], const __nv_bfloat16* __restrict__ p) {
+  if constexpr (kTpr == 1) {
+    if constexpr (R >= 8) {
+#pragma unroll
+      for (int g = 0; g < R / 8; ++g) {
+        const uint4 q = *reinterpret_cast<const uint4*>(p + 8 * g);
+        unpack4(make_uint2(q.x, q.y), v + 8 * g);
+        unpack4(make_uint2(q.z, q.w), v + 8 * g + 4);
+      }
+    } else if constexpr (R == 4) {
+      unpack4(*reinterpret_cast<const uint2*>(p), v);
+    } else {
+      static_assert(R == 2, "R is a power of two >= 2");
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+      v[0] = a.x; v[1] = a.y;
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < R / 4; ++g)
+      unpack4(*reinterpret_cast<const uint2*>(p + 4 * g * kTpr), v + 4 * g);
+  }
+}
+
+template <int R, int kTpr>
+__device__ __forceinline__ void store_regs(__nv_bfloat16* __restrict__ p, const float (&v)[R]) {
+  if constexpr (kTpr == 1) {
+    if constexpr (R >= 8) {
+#pragma unroll
+      for (int g = 0; g < R / 8; ++g) {
+        const uint2 a = pack4(v + 8 * g), b = pack4(v + 8 * g + 4);
+        *reinterpret_cast<uint4*>(p + 8 * g) = make_uint4(a.x, a.y, b.x, b.y);
+      }
+    } else if constexpr (R == 4) {
+      *reinterpret_cast<uint2*>(p) = pack4(v);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < R / 4; ++g)
+      *reinterpret_cast<uint2*>(p + 4 * g * kTpr) = pack4(v + 4 * g);
+  }
+}
+
 constexpr int kSplit = -1;  // the I/O window
 
 // The compile-time shape of a row of 2^L floats and its windows. A window

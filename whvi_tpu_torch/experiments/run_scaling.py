@@ -5,13 +5,24 @@ Counterpart of ``experiments/run_scaling.py`` on one card::
 
     python -m whvi_tpu_torch.experiments.run_scaling [--sizes 1024 4096 8192]
         [--batch 256] [--samples 8] [--steps 50] [--repeats 1] [--predict]
-        [--precision fp32|bf16] [--seed 0]
+        [--precision fp32|bf16] [--dtype f32|bf16] [--profile N] [--seed 0]
 
 Model (``run_scaling.py:114-123``): ``WHVILinear(D, D, lambda_=3.0,
 s_init="auto")``, relu, the same again, relu, ``WHVILinear(D, 1,
 s_init="auto")``, with ``train_samples = --samples``; random weights from
 ``--seed``. Data: ``X (batch, D)`` and ``y (batch, 1)`` standard normal
 from ``np.random.RandomState(--seed)``.
+
+``--dtype`` (``run_scaling.py:69-78``) is the storage of the parameters,
+the data, the activations and Adam's state. ``bf16`` is the JAX
+``--dtype bf16`` with ``--backend xla``: every whvi_mul and the column
+head's FWHT read and write bf16 (K1-K4's bf16-storage entries), each op
+rounding to bf16 and each transform summing in fp32; Adam is optax's, op
+for op in bf16 (``train.OptaxAdam``). The data are rounded from numpy's
+float64 to bf16 as ``jnp.asarray(rng.randn(..), jnp.bfloat16)`` rounds
+them (through float32). ``--dtype bf16 --precision bf16`` raises: the
+JAX Pallas kernels cannot store bf16, so ``--backend pallas --dtype
+bf16`` crashes there.
 
 - Training: ``Trainer.train_step`` with ``n = batch``, the likelihood
   trained, the default ``TrainConfig`` and its decayed Adam.
@@ -37,18 +48,28 @@ raises rather than print a meaningless rate.
 
 Output: the first line names the card and its power limit (``bench``'s
 header); then one JSON row per repeat, with the JAX keys that apply
-(``D, batch, mc_samples, precision``, then ``step_ms, elbo_steps_per_s,
+(``D, batch, mc_samples, precision, dtype``, then ``step_ms, elbo_steps_per_s,
 posterior_samples_per_s`` or ``mode, call_ms, pred_samples_per_s``),
-``tflops`` and ``mfu``, plus ``device`` and the last run's ``loss`` (or
-``pred_mean``, its mean prediction). ``tflops`` is the JAX count (``elbo_step_flops`` of the two
+``tflops`` and ``mfu``, plus ``device``, the last run's ``loss`` (or
+``pred_mean``, its mean prediction) and ``max_memory_gb``, the card's
+peak allocation over the run above what was allocated when it began
+(``torch.cuda.max_memory_allocated``; null on the CPU). ``tflops`` is the JAX count (``elbo_step_flops`` of the two
 square layers; ``S * 2 * whvi_mul_flops`` when predicting): the matmul
 flops of the Kronecker formulation ``H_D = H_a (x) H_128``, which the
 butterfly kernels do not perform. It is a flop-equivalent rate, so no
 share of a peak is claimed: ``mfu`` is null.
 
+``--profile N`` (not in the JAX script) adds to each row what
+``torch.profiler`` reads over N more steps (calls) on the card:
+``kernel_ms``, the device time a step; ``busy_share``, that over the
+profiled window's host-clock time; ``device_events``, the device events
+a step; ``top_kernels``, the ``TOP_KERNELS`` kernels with the most
+device time, ms a step each; and ``optimizer_host_ms``, the host time a step
+inside ``Optimizer.step`` (train only).
+
 Not ported: ``--mesh`` and ``--force-cpu-devices`` (one card; the sharded
-step waits for the ``parallel/`` port), ``--dtype bf16`` (the kernels take
-fp32 storage), ``--backend`` (replaced by ``--precision``) and ``--cpu``
+step waits for the ``parallel/`` port), ``--backend`` (replaced by
+``--precision``) and ``--cpu``
 (:func:`run` takes its device; :func:`main` refuses to run without a
 card).
 """
@@ -64,37 +85,63 @@ import torch
 
 from whvi_tpu_torch.bench.common import device_name, emit, header
 from whvi_tpu_torch.models import WHVILinear, WHVIRegression, relu
-from whvi_tpu_torch.ops import get_whvi_mul_precision, set_whvi_mul_precision
+from whvi_tpu_torch.ops import check_storage, get_whvi_mul_precision, set_whvi_mul_precision
 from whvi_tpu_torch.train import TrainConfig, Trainer
-from whvi_tpu_torch.utils.profiling import elbo_step_flops, whvi_mul_flops
+from whvi_tpu_torch.utils.profiling import device_profile, elbo_step_flops, whvi_mul_flops
 
-__all__ = ["TRIALS", "WARM_S", "build_net", "data", "finite", "main", "run"]
+__all__ = [
+    "DTYPES", "TRIALS", "WARM_S", "build_net", "data", "finite", "main", "profile", "run",
+]
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}  # --dtype
 
 
-def build_net(D: int, samples: int, device=None):
-    """The scaling model, ``D -> D -> D -> 1``, on ``device``."""
+def build_net(D: int, samples: int, device=None, dtype=torch.float32):
+    """The scaling model, ``D -> D -> D -> 1``, its parameters of ``dtype``
+    on ``device``."""
+    kw = dict(s_init="auto", device=device, dtype=dtype)
     return WHVIRegression(
         [
-            WHVILinear(D, D, lambda_=3.0, s_init="auto", device=device),
+            WHVILinear(D, D, lambda_=3.0, **kw),
             relu,
-            WHVILinear(D, D, lambda_=3.0, s_init="auto", device=device),
+            WHVILinear(D, D, lambda_=3.0, **kw),
             relu,
-            WHVILinear(D, 1, s_init="auto", device=device),
+            WHVILinear(D, 1, **kw),
         ],
         train_samples=samples,
+        device=device,
+        dtype=dtype,
     )
 
 
-def data(D: int, batch: int, seed: int, device):
-    """``X (batch, D)``, ``y (batch, 1)`` standard normal, float32."""
+def data(D: int, batch: int, seed: int, device, dtype=torch.float32):
+    """``X (batch, D)``, ``y (batch, 1)`` standard normal, of ``dtype``:
+    numpy's float64 draws rounded as ``jnp.asarray(.., dtype)`` rounds
+    them (to float32, then to bf16)."""
     rng = np.random.RandomState(seed)
     X = rng.randn(batch, D).astype(np.float32)
     y = rng.randn(batch, 1).astype(np.float32)
-    return torch.from_numpy(X).to(device), torch.from_numpy(y).to(device)
+    return tuple(torch.from_numpy(a).to(device=device, dtype=dtype) for a in (X, y))
 
 
 TRIALS = 3
 WARM_S = 0.5  # seconds of warm-up steps on a card before timing
+TOP_KERNELS = 6  # --profile: the kernels named, by device time
+
+
+def profile(go, k: int) -> dict:
+    """:func:`~whvi_tpu_torch.utils.profiling.device_profile` over
+    ``go(k)``, a step (call) at a time: device ms and events, the busy
+    share, the kernels with the most device time and host ms inside
+    ``Optimizer.step``."""
+    p = device_profile(lambda: go(k), TOP_KERNELS)
+    return {
+        "kernel_ms": p["device_us"] / k / 1e3,
+        "top_kernels": [[name[:80], us / k / 1e3] for name, us in p["top"]],
+        "busy_share": p["busy_share"],
+        "device_events": p["device_events"] / k,
+        "optimizer_host_ms": p["optimizer_host_us"] / k / 1e3,
+    }
 
 
 def _least_times(fn, k: int) -> tuple[float, float, float]:
@@ -120,25 +167,35 @@ def run(
     repeats: int = 1,
     predict: bool = False,
     precision: str = "fp32",
+    dtype: str = "f32",
     seed: int = 0,
+    profile_steps: int = 0,
 ) -> list[dict]:
     """Train (or predict with) the scaling model at width ``D`` on
-    ``device``; print and return one row per repeat."""
+    ``device`` in storage ``dtype`` (``"f32"`` or ``"bf16"``); print and
+    return one row per repeat, each with :func:`profile`'s reading of
+    ``profile_steps`` more steps on a card."""
     device = torch.device(device)
+    storage = DTYPES[dtype]
+    check_storage(precision, storage)
     previous = get_whvi_mul_precision()
     set_whvi_mul_precision(precision)
     try:
-        trainer = Trainer(build_net(D, samples), TrainConfig(), device=device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+            held = torch.cuda.memory_allocated(device)  # not this run's
+        net = build_net(D, samples, dtype=storage)
+        trainer = Trainer(net, TrainConfig(), device=device)
         state = trainer.init(seed)
         net = trainer.net
-        X, y = data(D, batch, seed, device)
+        X, y = data(D, batch, seed, device, storage)
 
         if predict:
             generator = torch.Generator(device=device).manual_seed(seed + 1)
 
             @torch.no_grad()
             def go(k):
-                acc = torch.zeros((), device=device)
+                acc = torch.zeros((), device=device)  # float32: the sum of bf16 sums
                 for _ in range(k):
                     acc += net.predict(X, samples, generator).sum()
                 return float(acc) / (k * samples * batch)
@@ -166,7 +223,10 @@ def run(
                     f"({t2:.4f} s, {t1:.4f} s): host timing noise; raise --steps"
                 )
             dt = (t2 - t1) / steps
-            row = {"D": D, "batch": batch, "mc_samples": samples, "precision": precision}
+            row = {
+                "D": D, "batch": batch, "mc_samples": samples, "precision": precision,
+                "dtype": dtype,
+            }
             if predict:
                 row.update(
                     mode="predict",
@@ -181,10 +241,16 @@ def run(
                     posterior_samples_per_s=samples * batch / dt,
                     loss=value,
                 )
+            if profile_steps and device.type == "cuda":
+                row.update(profile(go, profile_steps))
             row.update(
                 tflops=flops / dt / 1e12,
                 mfu=None,
                 device=device_name(device),
+                max_memory_gb=(
+                    (torch.cuda.max_memory_allocated(device) - held) / 1e9
+                    if device.type == "cuda" else None
+                ),
             )
             rows.append(emit(row))
         return rows
@@ -211,15 +277,22 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--precision", default="fp32", choices=("fp32", "bf16"),
                     help="operand precision of every whvi_mul (bf16: the JAX "
                     "--backend pallas kernels' default)")
+    ap.add_argument("--dtype", default="f32", choices=tuple(DTYPES),
+                    help="storage of parameters, data, activations and Adam's "
+                    "state (bf16: the JAX --dtype bf16 on --backend xla)")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="add torch.profiler's reading of N more steps to each row")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    check_storage(args.precision, DTYPES[args.dtype])
     header("run_scaling")
     rows = []
     for D in args.sizes:
         rows += run(
             D, device=torch.device("cuda", 0), batch=args.batch,
             samples=args.samples, steps=args.steps, repeats=args.repeats,
-            predict=args.predict, precision=args.precision, seed=args.seed,
+            predict=args.predict, precision=args.precision, dtype=args.dtype,
+            seed=args.seed, profile_steps=args.profile,
         )
     return rows
 

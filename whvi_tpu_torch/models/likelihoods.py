@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from whvi_tpu_torch.ops.hadamard import round_scalar, softplus
+
 __all__ = [
     "GaussianLikelihood",
     "HeteroscedasticGaussianLikelihood",
@@ -43,9 +45,9 @@ def _weighted_total(lp_per_point, n, weights):
     if weights is None:
         B_eff = lp_per_point.shape[-1]
         total = torch.sum(lp_per_point, dim=(-2, -1))
-    else:
-        B_eff = torch.sum(weights, dim=-1)
-        total = torch.sum(lp_per_point * weights.unsqueeze(-2), dim=(-2, -1))
+        return _scalar(-(n / (S * B_eff)), total) * total
+    B_eff = torch.sum(weights, dim=-1)
+    total = torch.sum(lp_per_point * weights.unsqueeze(-2), dim=(-2, -1))
     return -(n / (S * B_eff)) * total
 
 
@@ -53,9 +55,18 @@ def _inv_softplus(y: float) -> float:
     return math.log(math.expm1(y))
 
 
+def _scalar(value: float, like: torch.Tensor) -> float:
+    """``value`` as JAX uses a Python scalar beside ``like``: rounded to
+    its dtype where that is below float32 (bf16 storage), else as is (and
+    a tensor always as is)."""
+    if isinstance(value, (int, float)) and like.dtype.itemsize < 4:
+        return round_scalar(value, like.dtype)
+    return value
+
+
 def _gauss_logpdf(y, mean, sigma):
     z = (y - mean) / sigma
-    return -0.5 * (z * z + _LOG_2PI) - torch.log(sigma)
+    return -0.5 * (z * z + _scalar(_LOG_2PI, z)) - torch.log(sigma)
 
 
 class GaussianLikelihood(nn.Module):
@@ -78,7 +89,7 @@ class GaussianLikelihood(nn.Module):
     def sigma(self, ndim: int = 0) -> torch.Tensor:
         """``softplus(rho)``; a replicated ``(R,)`` one viewed to rank
         ``ndim`` to broadcast against ``(R, ...)``."""
-        sigma = F.softplus(self.rho)
+        sigma = softplus(self.rho)
         if self.replicas is None:
             return sigma
         return sigma.reshape(sigma.shape + (1,) * (ndim - 1))
@@ -121,7 +132,7 @@ class HeteroscedasticGaussianLikelihood(nn.Module):
             raise ValueError(f"needs an even last axis, got {tuple(y_hat.shape)}")
         mean, raw = torch.chunk(y_hat, 2, dim=-1)
         shift = _inv_softplus(max(self.sigma0 - self.sigma_min, 1e-6))
-        return mean, F.softplus(raw + shift) + self.sigma_min
+        return mean, softplus(raw + _scalar(shift, raw)) + _scalar(self.sigma_min, raw)
 
     def mnll(self, y, y_hat, n, weights=None):
         mean, sigma = self.split(y_hat)

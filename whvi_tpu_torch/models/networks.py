@@ -70,7 +70,11 @@ class WHVINetwork(nn.Module):
         """Sum of the layers' KL terms. ``lambdas``: None, or one entry a
         layer overriding its prior variance (None keeps the layer's; a
         float, a tensor, ``(R,)`` per replica, or a tuple of per-branch
-        entries for a ``Parallel``), as JAX's ``kl(params, lambdas)``."""
+        entries for a ``Parallel``), as JAX's ``kl(params, lambdas)``.
+
+        Summed in layer order as JAX sums it, whose activations return a
+        float32 zero: from the first activation on, a sum of bf16 terms
+        (bf16 storage) carries on in float32, and so does the loss."""
         if lambdas is None:
             lambdas = (None,) * len(self.layers)
         if len(lambdas) != len(self.layers):
@@ -78,7 +82,14 @@ class WHVINetwork(nn.Module):
                 f"lambdas must have one entry per layer ({len(self.layers)}), "
                 f"got {len(lambdas)}"
             )
-        return sum(layer.kl(lam) for layer, lam in zip(self.layers, lambdas))
+        total = 0
+        for layer, lam in zip(self.layers, lambdas):
+            if isinstance(layer, Activation):
+                if torch.is_tensor(total) and total.dtype.itemsize < 4:
+                    total = total.float()
+            else:
+                total = total + layer.kl(lam)
+        return total
 
     def forward(self, x, generator=None, eps=None):
         """One stochastic pass over ``x (S, B, n_in)`` for all S samples."""
@@ -210,11 +221,16 @@ def WHVIRegression(
     sigma0: float = 1.0,
     train_samples: int = 1,
     eval_samples: int = 64,
+    *,
+    device=None,
+    dtype=torch.float32,
 ) -> WHVINetwork:
-    """Network plus a Gaussian likelihood with initial noise ``sigma0``."""
+    """Network plus a Gaussian likelihood with initial noise ``sigma0``,
+    its parameter of ``dtype`` on ``device`` (the layers take theirs; the
+    JAX ``init(key, dtype)`` gives one dtype to all)."""
     return WHVINetwork(
         layers,
-        GaussianLikelihood(sigma0),
+        GaussianLikelihood(sigma0, device=device, dtype=dtype),
         train_samples=train_samples,
         eval_samples=eval_samples,
     )

@@ -47,6 +47,8 @@ from whvi_tpu_torch.ops.hadamard import (
     is_pow_of_2,
     kl_diag_normal,
     next_pow_of_2,
+    round_scalar,
+    softplus,
 )
 from whvi_tpu_torch.ops.whvi_op import whvi_dense, whvi_mul
 
@@ -86,6 +88,8 @@ def prior_kl(mu, sigma, lambda_, replicas: int | None) -> torch.Tensor:
     ``(R,)`` with one prior variance per replica."""
     if torch.is_tensor(lambda_):
         sigma_p = replica_view(torch.sqrt(lambda_.to(mu.dtype)), mu.dim(), replicas)
+    elif mu.dtype.itemsize < 4:  # JAX: jnp.sqrt(jnp.asarray(lambda_, dtype))
+        sigma_p = round_scalar(math.sqrt(round_scalar(lambda_, mu.dtype)), mu.dtype)
     else:
         sigma_p = math.sqrt(lambda_)
     return kl_diag_normal(mu, sigma, 0.0, sigma_p, keep=0 if replicas is None else 1)
@@ -127,7 +131,7 @@ class _WHVIMatrix(nn.Module):
         g_rho.uniform_(-3.0, -2.0, generator=generator)
 
     def g_sigma(self) -> torch.Tensor:
-        return F.softplus(self.g_rho)
+        return softplus(self.g_rho)
 
     def kl(self, lambda_=None) -> torch.Tensor:
         """KL from the prior ``N(0, lambda_ I)``; ``lambda_`` overrides the

@@ -2,6 +2,7 @@ from whvi_tpu_torch.ops.fwht_cuda import (
     LAUNCHES,
     FwhtFunction,
     WhviMulFunction,
+    check_storage,
     reset_launches,
 )
 from whvi_tpu_torch.ops.hadamard import (
@@ -26,6 +27,7 @@ __all__ = [
     "WhviMulFunction",
     "build_H",
     "build_H_rows",
+    "check_storage",
     "fwht",
     "get_whvi_mul_precision",
     "is_pow_of_2",

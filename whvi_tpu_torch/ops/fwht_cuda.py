@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the WHVI product and the FWHT.
 
 Counterpart of :mod:`whvi_tpu.ops.fwht_pallas`. Two kernels live in
-``whvi_tpu_torch/csrc/`` and are used seven ways:
+``whvi_tpu_torch/csrc/`` and are used eleven ways:
 
 ===================  ====================================  ==================================
 launch counter       wrapper                               replaces (whvi_tpu/ops/fwht_pallas.py)
@@ -13,6 +13,10 @@ launch counter       wrapper                               replaces (whvi_tpu/op
 ``fused_y_bf16``     ``fused_raw(.., False, "bf16")``      ``_kernel_1f_y`` / ``_kernel_2f_y``
 ``fused_res_bf16``   ``fused_raw(.., True, "bf16")``       ``_kernel_1f`` / ``_kernel_2f``
 ``fused_bwd_bf16``   ``fused_bwd_raw(.., "bf16")``         the transform half of ``_bwd``
+``fused_y_bf16s``    ``fused_raw(.., False)`` on bf16      ``_kernel_1f_y`` / ``_kernel_2f_y``
+``fused_res_bf16s``  ``fused_raw(.., True)`` on bf16       ``_kernel_1f`` / ``_kernel_2f``
+``fused_bwd_bf16s``  ``fused_bwd_raw`` on bf16             the transform half of ``_bwd``
+``fwht_bf16s``       ``fwht_raw`` on bf16                  ``_kernel_1f_t`` / ``_kernel_2f_t``
 ===================  ====================================  ==================================
 
 Precision. The Pallas product takes ``precision="fp32" | "bf16"``, and
@@ -31,14 +35,32 @@ argument (default ``"fp32"``):
 The bare FWHT (``fwht``) reproduces ``fwht_pallas``'s default,
 ``precision="fp32"``.
 
+Storage. Every tensor of a call is float32 or every one bfloat16 (the
+JAX package's ``dtype=bfloat16``); the ``_bf16s`` counters count the
+bf16-storage launches. On bf16 leaves the JAX package computes the XLA
+expression ``s1 * fwht(u * fwht(s2 * x))``, each op rounding to bf16 (R,
+to nearest even) and each transform summing in fp32::
+
+    t0 = R(s2 x), i1 = R(H t0), t1 = R(u i1), i2 = R(H t1), y = R(s1 i2)
+
+and the bare transform ``R(H x)``. The plain versions compute exactly
+that (PyTorch's bf16 ops round where XLA's do; :func:`fwht_plain`
+transforms in fp32 and rounds once), and the kernels do too, bit for bit.
+Only the ``"fp32"`` precision has a bf16-storage form: the Pallas
+kernels cannot store bf16 (their output stores raise on bf16 refs,
+``whvi_tpu/ops/fwht_pallas.py:121-204``), so ``"bf16"`` on bf16 storage
+raises here, on every device.
+
 Each wrapper dispatches on the device of its tensors alone: CPU tensors
 go to the plain PyTorch version beside it (:func:`fused_plain`,
 :func:`fwht_plain`); CUDA tensors launch the kernel or raise. There is
 no fallback from one to the other.
 
 Alignment. The kernels hold a row in registers and move it to and from
-device memory in ``min(D, 4)``-float vectors (:func:`vector_bytes`: 16
-bytes for ``D >= 4``). Before a launch every operand is checked
+device memory in vectors: ``float4``s in fp32, 8 or 16 bytes of bf16
+(``csrc/fwht_core.cuh``). Rows must start on :func:`vector_bytes`
+(16 bytes, less only where a whole row is shorter), which the bf16
+C entries also check. Before a launch every operand is checked
 (:func:`vector_aligned`): its base pointer and every leading stride it
 is read through must be multiples of that width. An operand that is not
 is copied into a fresh allocation (PyTorch's are 512-byte aligned),
@@ -85,6 +107,7 @@ __all__ = [
     "build_kernels",
     "check_kernel_args",
     "check_precision",
+    "check_storage",
     "fused_bwd_raw",
     "fused_plain",
     "fused_raw",
@@ -120,7 +143,9 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "fused_y": 0, "fused_res": 0, "fused_bwd": 0, "fwht": 0,
     "fused_y_bf16": 0, "fused_res_bf16": 0, "fused_bwd_bf16": 0,
+    "fused_y_bf16s": 0, "fused_res_bf16s": 0, "fused_bwd_bf16s": 0, "fwht_bf16s": 0,
 }
+STORAGE = (torch.float32, torch.bfloat16)  # the kernels' element types
 
 # Operands copied to an aligned allocation before a launch, since the
 # last reset_launches(); not a kernel launch.
@@ -224,18 +249,15 @@ def load_library() -> ctypes.CDLL:
                 build_kernels()
             lib = ctypes.CDLL(LIB_PATH)
             vp = ctypes.c_void_p
-            lib.whvi_fused_f32.argtypes = [vp] * 7 + [
-                ctypes.c_int,
-                ctypes.c_int,
-                ctypes.c_int64,
-                ctypes.c_int,
-                ctypes.POINTER(_Geometry),
-                vp,
-            ]
-            lib.whvi_fused_f32.restype = ctypes.c_int
-            lib.fwht_f32.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_int, vp]
-            lib.fwht_f32.restype = ctypes.c_int
             i32, i64 = ctypes.c_int, ctypes.c_int64
+            for name in ("whvi_fused_f32", "whvi_fused_bf16s"):
+                getattr(lib, name).argtypes = [vp] * 7 + [
+                    i32, i32, i64, i32, ctypes.POINTER(_Geometry), vp,
+                ]
+                getattr(lib, name).restype = ctypes.c_int
+            for name in ("fwht_f32", "fwht_bf16s"):
+                getattr(lib, name).argtypes = [vp, vp, i64, i32, vp]
+                getattr(lib, name).restype = ctypes.c_int
             # the kernels of ops/kron_cuda.py
             for name, args in (
                 ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
@@ -253,10 +275,27 @@ def load_library() -> ctypes.CDLL:
 # ------------------------------------------------------------ plain versions
 
 
-def check_precision(D: int, precision: str) -> None:
+def check_storage(precision: str, dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` for the ``"bf16"`` precision on bf16 storage:
+    the Pallas kernels it reproduces cannot store bf16 (in interpret mode
+    ``whvi_mul_pallas`` raises "Invalid dtype for swap" at its output
+    stores, ``whvi_tpu/ops/fwht_pallas.py:121-204``), so the JAX package
+    has no such product to port."""
+    if precision == "bf16" and dtype == torch.bfloat16:
+        raise ValueError(
+            "the bf16 precision takes float32 storage: the JAX Pallas kernels "
+            "it reproduces cannot store bf16 (their output stores raise on "
+            "bf16 refs); bf16 storage computes the fp32 precision's XLA "
+            "expression, rounding each op to bf16"
+        )
+
+
+def check_precision(D: int, precision: str, dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``precision`` is a mode of the fused product and, for
     ``"bf16"``, ``D`` a power of two in ``[4, 16384]`` (the range of
-    ``pallas_supported``, ``whvi_tpu/ops/fwht_pallas.py:71-72``)."""
+    ``pallas_supported``, ``whvi_tpu/ops/fwht_pallas.py:71-72``) and the
+    storage ``dtype`` float32 (:func:`check_storage`)."""
+    check_storage(precision, dtype)
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if precision == "bf16" and not (is_pow_of_2(D) and MIN_D_BF16 <= D <= MAX_D):
@@ -315,12 +354,14 @@ def fused_plain(s1, u, s2, x, want_residuals: bool, precision: str = "fp32"):
     the broadcast output shape, as the kernel writes them (``i1`` is an
     expanded view where ``u`` or ``s1`` carry axes that ``s2*x`` lacks).
 
-    ``"fp32"``: radix-2 butterflies, the kernel's own adds in its order.
+    ``"fp32"``: radix-2 butterflies, the kernel's own adds in its order;
+    on bf16 storage each op rounds to bf16 and each transform sums in fp32
+    (see the module docstring).
     ``"bf16"``: the Pallas bodies' factor contractions of rounded operands
     (:func:`_bf16_transform`), the second transform ``H_a`` first; ``i1``
     and ``i2`` are the unrounded fp32 sums, in natural layout.
     """
-    check_precision(x.shape[-1], precision)
+    check_precision(x.shape[-1], precision, x.dtype)
     if precision == "fp32":
         i1 = fwht_plain(s2 * x)
         i2 = fwht_plain(u * i1)
@@ -360,19 +401,22 @@ def _on_cpu(*tensors) -> bool:
 
 
 def check_kernel_args(D: int, dtype: torch.dtype) -> None:
-    """Raise unless the kernels take rows of ``D`` elements of ``dtype``."""
-    if dtype != torch.float32:
-        raise TypeError(f"the CUDA kernels take float32 tensors, got {dtype}")
+    """Raise unless the kernels take rows of ``D`` elements of ``dtype``
+    (float32 or bfloat16 storage)."""
+    if dtype not in STORAGE:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16 tensors, got {dtype}")
     if not (is_pow_of_2(D) and 2 <= D <= MAX_D):
         raise ValueError(
             f"the CUDA kernels take a power-of-two D in [2, {MAX_D}], got {D}"
         )
 
 
-def vector_bytes(D: int) -> int:
-    """Bytes a kernel thread moves in one access for rows of ``D`` floats:
-    a ``float4`` for ``D >= 4``, a ``float2`` for ``D = 2``."""
-    return 4 * min(D, 4)
+def vector_bytes(D: int, element_size: int = 4) -> int:
+    """The alignment, in bytes, of a row of ``D`` elements of
+    ``element_size`` bytes that the kernels take: 16 (a ``float4``; in bf16
+    the widest access, of a whole row at ``D = 8, 16``), less only where a
+    whole row is shorter (``D = 2`` in fp32; ``D = 2, 4`` in bf16)."""
+    return min(D * element_size, 16)
 
 
 def vector_aligned(t: torch.Tensor, width: int) -> bool:
@@ -428,8 +472,19 @@ def _geometry(lead: torch.Size, operands) -> _Geometry:
     return geom
 
 
+def _storage(*tensors) -> torch.dtype:
+    """The one dtype of the operands; ``TypeError`` if they differ."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise TypeError(
+            f"operands must share one dtype (the storage), got {sorted(map(str, dtypes))}"
+        )
+    return dtypes.pop()
+
+
 def _launch_fused(s1, u, s2, x, want_residuals: bool, precision: str, counter: str):
     D = x.shape[-1]
+    half = x.dtype == torch.bfloat16  # one dtype: the callers' _storage
     for t in (s1, u, s2, x):
         check_kernel_args(t.shape[-1], t.dtype)
         if t.shape[-1] != D:
@@ -439,7 +494,8 @@ def _launch_fused(s1, u, s2, x, want_residuals: bool, precision: str, counter: s
             )
         if t.stride(-1) != 1:
             raise ValueError("the last axis of every operand must be contiguous")
-    s1, u, s2, x = (_aligned(t, vector_bytes(D)) for t in (s1, u, s2, x))
+    width = vector_bytes(D, x.element_size())
+    s1, u, s2, x = (_aligned(t, width) for t in (s1, u, s2, x))
     lead = torch.broadcast_shapes(
         x.shape[:-1], s1.shape[:-1], u.shape[:-1], s2.shape[:-1]
     )
@@ -449,8 +505,9 @@ def _launch_fused(s1, u, s2, x, want_residuals: bool, precision: str, counter: s
     i2 = torch.empty_like(y) if want_residuals else None
     n_rows = y.numel() // D
     lib = load_library()
+    entry = "whvi_fused_bf16s" if half else "whvi_fused_f32"
     with torch.cuda.device(x.device):
-        err = lib.whvi_fused_f32(
+        err = getattr(lib, entry)(
             x.data_ptr(),
             s1.data_ptr(),
             u.data_ptr(),
@@ -466,12 +523,14 @@ def _launch_fused(s1, u, s2, x, want_residuals: bool, precision: str, counter: s
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"whvi_fused_f32 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
     LAUNCHES[counter] += 1
     return y, i1, i2
 
 
-def _counter(name: str, precision: str) -> str:
+def _counter(name: str, precision: str, dtype: torch.dtype) -> str:
+    if dtype == torch.bfloat16:
+        return name + "_bf16s"
     return name + "_bf16" if precision == "bf16" else name
 
 
@@ -481,15 +540,16 @@ def fused_raw(s1, u, s2, x, want_residuals: bool, precision: str = "fp32"):
     ``x (..., D)`` and the diagonals ``s1, u, s2 (..., D)`` broadcast over
     their leading axes; the outputs have the broadcast shape. K1
     (``want_residuals=False``: ``i1``, ``i2`` are None) or K2 on CUDA
-    tensors, in ``precision`` (see the module docstring);
-    :func:`fused_plain` on CPU tensors.
+    tensors, in ``precision`` and the operands' storage, float32 or
+    bfloat16 (see the module docstring); :func:`fused_plain` on CPU tensors.
     """
-    check_precision(x.shape[-1], precision)
+    dtype = _storage(s1, u, s2, x)
+    check_precision(x.shape[-1], precision, dtype)
     if _on_cpu(s1, u, s2, x):
         return fused_plain(s1, u, s2, x, want_residuals, precision)
     name = "fused_res" if want_residuals else "fused_y"
     return _launch_fused(
-        s1, u, s2, x, want_residuals, precision, _counter(name, precision)
+        s1, u, s2, x, want_residuals, precision, _counter(name, precision, dtype)
     )
 
 
@@ -499,29 +559,33 @@ def fused_bwd_raw(s1, u, s2, g, precision: str = "fp32"):
     ``w1 = H(s1*g)``, ``t2 = H(u*w1)`` (H is self-adjoint), rounded as the
     forward in ``precision`` (as ``_bwd`` runs ``_fused_raw``). K3 on CUDA
     tensors; :func:`fused_plain` on CPU tensors."""
-    check_precision(g.shape[-1], precision)
+    dtype = _storage(s1, u, s2, g)
+    check_precision(g.shape[-1], precision, dtype)
     if _on_cpu(s1, u, s2, g):
         return fused_plain(s2, u, s1, g, True, precision)
     return _launch_fused(
-        s2, u, s1, g, True, precision, _counter("fused_bwd", precision)
+        s2, u, s1, g, True, precision, _counter("fused_bwd", precision, dtype)
     )
 
 
 def fwht_raw(x):
     """FWHT along the last axis, no autograd. K4 on a CUDA tensor (which
     must be contiguous; copied first if it starts off the kernel's vector
-    width); :func:`fwht_plain` on a CPU tensor."""
+    width), in its storage: float32, or bfloat16 summed in fp32 and
+    rounded once; :func:`fwht_plain` on a CPU tensor."""
     if _on_cpu(x):
         return fwht_plain(x)
     D = x.shape[-1]
     check_kernel_args(D, x.dtype)
     if not x.is_contiguous():
         raise ValueError("fwht_raw takes a contiguous CUDA tensor")
-    x = _aligned(x, vector_bytes(D))
+    x = _aligned(x, vector_bytes(D, x.element_size()))
     y = torch.empty_like(x)
     lib = load_library()
+    half = x.dtype == torch.bfloat16
+    entry = "fwht_bf16s" if half else "fwht_f32"
     with torch.cuda.device(x.device):
-        err = lib.fwht_f32(
+        err = getattr(lib, entry)(
             x.data_ptr(),
             y.data_ptr(),
             x.numel() // D,
@@ -529,8 +593,8 @@ def fwht_raw(x):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"fwht_f32 launch failed: cudaError_t {err}")
-    LAUNCHES["fwht"] += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
+    LAUNCHES["fwht_bf16s" if half else "fwht"] += 1
     return y
 
 

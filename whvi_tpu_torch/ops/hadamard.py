@@ -8,7 +8,8 @@ matrix, ``H[i, j] = (-1)^popcount(i & j)``, ``H = H^T`` and
 Two transforms:
 
 - :func:`fwht`, radix-2 butterflies: adds and subtracts only, so nothing
-  is rounded below the input dtype. It is the plain version of the CUDA
+  is rounded below the input dtype (below float32 for bf16 storage, which
+  is rounded once at the end). It is the plain version of the CUDA
   FWHT kernels (``ops/fwht_cuda.py``) and runs the same stages in the
   same order.
 - :func:`fwht_kron`, the Kronecker-factor formulation
@@ -25,8 +26,10 @@ from __future__ import annotations
 
 import functools
 import math
+import struct
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "is_pow_of_2",
@@ -39,6 +42,8 @@ __all__ = [
     "fwht_kron",
     "kl_diag_normal",
     "round_bf16",
+    "round_scalar",
+    "softplus",
 ]
 
 PRECISIONS = ("fp32", "bf16")
@@ -66,10 +71,11 @@ def _sign_matrix(rows: torch.Tensor, cols: torch.Tensor, dtype, device):
 
 
 def build_H(D: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Dense ``H_D`` via the bit trick (test oracle, dense materialization)."""
+    """Dense ``H_D`` via the bit trick (test oracle, dense materialization),
+    computed on ``device``."""
     if not is_pow_of_2(D):
         raise ValueError(f"Hadamard dimension must be a power of 2, got {D}")
-    i = torch.arange(D, dtype=torch.int64)
+    i = torch.arange(D, dtype=torch.int64, device=device)
     return _sign_matrix(i, i, dtype, device)
 
 
@@ -88,10 +94,15 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
     Stage ``h`` combines elements ``j`` and ``j + h`` inside every block
     of ``2h`` (``h = 1, 2, 4, ...``), as ``whvi_tpu.ops.hadamard
     .fwht_butterfly`` does. Differentiable by autograd; any float dtype.
+    A dtype narrower than float32 (bf16 storage) is transformed in float32
+    and rounded once at the end, as ``whvi_tpu.ops.hadamard.fwht_kron``
+    accumulates (``preferred_element_type``) and casts once.
     """
     D = x.shape[-1]
     if not is_pow_of_2(D):
         raise ValueError(f"FWHT length must be a power of 2, got {D}")
+    if x.dtype.itemsize < 4:
+        return fwht(x.float()).to(x.dtype)
     shape = x.shape
     h = 1
     while h < D:
@@ -134,6 +145,30 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(x.dtype)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``softplus(x)`` as the JAX package computes it: ``F.softplus`` from
+    float32 up; below float32 (bf16 storage) ``jax.nn.softplus``'s
+    ``logaddexp(x, 0)`` op by op, ``max(x, 0) + log1p(exp(-|x|))``, each op
+    rounding to ``x``'s dtype as XLA's do (one rounding of the exact value
+    differs from it in about 15% of bf16 inputs)."""
+    if x.dtype.itemsize >= 4:
+        return F.softplus(x)
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def round_scalar(value: float, dtype: torch.dtype) -> float:
+    """The Python float ``value`` rounded to ``dtype`` (nearest, ties to
+    even): what JAX does to a weakly typed scalar beside an array of that
+    dtype. A host computation; nothing touches a device. bf16 by its bits
+    (through float32, as PyTorch converts a double), which costs a
+    microsecond where a tensor costs tens."""
+    if dtype == torch.bfloat16 and math.isfinite(value):
+        bits = struct.unpack("<I", struct.pack("<f", value))[0]
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return struct.unpack("<f", struct.pack("<I", bits))[0]
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
+
+
 def fwht_kron(
     x: torch.Tensor, max_factor: int = 128, precision: str = "fp32"
 ) -> torch.Tensor:
@@ -174,16 +209,26 @@ def kl_diag_normal(mu_q, sigma_q, mu_p, sigma_p, keep: int = 0) -> torch.Tensor:
                   + (sigma_q^2 + (mu_q - mu_p)^2) / (2 sigma_p^2) - 1/2 ]
 
     The prior's ``mu_p`` and ``sigma_p`` may be tensors or Python floats;
-    floats stay host scalars, so no scalar is copied to the device.
+    floats stay host scalars, so no scalar is copied to the device. Below
+    float32 (bf16 storage) a float ``sigma_p``, its log and ``2 sigma_p^2``
+    are rounded to ``mu_q``'s dtype op by op, as JAX computes them on
+    ``jnp.asarray(sigma_p, dtype)``.
     """
     if torch.is_tensor(sigma_p):
         log_sigma_p = torch.log(sigma_p)
+        two_var_p = 2.0 * sigma_p * sigma_p
+    elif mu_q.dtype.itemsize < 4:
+        r = functools.partial(round_scalar, dtype=mu_q.dtype)
+        sigma_p = r(sigma_p)
+        log_sigma_p = r(math.log(sigma_p))
+        two_var_p = r(2.0 * r(sigma_p * sigma_p))
     else:
         log_sigma_p = math.log(sigma_p)
+        two_var_p = 2.0 * sigma_p * sigma_p
     terms = (
         log_sigma_p
         - torch.log(sigma_q)
-        + (sigma_q.square() + (mu_q - mu_p) ** 2) / (2.0 * sigma_p * sigma_p)
+        + (sigma_q.square() + (mu_q - mu_p) ** 2) / two_var_p
         - 0.5
     )
     if keep:

@@ -113,6 +113,17 @@ def whvi_mul(
     axis is a replica axis) makes a per-replica ``(R, 1, .., 1, D)``
     diagonal count as ``(D,)``, as each replica's own product would.
 
+    Storage: the four operands share one dtype, or ``TypeError``
+    (``fwht_cuda.fused_raw``); the kernels take float32 and bfloat16 (the
+    JAX package's ``dtype=bfloat16``), the plain versions any float dtype.
+    On bf16 storage the product is the JAX ``"xla"`` expression with each
+    op rounded to bf16 and each transform summed in fp32 (``fwht_cuda``'s
+    module docstring).
+    A ``"bf16"``-precision product on bf16 storage raises ``ValueError``
+    where the JAX ``"pallas"`` backend would reach its kernel (an eligible
+    product), as that kernel raises on bf16 refs; ineligible ones compute
+    fp32, as JAX sends them to XLA.
+
     With a gradient to record this is :class:`WhviMulFunction` (the
     kernel with residuals forward, the swapped kernel backward);
     otherwise the y-only launch.

@@ -4,6 +4,7 @@ from whvi_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from whvi_tpu_torch.train.optim import (
+    OptaxAdam,
     decay_schedule,
     decayed_adam,
     mask_likelihood_grads,
@@ -19,6 +20,7 @@ from whvi_tpu_torch.train.trainer import (
 )
 
 __all__ = [
+    "OptaxAdam",
     "TrainConfig",
     "TrainState",
     "Trainer",

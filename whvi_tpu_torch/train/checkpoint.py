@@ -11,6 +11,10 @@ half-written latest checkpoint. No pickle: restore reads arrays only, and
 rebuilds the tree from a template of the same structure, refusing a
 checkpoint whose leaf count or any leaf's shape differs from it.
 
+A bf16 tensor is saved as the JAX package saves a bf16 array: its raw 2
+bytes an element (numpy ``|V2``), read back through its bits
+(:func:`to_tensor`), so a bf16 state resumes bit for bit.
+
 What a trainer puts in the tree is the trainer's business
 (:meth:`whvi_tpu_torch.train.Trainer.state_tree`).
 """
@@ -24,7 +28,10 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["flatten", "latest_checkpoint", "restore_checkpoint", "save_checkpoint", "unflatten"]
+__all__ = [
+    "flatten", "latest_checkpoint", "restore_checkpoint", "save_checkpoint", "to_tensor",
+    "unflatten",
+]
 
 
 def flatten(tree: Any) -> list:
@@ -60,9 +67,23 @@ def unflatten(template: Any, leaves: list) -> Any:
     return out
 
 
+def to_tensor(a) -> torch.Tensor:
+    """A CPU tensor of the numpy array (or array-like) ``a``: a 2-byte
+    void array (``ml_dtypes``' bfloat16, or a checkpoint's ``|V2``) through
+    its bits as ``torch.bfloat16``, anything else as ``torch.tensor``."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        bits = np.array(a, order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.tensor(a)
+
+
 def _host(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:  # numpy has no bf16: its bits, as JAX saves it
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
@@ -86,7 +107,7 @@ def _like(got: np.ndarray, want):
     """``got`` as ``want``'s kind: a tensor of its dtype on its device, or
     a numpy array of its dtype."""
     if torch.is_tensor(want):
-        return torch.from_numpy(np.array(got)).to(dtype=want.dtype, device=want.device)
+        return to_tensor(got).to(dtype=want.dtype, device=want.device)
     return np.asarray(got, dtype=np.asarray(want).dtype)
 
 

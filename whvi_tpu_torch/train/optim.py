@@ -20,15 +20,27 @@ so a frozen replica's gradient, moments and update are exactly 0 while
 the others train. Adam is elementwise and all replicas share one step
 count, so one ``torch.optim.Adam`` over the stacked parameters is ``R``
 independent Adams, as optax under the JAX trainer's vmap.
+
+Parameters stored below float32 (bf16, the JAX package's
+``dtype=bfloat16``) get :class:`OptaxAdam`: optax's ``scale_by_adam``
+and ``scale_by_learning_rate`` op for op, with its casts, so that the
+moments and updates stay in the parameters' dtype and round where
+optax's do (``torch.optim.Adam`` fuses them differently: a ``lerp`` and
+an ``addcdiv`` in fp32, rounded once).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
+from whvi_tpu_torch.ops.hadamard import round_scalar
+
 __all__ = [
+    "OptaxAdam",
     "decay_schedule",
     "decayed_adam",
     "mask_likelihood_grads",
@@ -63,6 +75,67 @@ def decay_schedule(
     return lambda t: lr0 * (1.0 + gamma * t) ** (-p)
 
 
+class OptaxAdam(torch.optim.Adam):
+    """Adam computed as ``optax.chain(scale_by_adam(b1, b2, eps),
+    scale_by_learning_rate(lr))`` and ``optax.apply_updates`` compute it,
+    op for op in the parameters' dtype (the ``optax`` 0.2 sources)::
+
+        mu = (1 - b1) g + b1 mu            nu = (1 - b2) g^2 + b2 nu
+        mu_hat = mu / (1 - b1^t)           nu_hat = nu / (1 - b2^t)
+        u = -lr * (mu_hat / (sqrt(nu_hat) + eps))       p = p + u
+
+    each product, sum, quotient and root rounded to that dtype, the
+    Python constants rounded to it first (JAX's weak typing), the bias
+    corrections ``1 - b^t`` computed in float32 and then cast (optax's
+    ``tree_bias_correction``), and ``lr`` the LambdaLR's current rate,
+    cast. The state keeps ``torch.optim.Adam``'s keys (``step``,
+    ``exp_avg``, ``exp_avg_sq``), moments in the parameters' dtype, so
+    checkpoints and ``load_state_dict`` treat both alike.
+    :func:`decayed_adam` takes it when a parameter is stored below
+    float32, ``torch.optim.Adam`` otherwise."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdam takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            by_dtype: dict = {}
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                by_dtype.setdefault(p.dtype, []).append(p)
+            for params in by_dtype.values():
+                torch._foreach_add_([self.state[p]["step"] for p in params], 1.0)
+            for dtype, params in by_dtype.items():
+                t = np.float32(self.state[params[0]]["step"].item())
+                grads = [p.grad for p in params]
+                mus = [self.state[p]["exp_avg"] for p in params]
+                nus = [self.state[p]["exp_avg_sq"] for p in params]
+                c = functools.partial(round_scalar, dtype=dtype)
+                # in place, each op rounding as optax's (a sum's two terms
+                # commute exactly): mu = (1 - b1) g + b1 mu, nu likewise
+                torch._foreach_mul_(mus, c(b1))
+                torch._foreach_add_(mus, torch._foreach_mul(grads, c(1 - b1)))
+                torch._foreach_mul_(nus, c(b2))
+                torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), c(1 - b2)))
+                bc1 = float(np.float32(1) - np.power(np.float32(b1), t, dtype=np.float32))
+                bc2 = float(np.float32(1) - np.power(np.float32(b2), t, dtype=np.float32))
+                updates = torch._foreach_div(mus, c(bc1))
+                denom = torch._foreach_div(nus, c(bc2))
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, c(group["eps"]))
+                torch._foreach_div_(updates, denom)
+                torch._foreach_mul_(updates, c(-group["lr"]))
+                torch._foreach_add_(params, updates)
+        return None
+
+
 def decayed_adam(
     params: Iterable[torch.nn.Parameter],
     lr0: float = 1e-3,
@@ -72,8 +145,11 @@ def decayed_adam(
     b2: float = 0.999,
     eps: float = 1e-8,
 ):
-    """``(Adam, LambdaLR)``; step the scheduler once per optimizer step."""
-    opt = torch.optim.Adam(params, lr=lr0, betas=(b1, b2), eps=eps)
+    """``(Adam, LambdaLR)``; step the scheduler once per optimizer step.
+    :class:`OptaxAdam` when a parameter is stored below float32."""
+    params = list(params)
+    narrow = any(param.dtype.itemsize < 4 for param in params)
+    opt = (OptaxAdam if narrow else torch.optim.Adam)(params, lr=lr0, betas=(b1, b2), eps=eps)
     # LambdaLR multiplies the base lr0 by the factor: applied once
     sched = torch.optim.lr_scheduler.LambdaLR(opt, decay_schedule(1.0, gamma, p))
     return opt, sched

@@ -29,6 +29,13 @@ seed; the noise of the whole stack comes from one generator (JAX draws it
 from a key per replica). ``hyper`` carries per-replica hyperparameters
 (KL warm-up, noise freeze, prior variances), the config-stacked grid's.
 
+Storage: the trainer takes the net's dtype (``Trainer.dtype``, its first
+parameter's), the counterpart of JAX's ``Trainer.init(key, dtype)``. A
+bf16 net (the JAX ``dtype=bfloat16``) trains in bf16: data are cast to it
+as ``jnp.asarray(.., dtype)`` casts them, the padding weights, noise,
+products, KL and likelihood are bf16 (the loss float32, as JAX's), and
+Adam is ``OptaxAdam``, its moments bf16 (``train/optim.py``).
+
 The mesh (``mesh=``, ``split_mesh=``) is not ported.
 """
 

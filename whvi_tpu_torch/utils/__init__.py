@@ -5,6 +5,7 @@ from whvi_tpu_torch.utils.profiling import (
     H100_PEAK_TF32_FLOPS,
     card,
     cuda_ms,
+    device_profile,
     elbo_step_flops,
     fwht_flops,
     net_train_step_flops,
@@ -22,6 +23,7 @@ __all__ = [
     "Throughput",
     "card",
     "cuda_ms",
+    "device_profile",
     "elbo_step_flops",
     "fwht_flops",
     "net_train_step_flops",

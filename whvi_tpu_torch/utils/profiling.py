@@ -14,6 +14,9 @@ Counterpart of :mod:`whvi_tpu.utils.profiling`:
 - :func:`cuda_ms`: kernel time from CUDA events, which takes the place of
   the JAX package's ``chain_time`` (difference timing of on-device
   chains, needed only behind the TPU's remote dispatch);
+- :func:`device_profile`: what ``torch.profiler`` reads over a window of
+  work: the device's own time and events, the busy share, host time in
+  ``Optimizer.step``;
 - :func:`card`, :func:`require_cuda`: what the measuring code states
   beside its numbers, and its refusal to run without a card.
 """
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 from typing import Callable
 
 import torch
@@ -35,6 +39,7 @@ __all__ = [
     "H100_PEAK_TF32_FLOPS",
     "card",
     "cuda_ms",
+    "device_profile",
     "elbo_step_flops",
     "fwht_flops",
     "net_train_step_flops",
@@ -122,6 +127,50 @@ def cuda_ms(fn: Callable[[], object], reps: int = 20, rounds: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_profile(fn: Callable[[], object], top: int = 0) -> dict:
+    """What ``torch.profiler`` reads over one call of ``fn``, the card
+    (where there is one) synchronized before and after it:
+
+    - ``wall_s``: host-clock seconds of the call;
+    - ``device_us`` and ``device_events``: the summed time and the count of
+      the device's own events (kernels, copies, memsets). ``key_averages``'
+      device totals are not read: they count a kernel again under each op
+      and annotation that encloses it (about 3x on a scaling step);
+    - ``busy_share``: ``device_us`` over ``wall_s``;
+    - ``top``: the ``top`` event names with the most device time,
+      ``[name, us]`` each;
+    - ``optimizer_host_us``: host time inside ``Optimizer.step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    if cuda:
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    events = 0
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            events += 1
+    device_us = sum(by_name.values())
+    return {
+        "wall_s": wall,
+        "device_us": device_us,
+        "device_events": events,
+        "busy_share": device_us / 1e6 / wall,
+        "top": [[name, us] for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]],
+        "optimizer_host_us": sum(
+            e.cpu_time_total for e in prof.key_averages() if e.key.startswith("Optimizer.step#")
+        ),
+    }
 
 
 def require_cuda() -> None:
