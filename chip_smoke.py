@@ -136,6 +136,34 @@ Phases, each of which raises on failure:
    torch.matmul(x, H_D) in bf16), each with its bound at 2 bytes an
    element; then bench/fwht_sweep.py at D = 256, 4096, 16384.
 
+11. The mesh (whvi_tpu_torch/parallel/, no new kernel): the scaling model
+   (batch 256, S=8) for 20 steps and a predictive call, (a) on the 1x1
+   mesh of a world of one on NCCL against the unsharded trainer (loss,
+   parameters and predictions within 1e-6; one all-reduce a step; the
+   launches of one device), and run_scaling.main --mesh 1x1, train and
+   --predict; (b) in a world of four ranks (NCCL, one a card, where there
+   are four cards; else gloo, the four ranks sharing the one card) at
+   meshes 2x2, 1x4 and 4x1 in fp32 and bf16 storage, 2x2 in the bf16
+   precision and 1x4 at D=8192. Held: each step's loss and gradient
+   against one device's at the same parameters and noise, and the last
+   loss against one device's run (1e-5 fp32, 2^-7 bf16); the sharded
+   predictions against one device's on the same parameters (1e-6); every
+   rank's parameters equal to rank 0's (broadcast, torch.equal); each
+   rank's launches a step and a call equal to one device's, one
+   all-reduce a step, no operand realigned. Logged, not held: the
+   parameters after 20 steps against one device's run, beside the same
+   reading for one device against itself with the batch rows permuted
+   (the same function, its sums in another order); then run_scaling.run
+   on each storage mesh, train and predict, its step ms, call ms and
+   peak memory a rank; (c) the flagship's Trainer on the 2x2 mesh for
+   2 + 6 epochs against one device (loss, metrics and parameters, 1e-5)
+   and evaluate_bayesian_regression on the split mesh, R=8 over the four
+   ranks, against phase 8's stack (1e-6); (d) NUTS at config 4, its 4
+   chains over the four ranks, each rank's chain against that chain run
+   alone on one card from the same numbers (1e-5; the distance to phase
+   9's batch of 4 chains is logged). A rank that fails fails the smoke;
+   the phase's parts are timed.
+
 Before the last line it prints one JSON object of the kernels (each with
 its launches on the main path, max abs error, ms, plain_ms, bound_ms,
 bound_by and library_ms; the error and the times both at the scaling
@@ -1176,14 +1204,15 @@ def _protocol_data(seed):
     return np.concatenate([X, Xt]), np.concatenate([y, yt])
 
 
-def run_protocol_path(fc, dev, seed, tmp) -> None:
+def run_protocol_path(fc, dev, seed, tmp) -> dict:
     """(c) evaluate_bayesian_regression, stacked R=8, on the 506 x 13
     synthetic data, 2 + 6 epochs, calibrate, checkpoint_every=2 into
     ``tmp``: the main path of this phase, every K1-K4 launched and no
     operand realigned; then the same call again, which resumes from the
     last checkpoint and must give equal metrics; a fit interrupted after
     epoch 4 and resumed, torch.equal to an uninterrupted one; and the
-    sequential protocol on the same data for comparison."""
+    sequential protocol on the same data for comparison. Returns the
+    stacked protocol's result (phase 11 holds the split mesh to it)."""
     from whvi_tpu_torch.evaluation import ProtocolConfig, evaluate_bayesian_regression
 
     X, y = _protocol_data(seed)
@@ -1258,6 +1287,7 @@ def run_protocol_path(fc, dev, seed, tmp) -> None:
     log(f"  a stacked fit interrupted after epoch 5 and resumed from ckpt-3: torch.equal to the "
         f"uninterrupted fit (parameters and Adam moments): {equal}")
     check(equal, "the resumed fit differs from the uninterrupted one")
+    return out
 
 
 def run_grid_path(fc, dev, seed) -> None:
@@ -1453,15 +1483,23 @@ def _no_sync(fn):
     return out, time.perf_counter() - t0
 
 
+def nuts_config():
+    """The path's NUTS at config 4: depth 4, 10 + 10 draws."""
+    from whvi_tpu_torch.mcmc import NUTSConfig
+
+    return NUTSConfig(n_samples=10, n_warmup=10, max_tree_depth=4)
+
+
 def run_sampler_path(fc, dev, seed, posteriors) -> dict:
     """(c) The path: NUTS at config 4 (4 chains, depth 4, 10 + 10 draws)
     and parallel tempering on the 6-8-1 posterior (2 ladders of 4 rungs,
     10 + 10 rounds), each under sync debug mode "error", then the
     posterior predictive of the tempering draws on held-out rows. Every
-    K1-K4 must launch, no operand be realigned."""
+    K1-K4 must launch, no operand be realigned. Returns the NUTS draws
+    (phase 11 holds the sharded chains to them)."""
     from whvi_tpu_torch.experiments.run_vi_vs_hmc import _load_subset, _predictive_from_g_draws
     from whvi_tpu_torch.mcmc import (
-        NUTSConfig, PTConfig, ess, make_whvi_g_log_posterior, nuts_sample_chains,
+        PTConfig, ess, make_whvi_g_log_posterior, nuts_sample_chains,
         pt_sample_chains, split_rhat,
     )
     from whvi_tpu_torch.mcmc.nuts import gradient_evaluations
@@ -1480,7 +1518,7 @@ def run_sampler_path(fc, dev, seed, posteriors) -> dict:
     net6 = copy.deepcopy(posteriors["6-8-1"][0]).to(dev)
     _, X6, y6 = posteriors["6-8-1"]
     _, _, X_te, y_te, _ = _load_subset(seed, 64, 100)
-    ncfg = NUTSConfig(n_samples=10, n_warmup=10, max_tree_depth=4)
+    ncfg = nuts_config()
     pcfg = PTConfig(n_samples=10, n_warmup=10, n_rungs=4, n_leapfrog=8)
     fc.reset_launches()
     lp4, init4 = make_whvi_g_log_posterior(net4, *posteriors["config 4"][1:])
@@ -1523,7 +1561,7 @@ def run_sampler_path(fc, dev, seed, posteriors) -> dict:
     check(s4[0].shape == (4, 10, 1, 1024) and s6[0].shape == (2, 10, 1, 8),
           f"draw shapes {tuple(s4[0].shape)}, {tuple(s6[0].shape)}")
     check(all(math.isfinite(v) for v in pred.values()), f"non-finite predictive {pred}")
-    return rates
+    return s4
 
 
 def run_analytic_path(dev, seed) -> dict:
@@ -1753,6 +1791,399 @@ def run_fwht_sweep() -> None:
     log(f"  fwht_sweep crossover: {crossover}")
 
 
+# ------------------------------------------------------------ 11. the mesh
+
+MESH_WORLD = 4  # ranks of (b)-(d): one a card, or sharing the one card
+MESH_STEPS = 20  # the checked runs' steps
+MESH_TIMED_STEPS = 30  # run_scaling.run's steps a run on a mesh: 30 and 60 steps of ~15 ms
+# differ by ~0.45 s, far above the host clock's noise
+# (layout, storage, precision, D): the checked runs of (b); all but the bf16
+# precision are also timed through run_scaling.run
+MESH_RUNS = (
+    *[(layout, "f32", "fp32", SCALING_D) for layout in ((2, 2), (1, 4), (4, 1))],
+    *[(layout, "bf16", "fp32", SCALING_D) for layout in ((2, 2), (1, 4), (4, 1))],
+    ((2, 2), "f32", "bf16", SCALING_D),
+    ((1, 4), "f32", "fp32", 8192),  # config 5's "D=8192, high-MC ELBO sharded"
+)
+MESH_ONE_TOL = 1e-6  # (a) the 1x1 mesh against the unsharded trainer
+# (b) each step of four ranks against one device at the same parameters
+# and noise, and the last loss: fp32 sums in another order; bf16 storage
+# and the bf16 precision round where one device rounds, but a sum in
+# another order may flip a rounding (the bf16 nets' 2^-7)
+MESH_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
+MESH_FIT_TOL = 1e-5  # (c) the flagship on 2x2 against one device
+MESH_STACK_TOL = 1e-6  # (c) the split stack against phase 8's
+MESH_NUTS_TOL = 1e-5  # (d) a rank's chain against that chain run alone
+MESH_FLAGSHIP_EPOCHS = (2, 6)
+
+
+def _mesh_tol(storage: str, precision: str) -> float:
+    return MESH_TOL["bf16" if "bf16" in (storage, precision) else "fp32"]
+
+
+def scaling_checked(fc, dev, key, seed, mesh=None, rows=None) -> dict:
+    """MESH_STEPS train steps of the scaling model (batch 256, S=8) and then
+    a predictive call: sharded on ``mesh``, else the unsharded trainer (on
+    the batch's ``rows``, a permutation, where given: the same loss, its
+    sums in another order);
+    loss, parameters and predictions (on the CPU), the launches a step and
+    a call, the all-reduces a step, operands realigned. On a mesh also:
+    before every step, one device's loss and gradient at the same
+    parameters and noise (on this rank, outside the counts), and the
+    steps' largest errors against them (the gradients' over the largest
+    gradient of all parameters, and over each parameter's own largest,
+    which a sum that cancels makes large in bf16); whether every rank
+    holds rank 0's parameters bit for bit; and the sharded predictions
+    against one device's on the same parameters."""
+    import torch.distributed as dist
+
+    from whvi_tpu_torch.experiments import run_scaling
+    from whvi_tpu_torch.ops import set_whvi_mul_precision
+    from whvi_tpu_torch.parallel.mesh import (
+        COLLECTIVES, make_sharded_predict, make_sharded_train_step, reset_collectives,
+    )
+    from whvi_tpu_torch.train import TrainConfig, Trainer
+
+    _, storage, precision, D = key
+    dtype = run_scaling.DTYPES[storage]
+    net = run_scaling.build_net(D, SCALING_S, dtype=dtype)
+    set_whvi_mul_precision(precision)
+    try:
+        if mesh is None:
+            trainer = Trainer(net, TrainConfig(), device=dev)
+            step = trainer.train_step
+        else:
+            step = make_sharded_train_step(net, mesh, TrainConfig(), device=dev)
+            trainer = step.trainer
+        state = trainer.init(seed)
+        X, y = run_scaling.data(D, SCALING_B, seed, dev, dtype)
+        if rows is not None:
+            X, y = X[rows], y[rows]
+        params = list(trainer.net.parameters())
+        counts, all_reduce, realigned = {}, 0, 0
+        grad_err = grad_err_own = loss_err = 0.0
+        for _ in range(MESH_STEPS):
+            if mesh is not None:
+                one = torch.Generator(device=dev)
+                one.set_state(state.generator.get_state())
+                trainer.net.zero_grad(set_to_none=False)
+                loss_one, _ = trainer.net.loss(X, y, SCALING_B, one)
+                loss_one.backward()
+                grads_one = [p.grad.float().clone() for p in params]  # the step zeroes .grad
+            torch.cuda.synchronize(dev)
+            fc.reset_launches()
+            reset_collectives()
+            metrics = step(state, X, y, SCALING_B, True)
+            torch.cuda.synchronize(dev)
+            for k, v in fc.LAUNCHES.items():
+                counts[k] = counts.get(k, 0) + v
+            all_reduce += COLLECTIVES["all_reduce"]
+            realigned += fc.REALIGNED
+            if mesh is not None:
+                loss_err = max(loss_err, abs(float(metrics["loss"]) / loss_one.item() - 1.0))
+                scale = max(g.abs().max().item() for g in grads_one)
+                diffs = [(p.grad.float() - g).abs().max().item() for p, g in zip(params, grads_one)]
+                grad_err = max(grad_err, max(diffs) / scale)
+                grad_err_own = max(grad_err_own, *(
+                    d / max(g.abs().max().item(), 1e-30) for d, g in zip(diffs, grads_one)))
+        train = {k: v / MESH_STEPS for k, v in counts.items() if v}
+        all_reduce /= MESH_STEPS
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        fc.reset_launches()
+        with torch.no_grad():
+            if mesh is None:
+                y_hat = trainer.net.predict(X, SCALING_S, gen)
+            else:
+                pred = make_sharded_predict(trainer.net, mesh, SCALING_S)
+                block = pred(X, gen)
+        torch.cuda.synchronize(dev)
+        predict = {k: v for k, v in fc.LAUNCHES.items() if v}
+        realigned += fc.REALIGNED
+        if mesh is not None:  # and the same parameters' one-device predictions
+            y_hat = pred.gather(block)
+            with torch.no_grad():
+                y_one = trainer.net.predict(
+                    X, SCALING_S, torch.Generator(device=dev).manual_seed(seed + 1))
+    finally:
+        set_whvi_mul_precision("fp32")
+    flat = torch.cat([p.detach().float().reshape(-1) for p in trainer.net.parameters()])
+    out = dict(loss=float(metrics["loss"]), params=flat.cpu(), y_hat=y_hat.float().cpu(),
+               train=train, predict=predict, all_reduce=all_reduce, realigned=realigned)
+    if mesh is not None:
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        out["equal_to_rank0"] = not mesh.agree(not torch.equal(ref, flat))
+        out["predict_vs_one"] = rel_err(y_hat.float(), y_one.float())
+        out["step_grad_err"], out["step_loss_err"] = grad_err, loss_err
+        out["step_grad_err_own"] = grad_err_own
+    return out
+
+
+def _flagship(dev, seed, mesh=None):
+    """The flagship (13 -> 128 -> 128 -> 1, S=4 train / 64 eval, batch 64)
+    on phase 4's data, MESH_FLAGSHIP_EPOCHS epochs, then its evaluation:
+    (loss, parameters, metrics)."""
+    from whvi_tpu_torch.models import WHVIRegression, mlp_layers
+    from whvi_tpu_torch.train import TrainConfig, Trainer
+
+    (X, y), (Xt, yt) = synthetic_regression(seed)
+    net = WHVIRegression(mlp_layers(13, 1, hidden=(128, 128)), train_samples=4, eval_samples=64)
+    e1, e2 = MESH_FLAGSHIP_EPOCHS
+    cfg = TrainConfig(epochs1=e1, epochs2=e2, epochs_per_call=2, batch_size=64)
+    trainer = Trainer(net, cfg, device=dev, mesh=mesh)
+    state = trainer.init(seed)
+    state, logs = trainer.fit(state, X, y)
+    metrics = trainer.evaluate(Xt, yt, torch.Generator(device=dev).manual_seed(seed + 1))
+    flat = torch.cat([p.detach().reshape(-1) for p in trainer.net.parameters()]).cpu()
+    return logs[-1]["loss"], flat, metrics
+
+
+def _protocol_config(seed):
+    from whvi_tpu_torch.evaluation import ProtocolConfig
+
+    return ProtocolConfig(n_splits=PROTOCOL_R, epochs1=PROTOCOL_EPOCHS[0],
+                          epochs2=PROTOCOL_EPOCHS[1], checkpoint_every=2, calibrate=True,
+                          seed=seed)
+
+
+def mesh_rank(dev, seed: int, tmp: str) -> dict:
+    """What every rank of phase 11's four-rank world runs: (b) the checked
+    runs and run_scaling.run on each mesh, (c) the flagship on 2x2 and the
+    protocol on the split mesh, (d) NUTS with its chains split over the
+    ranks. Each part's kernel launches are counted from 0."""
+    from whvi_tpu_torch.evaluation import evaluate_bayesian_regression
+    from whvi_tpu_torch.experiments import run_scaling
+    from whvi_tpu_torch.mcmc import nuts_sample_chains
+    from whvi_tpu_torch.ops import fwht_cuda as fc
+    from whvi_tpu_torch.parallel import make_mesh
+    from whvi_tpu_torch.parallel.mesh import make_split_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"checked": {}, "rows": [], "times": {}}
+    for key in MESH_RUNS:
+        mesh = make_mesh(*key[0])
+        out["checked"][key] = scaling_checked(fc, dev, key, seed, mesh)
+        if key[2] == "fp32":
+            for predict in (False, True):
+                out["rows"] += run_scaling.run(
+                    key[3], device=dev, steps=MESH_TIMED_STEPS, predict=predict,
+                    dtype=key[1], seed=seed, mesh=mesh,
+                )
+    t0 = time.perf_counter()
+    fc.reset_launches()
+    out["flagship"] = _flagship(dev, seed, make_mesh(2, 2))
+    X, y = _protocol_data(seed)
+    out["protocol"] = evaluate_bayesian_regression(
+        X, y, _protocol_config(seed), ckpt_dir=os.path.join(tmp, "protocol"), device=dev,
+        split_mesh=make_split_mesh(),
+    )
+    torch.cuda.synchronize(dev)
+    out["times"]["c"] = time.perf_counter() - t0
+    out["c_launches"], out["c_realigned"] = dict(fc.LAUNCHES), fc.REALIGNED
+    t0 = time.perf_counter()
+    lp4, init4 = config4_posterior(dev, seed)
+    mesh = make_mesh(1, MESH_WORLD)
+    fc.reset_launches()
+    s4, _ = nuts_sample_chains(
+        lp4, init4, torch.Generator(device=dev).manual_seed(seed + 12), nuts_config(),
+        n_chains=4, mesh=mesh,
+    )
+    torch.cuda.synchronize(dev)
+    out["times"]["d"] = time.perf_counter() - t0
+    out["d_launches"], out["d_realigned"] = dict(fc.LAUNCHES), fc.REALIGNED
+    out["nuts"] = {k: v.cpu() for k, v in s4.items()}
+    out["nuts_chains"] = mesh.part(4, mesh.axis_names)
+    out["nuts_alone"] = nuts_alone(lp4, init4, dev, seed, out["nuts_chains"])
+    return out
+
+
+def config4_posterior(dev, seed):
+    """Phase 9's config-4 g posterior (256 rows), on ``dev``."""
+    from whvi_tpu_torch.bench.sampler_bench import config4_net
+    from whvi_tpu_torch.data import synthetic_classification
+    from whvi_tpu_torch.mcmc import make_whvi_g_log_posterior
+
+    (X4, y4), _ = synthetic_classification(seed=seed)
+    return make_whvi_g_log_posterior(config4_net(seed).to(dev), X4[:256], y4[:256])
+
+
+def nuts_alone(lp, init, dev, seed, chains: slice) -> dict:
+    """Phase 9's 4-chain NUTS run cut to ``chains``: the same jittered
+    starts and draws (every chain's, from the same generator), sampled
+    in a batch of only those chains."""
+    from whvi_tpu_torch.mcmc import nuts
+    from whvi_tpu_torch.mcmc.chains import jittered_inits, ravel, tree_map
+
+    cfg = nuts_config()
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    inits = jittered_inits(init, gen, 4, 0.1)
+    make = nuts.nuts_draws(gen, 4, ravel(inits)[0].shape[1], cfg.max_tree_depth, dev)
+    draws = [make(t) for t in range(cfg.n_warmup + cfg.n_samples)]
+    samples, _ = nuts._nuts_chains(
+        lp, tree_map(lambda a: a[chains], inits), None, cfg,
+        lambda t: tree_map(lambda a: a[chains], draws[t]),
+    )
+    return {k: v.cpu() for k, v in samples.items()}
+
+
+def _scaling_errs(got: dict, want: dict) -> dict:
+    return {
+        "loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+        "params": rel_err(got["params"], want["params"]),
+        "predictions": rel_err(got["y_hat"], want["y_hat"]),
+    }
+
+
+def _launch_line(counts: dict) -> str:
+    return ", ".join(f"{k} {v:g}" for k, v in counts.items() if v) or "none"
+
+
+def run_mesh_path(fc, dev, seed, protocol_out, nuts_s4) -> None:
+    """Phase 11, the mesh (whvi_tpu_torch/parallel/): (a) a world of one
+    on NCCL, (b)-(d) four ranks, one a card over NCCL where there are four
+    cards, else sharing the one card over gloo. Every comparison is logged
+    before any is held; the phase fails with the list of those that miss."""
+    import torch.distributed as dist
+
+    from whvi_tpu_torch.experiments import run_scaling
+    from whvi_tpu_torch.parallel import init_distributed, make_mesh
+    from whvi_tpu_torch.parallel.distributed import spawn
+
+    fails = []
+
+    def hold(ok: bool, what: str) -> None:
+        if not ok:
+            fails.append(what)
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MESH_WORLD else "gloo"
+    refs, witness = {}, {}
+    perm = torch.randperm(SCALING_B, generator=torch.Generator().manual_seed(seed)).to(dev)
+    for key in MESH_RUNS:
+        one = (None,) + key[1:]
+        if one not in refs:
+            refs[one] = scaling_checked(fc, dev, one, seed)
+            permuted = scaling_checked(fc, dev, one, seed, rows=perm)
+            witness[one] = rel_err(permuted["params"], refs[one]["params"])
+
+    t_a = time.perf_counter()
+    log("  (a) a world of one on NCCL: the 1x1 mesh against the unsharded trainer, "
+        f"{MESH_STEPS} steps and a predictive call")
+    init_distributed("nccl")
+    try:
+        mesh = make_mesh(1, 1)
+        for key, want in refs.items():
+            got = scaling_checked(fc, dev, key, seed, mesh)
+            errs = _scaling_errs(got, want)
+            log(f"    D={key[3]} {key[1]}/{key[2]}: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (<= {MESH_ONE_TOL}); all_reduce a step {got['all_reduce']:g}; a step launches "
+                + _launch_line(got["train"]) + "; a call " + _launch_line(got["predict"]))
+            hold(max(errs.values()) <= MESH_ONE_TOL, f"the 1x1 mesh differs from one device at {key}")
+            hold(got["all_reduce"] == 1, f"{got['all_reduce']} all-reduces a step at 1x1, not 1")
+            hold(got["train"] == want["train"] and got["predict"] == want["predict"],
+                 f"the 1x1 mesh launches other kernels than one device at {key}")
+            hold(got["realigned"] == 0, "the 1x1 mesh copied misaligned operands")
+        rows = []
+        for predict in ([], ["--predict"]):
+            rows += run_scaling.main(["--mesh", "1x1", "--sizes", str(SCALING_D),
+                                      "--seed", str(seed), *predict])
+    finally:
+        dist.destroy_process_group()
+    for row in rows:
+        hold(run_scaling.finite(row) and row["backend"] == "nccl", f"1x1 row {row}")
+    t_b = time.perf_counter()
+
+    used = max(1, min(cards, MESH_WORLD))
+    log(f"  (b)-(d) {MESH_WORLD} ranks over {backend} on {used} card(s) ({MESH_WORLD // used} a card)")
+    want_fit = _flagship(dev, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn(mesh_rank, MESH_WORLD, backend, "cuda", seed, tmp)
+    t_e = time.perf_counter()
+    got = ranks[0]
+    log(f"  (b) {MESH_STEPS} steps a mesh, each step's loss and gradient against one device's at "
+        "the same parameters and noise, the last loss and the parameters against one device's "
+        "run (the parameters are not held; beside them one device's run with the batch rows "
+        "permuted against its run in order)")
+    for key in MESH_RUNS:
+        want = refs[(None,) + key[1:]]
+        tol = _mesh_tol(key[1], key[2])
+        mine = got["checked"][key]
+        per_rank = [r["checked"][key] for r in ranks]
+        step_err = max(max(c["step_grad_err"], c["step_loss_err"]) for c in per_rank)
+        last_loss = abs(mine["loss"] - want["loss"]) / abs(want["loss"])
+        log(f"    {key[0][0]}x{key[0][1]} D={key[3]} {key[1]}/{key[2]}: a step's gradient "
+            f"{max(c['step_grad_err'] for c in per_rank):.2e} (of each parameter's own largest "
+            f"{max(c['step_grad_err_own'] for c in per_rank):.2e}, not held) and loss "
+            f"{max(c['step_loss_err'] for c in per_rank):.2e}, the last loss {last_loss:.2e} "
+            f"(<= {tol:.2e}); parameters {rel_err(mine['params'], want['params']):.2e} (one "
+            f"device, rows permuted: {witness[(None,) + key[1:]]:.2e}), "
+            f"predictions {rel_err(mine['y_hat'], want['y_hat']):.2e} against one device's run; "
+            f"sharded predictions vs one device on the same parameters {mine['predict_vs_one']:.2e} "
+            f"(<= {MESH_ONE_TOL}); every rank equal to rank 0 "
+            f"{all(c['equal_to_rank0'] for c in per_rank)}; all_reduce a step {mine['all_reduce']:g}; "
+            "a step launches a rank " + _launch_line(mine["train"]) + "; a call "
+            + _launch_line(mine["predict"]) + f"; realigned {sum(c['realigned'] for c in per_rank)}")
+        hold(max(step_err, last_loss) <= tol, f"the mesh's steps differ from one device's at {key}")
+        hold(mine["predict_vs_one"] <= MESH_ONE_TOL, f"the sharded predict differs at {key}")
+        for c in per_rank:
+            hold(c["equal_to_rank0"], f"a rank's parameters differ from rank 0's at {key}")
+            hold(c["train"] == want["train"] and c["predict"] == want["predict"],
+                 f"a rank launches other kernels than one device at {key}")
+            hold(c["all_reduce"] == 1 and c["realigned"] == 0, f"collectives or realigned at {key}")
+    for row in got["rows"]:
+        hold(run_scaling.finite(row), f"non-finite row {row}")
+        what = f"call {row['call_ms']:.3f} ms" if "call_ms" in row else f"step {row['step_ms']:.3f} ms"
+        log(f"    run_scaling {row['mesh']['data']}x{row['mesh']['sample']} D={row['D']} "
+            f"{row['dtype']:>4} {row.get('mode', 'train'):>7}: {what}, peak {row['max_memory_gb']}"
+            f" GB a rank, {row['backend']}, {row['ranks_per_card']} ranks a card")
+    hold(len(got["rows"]) == 14, f"{len(got['rows'])} mesh rows, not 14")
+
+    loss, params, metrics = got["flagship"]
+    w_loss, w_params, w_metrics = want_fit
+    errs = {"loss": abs(loss - w_loss) / abs(w_loss), "parameters": rel_err(params, w_params)}
+    errs.update({k: abs(metrics[k] - v) / max(abs(v), 1e-30) for k, v in w_metrics.items()})
+    log(f"  (c) the flagship on 2x2, {'+'.join(map(str, MESH_FLAGSHIP_EPOCHS))} epochs, against "
+        "one device: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (<= {MESH_FIT_TOL})")
+    hold(max(errs.values()) <= MESH_FIT_TOL, "the flagship on the mesh differs from one device")
+    keys = ("rmse_mean", "mnll_per_point_mean", "pred_mnll_per_point_mean", "coverage95_mean",
+            "temperature_mean", "coverage95_cal_mean")
+    p_errs = {k: abs(got["protocol"][k] - protocol_out[k]) / max(abs(protocol_out[k]), 1e-30)
+              for k in keys}
+    log(f"    the protocol on the split mesh, R={PROTOCOL_R} over {MESH_WORLD} ranks, against "
+        "phase 8's stack: " + ", ".join(f"{k} {v:.2e}" for k, v in p_errs.items())
+        + f" (<= {MESH_STACK_TOL}); launches a rank " + _launch_line(got["c_launches"])
+        + f"; realigned {got['c_realigned']}; {got['times']['c']:.1f} s")
+    hold(max(p_errs.values()) <= MESH_STACK_TOL, "the split-mesh protocol differs from phase 8's")
+    nuts_err = max(
+        rel_err(got["nuts"][i][r["nuts_chains"]], r["nuts_alone"][i]) for r in ranks for i in nuts_s4
+    )
+    lp4, init4 = config4_posterior(dev, seed)
+    alone0 = nuts_alone(lp4, init4, dev, seed, slice(0, 1))
+    batch_err = max(rel_err(alone0[i], nuts_s4[i][:1].cpu()) for i in nuts_s4)
+    log(f"  (d) NUTS at config 4 (phase 9's run), its 4 chains over {MESH_WORLD} ranks: draws "
+        f"against each rank's chain run alone from the same numbers {nuts_err:.2e} (<= "
+        f"{MESH_NUTS_TOL}); against phase 9's batch of 4 chains "
+        f"{max(rel_err(got['nuts'][i], nuts_s4[i].cpu()) for i in nuts_s4):.2e}, and on one card "
+        f"without a mesh chain 0 alone against that batch {batch_err:.2e} (neither held: a batch "
+        "of 4 walkers sums the rows in another order than one walker, and NUTS with dual "
+        "averaging turns a last-bit difference into another trajectory); launches a rank "
+        + _launch_line(got["d_launches"]) + f"; realigned {got['d_realigned']}; "
+        f"{got['times']['d']:.1f} s")
+    hold(nuts_err <= MESH_NUTS_TOL, "the sharded chains differ from their chains run alone")
+    for r in ranks:
+        for part, kernels in (("c", FLAGSHIP_KERNELS), ("d", ("fused_res", "fused_bwd"))):
+            launches = r[f"{part}_launches"]
+            hold(r[f"{part}_realigned"] == 0, f"({part}) copied misaligned operands")
+            for name in kernels:
+                hold(launches[name] > 0, f"({part}): a rank launched no {name}")
+    log(f"  phase 11 parts: references {t_a - t0:.1f} s, (a) {t_b - t_a:.1f} s, (b)-(d) "
+        f"{t_e - t_b:.1f} s (the world's (c) {got['times']['c']:.1f}, (d) {got['times']['d']:.1f})")
+    check(not fails, "phase 11: " + "; ".join(fails))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1782,7 +2213,7 @@ def main() -> int:
     replica_shapes_vs_plain(fc, dev, args.seed)
     protocol_step(fc, dev, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
-        run_protocol_path(fc, dev, args.seed, tmp)
+        protocol_out = run_protocol_path(fc, dev, args.seed, tmp)
         run_grid_path(fc, dev, args.seed)
         run_protocol_entry_points(fc, args.seed, tmp)
     t9 = time.perf_counter()
@@ -1790,7 +2221,7 @@ def main() -> int:
     posteriors = sampler_posteriors(args.seed)
     log_posterior_vs_cpu(fc, dev, args.seed, posteriors)
     draws_vs_cpu(dev, args.seed, posteriors)
-    run_sampler_path(fc, dev, args.seed, posteriors)
+    nuts_s4 = run_sampler_path(fc, dev, args.seed, posteriors)
     run_analytic_path(dev, args.seed)
     log(f"phase 9: {time.perf_counter() - t9:.1f} s; the smoke so far: "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -1810,6 +2241,10 @@ def main() -> int:
     log(f"phase 10: {t_e - t10:.1f} s ((a) {t_a - t10:.1f}, (b) {t_b - t_a:.1f}, (c) "
         f"{t_c - t_b:.1f}, (d) {t_d - t_c:.1f}, fwht_sweep {t_e - t_d:.1f}); the smoke: "
         f"{t_e - t_start:.1f} s")
+    log("phase 11: the mesh (whvi_tpu_torch/parallel/)")
+    run_mesh_path(fc, dev, args.seed, protocol_out, nuts_s4)
+    t_f = time.perf_counter()
+    log(f"phase 11: {t_f - t_e:.1f} s; the smoke: {t_f - t_start:.1f} s")
 
     kernels = [
         {

@@ -28,10 +28,15 @@ therefore agree on the same noise and in distribution, not bit for bit.
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without a card they raise unless the caller asks for ``"cpu"``.
 
-Left out: the device meshes (``mesh=``, ``split_mesh=``) and the JAX
-package's dispatch-length guard (``_dispatch_chunk_bound``), which works
-around a remote TPU worker and changes only logging and checkpoint
-cadence, never results.
+Meshes (:mod:`whvi_tpu_torch.parallel`): ``mesh=`` trains each split
+through the ``(data, sample)`` sharded loss (the sequential protocol:
+``vmap_splits`` "auto" means False with a mesh); ``split_mesh=`` shards
+the stacked splits' replica axis over the ranks. Every rank runs the
+protocol and returns the whole result; rank 0 writes the checkpoints.
+
+Left out: the JAX package's dispatch-length guard
+(``_dispatch_chunk_bound``), which works around a remote TPU worker and
+changes only logging and checkpoint cadence, never results.
 """
 
 from __future__ import annotations
@@ -251,10 +256,15 @@ def evaluate_bayesian_regression(
     ckpt_dir: str | None = None,
     log_fn: Callable[[dict], None] | None = None,
     device=None,
+    mesh=None,
+    split_mesh=None,
 ) -> dict:
     """Run the full protocol on ``device`` (the card unless ``"cpu"`` is
     asked for); returns mean/sd of RMSE and MNLL across splits plus
-    per-split details, with the JAX package's keys."""
+    per-split details, with the JAX package's keys. ``mesh``: train every
+    split through the sharded MC-ELBO (``train_samples`` and
+    ``eval_samples`` must split over its ``sample`` axis); ``split_mesh``:
+    shard the stacked splits (``n_splits`` a multiple of its size)."""
     device = _device(device)
     X = np.asarray(X, np.float32)
     y = np.asarray(y, np.float32)
@@ -273,7 +283,10 @@ def evaluate_bayesian_regression(
         # freeze fractions are of the steps actually trained
         n_tr -= max(1, int(round(n_tr * config.calib_frac)))
         _check_calibratable(net)
-    steps_per_epoch = -(-n_tr // min(config.batch_size, n_tr))
+    # as the epoch runner rounds the batch up to the data-shard multiple,
+    # which can lower the batch count the warm-up and freeze are counted in
+    d = mesh.shape["data"] if mesh is not None else 1
+    steps_per_epoch = -(-n_tr // (-(-min(config.batch_size, n_tr) // d) * d))
     tcfg = TrainConfig(
         batch_size=config.batch_size,
         epochs1=config.epochs1,
@@ -288,11 +301,18 @@ def evaluate_bayesian_regression(
     )
     ckpt_dir = _hashed_dir(ckpt_dir, "cfg", sorted(dataclasses.asdict(config).items()))
     splits = _make_splits(X, y, config, n, n_test)
-    stacked = config.vmap_splits if isinstance(config.vmap_splits, bool) else True
+    stacked = config.vmap_splits if isinstance(config.vmap_splits, bool) else mesh is None
+    if split_mesh is not None and not stacked:
+        raise ValueError(
+            "split_mesh requires the vmapped-splits protocol (don't combine it "
+            "with mesh= or vmap_splits=False)"
+        )
     if stacked:
-        return _run_stacked_protocol(net, tcfg, config, splits, total, ckpt_dir, log_fn, device)
+        return _run_stacked_protocol(
+            net, tcfg, config, splits, total, ckpt_dir, log_fn, device, mesh, split_mesh
+        )
 
-    trainer = Trainer(net, tcfg, device=device)
+    trainer = Trainer(net, tcfg, device=device, mesh=mesh)
     results, cal_inputs, cal_rows = [], [], []
     for split, d in enumerate(splits):
         state = trainer.init(config.seed * 1000 + split)
@@ -439,15 +459,17 @@ def _stacked_entry(metrics: dict, r: int, split: int, wall: float, R: int, total
     return entry
 
 
-def _run_stacked_protocol(net, tcfg, config, splits, total, ckpt_dir, log_fn, device) -> dict:
+def _run_stacked_protocol(
+    net, tcfg, config, splits, total, ckpt_dir, log_fn, device, mesh=None, split_mesh=None,
+) -> dict:
     """All ``n_splits`` fits as one replica-stacked two-phase run
     (``whvi_tpu/evaluation.py:657-800``): the splits are the replicas of
     one net, with their data, parameters and Adam moments stacked on a
-    leading axis. Checkpoints hold the whole stack, under
-    ``ckpt_dir/stacked``."""
+    leading axis (over ``split_mesh``'s ranks when given). Checkpoints
+    hold the whole stack, under ``ckpt_dir/stacked``."""
     K = config.n_splits
     ys_te_fit = np.stack([d["y_te_fit"] for d in splits])
-    trainer = Trainer(net, tcfg, device=device, replicas=K)
+    trainer = Trainer(net, tcfg, device=device, replicas=K, mesh=mesh, split_mesh=split_mesh)
     state = trainer.init([config.seed * 1000 + s for s in range(K)])
     t0 = time.time()
     state, _ = trainer.fit(
@@ -458,13 +480,15 @@ def _run_stacked_protocol(net, tcfg, config, splits, total, ckpt_dir, log_fn, de
         log_fn=log_fn,
     )
     wall = time.time() - t0
-    # one test-set forward for the metrics and everything after them
+    # one test-set forward for the metrics and everything after them (this
+    # rank's replicas under a split mesh; y_hat_all every replica's)
     y_hat_te = trainer.predict(np.stack([d["X_te"] for d in splits]), _generator(device, 0))
     metrics = trainer.metrics(ys_te_fit, y_hat_te)
+    y_hat_all = trainer.gather_replicas(y_hat_te)
     if config.heteroscedastic and "rmse" not in metrics:
-        metrics["rmse"] = _hetero_rmse(net, y_hat_te, ys_te_fit)
+        metrics["rmse"] = _hetero_rmse(net, y_hat_all, ys_te_fit)
     if config.normalize_y:
-        y_hat = _host(net.likelihood.split(y_hat_te)[0] if config.heteroscedastic else y_hat_te)
+        y_hat = _host(net.likelihood.split(y_hat_all)[0] if config.heteroscedastic else y_hat_all)
         per_split = [
             _to_original_units(
                 {k: v[s] for k, v in metrics.items()}, y_hat[s],
@@ -479,8 +503,8 @@ def _run_stacked_protocol(net, tcfg, config, splits, total, ckpt_dir, log_fn, de
         y_hat_cal = trainer.predict(
             np.stack([d["X_cal"] for d in splits]), _generator(device, 100000)
         )
-        m_c, s_c = (_host(t) for t in net.likelihood.predict(y_hat_cal))
-        m_t, s_t = (_host(t) for t in net.likelihood.predict(y_hat_te))
+        m_c, s_c = (_host(trainer.gather_replicas(t)) for t in net.likelihood.predict(y_hat_cal))
+        m_t, s_t = (_host(trainer.gather_replicas(t)) for t in net.likelihood.predict(y_hat_te))
         cal = _calibrate_splits(
             [
                 (splits[s]["y_cal_fit"], m_c[s], s_c[s], ys_te_fit[s], m_t[s], s_t[s])
@@ -532,9 +556,11 @@ def evaluate_config_grid(
     ckpt_dir: str | None = None,
     log_fn: Callable[[dict], None] | None = None,
     device=None,
+    split_mesh=None,
 ) -> dict:
     """Run a whole grid of configurations as one replica-stacked protocol
-    fit on ``device`` (the card unless ``"cpu"`` is asked for).
+    fit on ``device`` (the card unless ``"cpu"`` is asked for), its
+    replicas sharded over ``split_mesh``'s ranks when given.
 
     ``overrides``: one dict a configuration, keys from ``_GRID_KEYS``,
     values replacing ``base``'s. Replica ``r = c * n_splits + s`` is split
@@ -594,7 +620,7 @@ def evaluate_config_grid(
         ignore_kl=base.ignore_kl,
         # warm-up and freeze ride the per-replica hyper below
     )
-    trainer = Trainer(net, tcfg, device=device, replicas=R)
+    trainer = Trainer(net, tcfg, device=device, replicas=R, split_mesh=split_mesh)
 
     splits = _make_splits(X, y, dataclasses.replace(base, calibrate=False), n, n_test)
     Xs_tr = np.tile(np.stack([d["X_tr"] for d in splits]), (C, 1, 1))
@@ -636,7 +662,7 @@ def evaluate_config_grid(
         # its configuration's (Adam's state is zero at init)
         with torch.no_grad():
             net.likelihood.rho.copy_(
-                torch.as_tensor(rep([_inv_softplus(c.sigma0) for c in cfgs]))
+                trainer.replica_part(torch.as_tensor(rep([_inv_softplus(c.sigma0) for c in cfgs])))
             )
 
     t0 = time.time()
@@ -650,7 +676,7 @@ def evaluate_config_grid(
     y_hat = trainer.predict(Xs_te, _generator(device, 0))
     metrics = trainer.metrics(ys_te, y_hat)
     if base.heteroscedastic and "rmse" not in metrics:
-        metrics["rmse"] = _hetero_rmse(net, y_hat, ys_te)
+        metrics["rmse"] = _hetero_rmse(net, trainer.gather_replicas(y_hat), ys_te)
 
     out_configs = []
     for c_i, o in enumerate(overrides):

@@ -6,6 +6,8 @@ Counterpart of ``experiments/run_scaling.py`` on one card::
     python -m whvi_tpu_torch.experiments.run_scaling [--sizes 1024 4096 8192]
         [--batch 256] [--samples 8] [--steps 50] [--repeats 1] [--predict]
         [--precision fp32|bf16] [--dtype f32|bf16] [--profile N] [--seed 0]
+        [--mesh DxS [--dist-backend nccl|gloo] | --force-cpu-devices N]
+    torchrun --nproc-per-node N -m whvi_tpu_torch.experiments.run_scaling --mesh DxS
 
 Model (``run_scaling.py:114-123``): ``WHVILinear(D, D, lambda_=3.0,
 s_init="auto")``, relu, the same again, relu, ``WHVILinear(D, 1,
@@ -67,27 +69,47 @@ a step; ``top_kernels``, the ``TOP_KERNELS`` kernels with the most
 device time, ms a step each; and ``optimizer_host_ms``, the host time a step
 inside ``Optimizer.step`` (train only).
 
-Not ported: ``--mesh`` and ``--force-cpu-devices`` (one card; the sharded
-step waits for the ``parallel/`` port), ``--backend`` (replaced by
-``--precision``) and ``--cpu``
-(:func:`run` takes its device; :func:`main` refuses to run without a
-card).
+``--mesh DxS`` (``run_scaling.py:46``) runs the sharded step
+(``parallel.make_sharded_train_step``, MC samples over S ranks, batch rows
+over D) and predict (``parallel.make_sharded_predict``, each rank's block
+left unsharded-unassembled, as JAX leaves it sharded) over a world of
+``D * S`` ranks: the group it runs in (under ``torchrun``), a world of one
+in this process for ``1x1``, or ranks it spawns, on the cards with
+``--dist-backend nccl`` (the default, one card a rank) or ``gloo``
+(ranks may share a card). ``--force-cpu-devices N`` spawns ``N`` gloo
+ranks on the CPU, the counterpart of JAX's ``N`` virtual CPU devices.
+Without ``--mesh`` the step is one device's ``Trainer.train_step``, as
+before. Mesh rows add JAX's ``"mesh": {"data", "sample"}`` and the port's
+``"backend"`` and ``"ranks_per_card"`` (null on the CPU); their times and
+``max_memory_gb`` are rank 0's, and rank 0 prints. Not ported:
+``--backend`` (replaced by ``--precision``) and ``--cpu`` (:func:`run`
+takes its device; :func:`main` refuses to run without a card unless
+``--force-cpu-devices`` asks for the CPU).
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from whvi_tpu_torch.bench.common import device_name, emit, header
 from whvi_tpu_torch.models import WHVILinear, WHVIRegression, relu
 from whvi_tpu_torch.ops import check_storage, get_whvi_mul_precision, set_whvi_mul_precision
+from whvi_tpu_torch.parallel.distributed import init_distributed, rank_device, spawn
+from whvi_tpu_torch.parallel.mesh import make_mesh, make_sharded_predict, make_sharded_train_step
 from whvi_tpu_torch.train import TrainConfig, Trainer
-from whvi_tpu_torch.utils.profiling import device_profile, elbo_step_flops, whvi_mul_flops
+from whvi_tpu_torch.utils.profiling import (
+    device_profile,
+    elbo_step_flops,
+    require_cuda,
+    whvi_mul_flops,
+)
 
 __all__ = [
     "DTYPES", "TRIALS", "WARM_S", "build_net", "data", "finite", "main", "profile", "run",
@@ -157,6 +179,18 @@ def _least_times(fn, k: int) -> tuple[float, float, float]:
     return best[0], best[1], value
 
 
+def _closing_barrier(fn, mesh):
+    """``fn(k)`` ending on every rank of ``mesh`` at once (a barrier), so
+    that the next run starts on every rank together."""
+
+    def run_k(k):
+        value = fn(k)
+        mesh.barrier()
+        return value
+
+    return run_k
+
+
 def run(
     D: int,
     *,
@@ -170,11 +204,14 @@ def run(
     dtype: str = "f32",
     seed: int = 0,
     profile_steps: int = 0,
+    mesh=None,
 ) -> list[dict]:
     """Train (or predict with) the scaling model at width ``D`` on
     ``device`` in storage ``dtype`` (``"f32"`` or ``"bf16"``); print and
     return one row per repeat, each with :func:`profile`'s reading of
-    ``profile_steps`` more steps on a card."""
+    ``profile_steps`` more steps on a card. With a ``(data, sample)``
+    ``mesh`` every rank calls this, the step and predict are the sharded
+    ones, and rank 0 prints."""
     device = torch.device(device)
     storage = DTYPES[dtype]
     check_storage(precision, storage)
@@ -185,10 +222,18 @@ def run(
             torch.cuda.reset_peak_memory_stats(device)
             held = torch.cuda.memory_allocated(device)  # not this run's
         net = build_net(D, samples, dtype=storage)
-        trainer = Trainer(net, TrainConfig(), device=device)
+        if mesh is None:
+            trainer = Trainer(net, TrainConfig(), device=device)
+            train_step, forward = trainer.train_step, lambda x, g: net.predict(x, samples, g)
+        else:
+            train_step = make_sharded_train_step(net, mesh, TrainConfig(), device=device)
+            trainer, forward = train_step.trainer, make_sharded_predict(net, mesh, samples)
         state = trainer.init(seed)
         net = trainer.net
         X, y = data(D, batch, seed, device, storage)
+
+        def agree(flag: bool) -> bool:  # every rank of a mesh takes one decision
+            return flag if mesh is None else mesh.agree(flag)
 
         if predict:
             generator = torch.Generator(device=device).manual_seed(seed + 1)
@@ -197,7 +242,9 @@ def run(
             def go(k):
                 acc = torch.zeros((), device=device)  # float32: the sum of bf16 sums
                 for _ in range(k):
-                    acc += net.predict(X, samples, generator).sum()
+                    acc += forward(X, generator).sum()
+                if mesh is not None:  # the blocks' sums
+                    mesh.all_reduce(acc)
                 return float(acc) / (k * samples * batch)
 
             flops = samples * 2 * whvi_mul_flops(D, batch)
@@ -205,18 +252,22 @@ def run(
 
             def go(k):
                 for _ in range(k):
-                    metrics = trainer.train_step(state, X, y, batch, True)
+                    metrics = train_step(state, X, y, batch, True)
                 return float(metrics["loss"])
 
             flops = elbo_step_flops([D, D], batch, samples)
 
+        if mesh is not None:
+            go = _closing_barrier(go, mesh)
         end = time.perf_counter() + WARM_S
         go(steps)  # warm-up: the kernels' build and first launches
-        while device.type == "cuda" and time.perf_counter() < end:
+        while agree(device.type == "cuda" and time.perf_counter() < end):
             go(steps)
         rows = []
         for _ in range(repeats):
             t1, t2, value = _least_times(go, steps)
+            if mesh is not None:  # the slowest rank's, the same on every rank
+                t1, t2 = mesh.max([t1, t2])
             if t2 <= t1:
                 raise RuntimeError(
                     f"{2 * steps} steps took no longer than {steps} "
@@ -241,6 +292,14 @@ def run(
                     posterior_samples_per_s=samples * batch / dt,
                     loss=value,
                 )
+            if mesh is not None:
+                cards = torch.cuda.device_count() if device.type == "cuda" else 0
+                local = int(os.environ.get("LOCAL_WORLD_SIZE", mesh.size))
+                row.update(
+                    mesh={"data": mesh.shape["data"], "sample": mesh.shape["sample"]},
+                    backend=mesh.backend,
+                    ranks_per_card=-(-local // cards) if cards else None,
+                )
             if profile_steps and device.type == "cuda":
                 row.update(profile(go, profile_steps))
             row.update(
@@ -252,7 +311,7 @@ def run(
                     if device.type == "cuda" else None
                 ),
             )
-            rows.append(emit(row))
+            rows.append(emit(row) if mesh is None or mesh.rank == 0 else row)
         return rows
     finally:
         set_whvi_mul_precision(previous)
@@ -283,18 +342,59 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="add torch.profiler's reading of N more steps to each row")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default=None, metavar="DxS",
+                    help="shard the batch over D ranks and the MC samples over S")
+    ap.add_argument("--dist-backend", default="nccl", choices=("nccl", "gloo"),
+                    help="the mesh's torch.distributed backend on the cards (nccl: one "
+                    "card a rank; gloo: ranks may share a card)")
+    ap.add_argument("--force-cpu-devices", type=int, default=0, metavar="N",
+                    help="run the mesh as N gloo ranks on the CPU")
     args = ap.parse_args(argv)
     check_storage(args.precision, DTYPES[args.dtype])
-    header("run_scaling")
+    if args.mesh is None:
+        if args.force_cpu_devices:
+            ap.error("--force-cpu-devices needs --mesh")
+        header("run_scaling")
+        return _rows(torch.device("cuda", 0), args)
+    d, s = (int(v) for v in args.mesh.split("x"))
+    if args.force_cpu_devices:
+        if args.force_cpu_devices != d * s:
+            ap.error(f"--mesh {args.mesh} needs {d * s} ranks, not {args.force_cpu_devices}")
+        kind, backend = "cpu", "gloo"
+    else:
+        require_cuda()
+        kind, backend = "cuda", args.dist_backend
+    if dist.is_initialized() or "RANK" in os.environ or d * s == 1:
+        joined = dist.is_initialized()  # a group of the caller's, or torchrun's, or one here
+        init_distributed(backend)
+        try:
+            return _mesh_rows(rank_device(kind), args, d, s)
+        finally:
+            if not joined:
+                dist.destroy_process_group()
+    return spawn(_mesh_rows, d * s, backend, kind, args, d, s)[0]
+
+
+def _rows(device, args, mesh=None) -> list[dict]:
     rows = []
     for D in args.sizes:
         rows += run(
-            D, device=torch.device("cuda", 0), batch=args.batch,
-            samples=args.samples, steps=args.steps, repeats=args.repeats,
-            predict=args.predict, precision=args.precision, dtype=args.dtype,
-            seed=args.seed, profile_steps=args.profile,
+            D, device=device, batch=args.batch, samples=args.samples, steps=args.steps,
+            repeats=args.repeats, predict=args.predict, precision=args.precision,
+            dtype=args.dtype, seed=args.seed, profile_steps=args.profile, mesh=mesh,
         )
     return rows
+
+
+def _mesh_rows(device, args, d: int, s: int) -> list[dict]:
+    """One rank's rows over the ``d x s`` mesh (rank 0 prints the header)."""
+    mesh = make_mesh(d, s)
+    if mesh.rank == 0:
+        if device.type == "cuda":
+            header("run_scaling")
+        else:
+            emit({"tool": "run_scaling", "device": "cpu", "ranks": mesh.size})
+    return _rows(device, args, mesh)
 
 
 if __name__ == "__main__":

@@ -19,10 +19,16 @@ Positions are trees of tensors (dicts, lists, tuples; leaves
 package's order: dict keys sorted, so ``{layer_index: g}`` runs by layer
 (``jax.flatten_util.ravel_pytree``, :func:`ravel`).
 
+Chains on a mesh (``mesh=``, :mod:`whvi_tpu_torch.parallel`): the chain
+axis is split over every rank, ``n_chains`` a multiple of the world size.
+Every rank draws the **global** random numbers (the jittered starts, and
+each step's draws for all ``n_chains`` chains) and keeps its chains', so
+the sharded chains draw what the unsharded ones draw; no collective runs
+until the draws and statistics are gathered at the end.
+
 What the JAX module has and this one does not: the jit-cache keyed on a
 log density's structure (nothing here is traced, so
-:class:`StructuredLogProb` has no ``structure_key``), and ``mesh=``
-(chains sharded over a device mesh; one GPU here).
+:class:`StructuredLogProb` has no ``structure_key``).
 """
 
 from __future__ import annotations
@@ -143,6 +149,8 @@ def run_chains(
     jitter: float,
     inits=None,
     draws=None,
+    mesh=None,
+    make_draws: Callable | None = None,
 ):
     """Shared driver behind ``hmc_sample_chains``, ``nuts_sample_chains``
     and ``pt_sample_chains``.
@@ -156,7 +164,32 @@ def run_chains(
     multimodal BNN posterior; otherwise :func:`jittered_inits` from
     ``generator``. ``draws``: the sampler's random numbers given instead
     of drawn (see each sampler).
+
+    ``mesh``: a mesh whose every axis splits the chain axis (the JAX
+    ``P(mesh.axis_names)``); ``make_draws(generator, n_chains, dim,
+    device, dtype)`` is the sampler's maker of the whole run's draws,
+    which every rank calls and slices. Each rank runs its chains and the
+    results are gathered: every rank returns every chain.
     """
+    if mesh is not None and n_chains % mesh.size:
+        raise ValueError(
+            f"n_chains={n_chains} must be a multiple of the mesh device count "
+            f"{mesh.size} to shard the chain axis"
+        )
     if inits is None:
         inits = jittered_inits(init_position, generator, n_chains, jitter)
-    return sample_fn(log_prob_fn, inits, generator, config, draws)
+    if mesh is None:
+        return sample_fn(log_prob_fn, inits, generator, config, draws)
+    mine = mesh.part(n_chains, mesh.axis_names)
+    if draws is None:
+        q, _ = ravel(inits)
+        draws = make_draws(generator, n_chains, q.shape[1], q.device, q.dtype)
+    samples, stats = sample_fn(
+        log_prob_fn, tree_map(lambda a: a[mine], inits), None, config,
+        lambda t: tree_map(lambda a: a[mine], draws(t)),
+    )
+    whole = {0: mesh.axis_names}
+    return (
+        tree_map(lambda a: mesh.gather(a, whole), samples),
+        {k: mesh.gather(v, whole) for k, v in stats.items()},
+    )

@@ -312,15 +312,17 @@ def hmc_sample_chains(
     jitter: float = 0.1,
     inits=None,
     draws=None,
+    mesh=None,
 ):
     """``n_chains`` independent HMC chains in one batched run. Chain c
     starts at ``init_position + jitter * N(0, I)`` unless ``inits`` (a
     tree with a leading ``n_chains`` axis) gives the starts. Every output
     leaf has a leading ``(n_chains,)`` axis, the shape
-    :mod:`whvi_tpu_torch.mcmc.diagnostics` reads."""
+    :mod:`whvi_tpu_torch.mcmc.diagnostics` reads. ``mesh``: the chains
+    split over its ranks (:func:`~whvi_tpu_torch.mcmc.chains.run_chains`)."""
     return run_chains(
         _hmc_chains, log_prob_fn, init_position, generator, config, n_chains, jitter,
-        inits, draws,
+        inits, draws, mesh, hmc_draws,
     )
 
 

@@ -265,12 +265,18 @@ def nuts_sample_chains(
     jitter: float = 0.1,
     inits=None,
     draws=None,
+    mesh=None,
 ):
     """``n_chains`` independent NUTS chains (over-dispersed jittered starts
     unless ``inits``) in one batched run; every output leaf gains a
     leading ``(n_chains,)`` axis, ready for
-    :mod:`whvi_tpu_torch.mcmc.diagnostics`."""
+    :mod:`whvi_tpu_torch.mcmc.diagnostics`. ``mesh``: the chains split
+    over its ranks (:func:`~whvi_tpu_torch.mcmc.chains.run_chains`)."""
+
+    def make_draws(gen, C, dim, device, dtype):
+        return nuts_draws(gen, C, dim, config.max_tree_depth, device, dtype)
+
     return run_chains(
         _nuts_chains, log_prob_fn, init_position, generator, config, n_chains, jitter,
-        inits, draws,
+        inits, draws, mesh, make_draws,
     )

@@ -212,11 +212,17 @@ def pt_sample_chains(
     jitter: float = 0.1,
     inits=None,
     draws=None,
+    mesh=None,
 ):
     """``n_chains`` independent tempering ladders in one batched run (for
     split-R-hat and ESS over the cold-rung draws): chains and rungs are
-    the two leading axes of every state tensor."""
+    the two leading axes of every state tensor. ``mesh``: the ladders
+    split over its ranks (:func:`~whvi_tpu_torch.mcmc.chains.run_chains`)."""
+
+    def make_draws(gen, C, dim, device, dtype):
+        return pt_draws(gen, C, config.n_rungs, dim, device, dtype)
+
     return run_chains(
         _pt_chains, log_prob_fn, init_position, generator, config, n_chains, jitter,
-        inits, draws,
+        inits, draws, mesh, make_draws,
     )

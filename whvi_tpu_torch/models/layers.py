@@ -119,13 +119,18 @@ class WHVILinear(nn.Module):
             return y
         return y + replica_view(self.bias, y.dim(), self.replicas)
 
+    @property
+    def noise_per_example(self) -> bool:
+        """Whether the forward draws one noise row a batch row."""
+        return self.lrt and self.per_example_noise
+
+    def draw_eps(self, lead, generator=None, dtype=None, device=None) -> torch.Tensor:
+        """The ``eps`` that :meth:`forward` draws from ``generator`` for an
+        input of shape ``(*lead, n_in)``, drawn now."""
+        return self.matrix.draw_eps(lead, generator, self.noise_per_example, dtype, device)
+
     def forward(self, x, generator=None, eps=None):
-        y = self.matrix(
-            x,
-            generator,
-            per_example_noise=self.lrt and self.per_example_noise,
-            eps=eps,
-        )
+        y = self.matrix(x, generator, per_example_noise=self.noise_per_example, eps=eps)
         return self._add_bias(y)
 
     def sample_W(self, generator=None, eps=None) -> torch.Tensor:
@@ -174,6 +179,9 @@ class Dense(nn.Module):
         del lambda_
         return self.w.new_zeros(self.w.shape[:1] if self.replicas else ())
 
+    def draw_eps(self, lead, generator=None, dtype=None, device=None) -> None:
+        del lead, generator, dtype, device
+
     def forward(self, x, generator=None, eps=None):
         del generator, eps
         y = x @ replica_view(self.w, x.dim(), self.replicas)
@@ -208,6 +216,9 @@ class Parallel(nn.Module):
             )
         return sum(b.kl(lam) for b, lam in zip(self.branches, lambda_))
 
+    def draw_eps(self, lead, generator=None, dtype=None, device=None) -> tuple:
+        return tuple(b.draw_eps(lead, generator, dtype, device) for b in self.branches)
+
     def forward(self, x, generator=None, eps=None):
         if eps is None:
             eps = (None,) * len(self.branches)
@@ -235,6 +246,9 @@ class Activation(nn.Module):
     def kl(self, lambda_=None) -> float:
         del lambda_
         return 0.0
+
+    def draw_eps(self, lead, generator=None, dtype=None, device=None) -> None:
+        del lead, generator, dtype, device
 
     def forward(self, x, generator=None, eps=None):
         del generator, eps

@@ -14,7 +14,8 @@ forward computes all samples:
 ``eps`` is an optional per-layer list of noise tensors (None for
 deterministic layers, a tuple of per-branch entries for ``Parallel``)
 replacing the generator's draws, so tests can feed both packages the same
-noise.
+noise. ``draw_noise`` draws ahead exactly what a forward would draw (the
+mesh draws a batch's global noise this way and slices its shard).
 
 :func:`stack_replicas` turns a network into ``R`` independent replicas
 trained together (the JAX trainer's ``vmap_splits``): every parameter
@@ -103,6 +104,13 @@ class WHVINetwork(nn.Module):
         for layer, e in zip(self.layers, eps):
             x = layer(x, generator, e)
         return x
+
+    def draw_noise(self, lead, generator=None, dtype=torch.float32, device=None) -> list:
+        """The per-layer ``eps`` that :meth:`forward` draws from
+        ``generator`` for an input ``x`` of shape ``(*lead, n_in)``, drawn
+        now by the layers' own ``draw_eps``, in the forward's order (so the
+        same numbers)."""
+        return [layer.draw_eps(lead, generator, dtype, device) for layer in self.layers]
 
     def predict(self, x, n_samples: int, generator=None, eps=None):
         """``(S, B, n_out)`` MC predictions for ``x (B, n_in)``; ``(R, S,

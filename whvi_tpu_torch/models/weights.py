@@ -164,6 +164,14 @@ class _WHVIMatrix(nn.Module):
         lead = x.shape[:-1] if per_example_noise else x.shape[:-2] + (1,)
         return tuple(lead) + tuple(core)
 
+    def draw_eps(self, lead, generator=None, per_example_noise: bool = False, dtype=None,
+                 device=None) -> torch.Tensor:
+        """The noise :meth:`forward` draws from ``generator`` for an input
+        of shape ``(*lead, n_in)`` when it is given none."""
+        x = torch.empty(tuple(lead) + (0,), device="meta")
+        return torch.randn(self.noise_shape(x, per_example_noise), generator=generator,
+                           device=device, dtype=dtype)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -175,12 +183,7 @@ class _WHVIMatrix(nn.Module):
         ``g = g_mu + softplus(g_rho) * eps``, with ``eps`` drawn from
         ``generator`` unless given."""
         if eps is None:
-            eps = torch.randn(
-                self.noise_shape(x, per_example_noise),
-                generator=generator,
-                device=x.device,
-                dtype=x.dtype,
-            )
+            eps = self.draw_eps(x.shape[:-1], generator, per_example_noise, x.dtype, x.device)
         g = self._view(self.g_mu, eps.dim()) + self._view(self.g_sigma(), eps.dim()) * eps
         return self.apply_given_g(x, g, per_example_noise)
 

@@ -36,7 +36,20 @@ as ``jnp.asarray(.., dtype)`` casts them, the padding weights, noise,
 products, KL and likelihood are bf16 (the loss float32, as JAX's), and
 Adam is ``OptaxAdam``, its moments bf16 (``train/optim.py``).
 
-The mesh (``mesh=``, ``split_mesh=``) is not ported.
+Meshes (:mod:`whvi_tpu_torch.parallel`): with ``mesh=`` (a ``(data,
+sample)`` mesh) every rank of the world runs the same trainer, the loss is
+:func:`~whvi_tpu_torch.parallel.sharded_loss_fn` (MC samples over
+``sample``, batch rows over ``data``, one all-reduce a step), the batch is
+rounded up to the data-shard multiple with weight-0 padding rows, and
+``predict`` pads the rows to that multiple, runs the sharded predict and
+gathers. ``split_mesh=`` (a ``("split",)`` mesh, with ``replicas=R``)
+gives every rank ``R / world`` of the replicas, initialized from its
+slice of the seeds, and its slice of the data; a step needs no
+collective. Every rank draws what the unsharded run draws (global noise,
+permutation keys) from the same generator and slices its own, so both
+equal their one-device runs. Whatever draws from the generator runs on
+every rank; checkpoints are written by rank 0 (a split stack gathered
+first) and restored on every rank.
 """
 
 from __future__ import annotations
@@ -100,11 +113,14 @@ class TrainState:
     step: int = 0  # global batch step (drives the lr schedule and KL warm-up)
 
 
-def batch_layout(n_train: int, batch_size: int, dtype=torch.float32, device=None):
+def batch_layout(
+    n_train: int, batch_size: int, dtype=torch.float32, device=None, data_shards: int = 1,
+):
     """``(B, num_batches, weights)`` of an epoch: ``B = min(batch_size,
-    n_train)``, the index range wrap-padded to ``num_batches * B`` rows,
+    n_train)`` rounded up to a multiple of ``data_shards`` (a mesh's data
+    axis), the index range wrap-padded to ``num_batches * B`` rows,
     ``weights (num_batches, B)`` 1 for real rows and 0 for padding."""
-    B = min(batch_size, n_train)
+    B = -(-min(batch_size, n_train) // data_shards) * data_shards
     num_batches = -(-n_train // B)
     weights = (torch.arange(num_batches * B, device=device) < n_train).to(dtype)
     return B, num_batches, weights.reshape(num_batches, B)
@@ -143,19 +159,65 @@ class Trainer:
 
     def __init__(
         self, net, config: TrainConfig = TrainConfig(), device=None,
-        replicas: int | None = None,
+        replicas: int | None = None, mesh=None, split_mesh=None,
     ):
+        if mesh is not None and replicas is not None:
+            raise ValueError(
+                "replicas and mesh are mutually exclusive (replicas train on one "
+                "device; shard replicas across devices with split_mesh instead)"
+            )
+        if split_mesh is not None and replicas is None:
+            raise ValueError("split_mesh requires replicas")
         self.device = torch.device(
             device if device is not None else next(net.parameters()).device
         )
-        if replicas is not None:
-            stack_replicas(net, replicas)
         self.replicas = replicas
+        self.mesh = mesh
+        self.split_mesh = split_mesh
+        self._part = slice(None)  # this rank's replicas
+        if replicas is not None:
+            local = replicas
+            if split_mesh is not None:
+                self._part = split_mesh.part(replicas, "split")
+                local = replicas // split_mesh.size
+            stack_replicas(net, local)
         self.net = net.to(self.device)
         self.config = config
         self.dtype = next(net.parameters()).dtype
         if config.noise_freeze_steps > 0:
             validate_split_head(net)
+        if mesh is not None:
+            from whvi_tpu_torch.parallel.mesh import make_sharded_predict, sharded_loss_fn
+
+            self._sharded_loss = sharded_loss_fn(net, mesh, net.train_samples, config.ignore_kl)
+            make_sharded_predict(net, mesh, net.eval_samples)  # refuses eval_samples up front
+        self._group = mesh or split_mesh  # the ranks that run this trainer together
+
+    def replica_part(self, a):
+        """This rank's replicas of a whole-stack ``a`` (leading axis ``R``):
+        ``a`` itself without a split mesh."""
+        return a if self.split_mesh is None else a[self._part]
+
+    def gather_replicas(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole stack of a tensor of which this rank holds its
+        replicas (leading axis): ``t`` itself without a split mesh."""
+        return t if self.split_mesh is None else self.split_mesh.gather(t, {0: "split"})
+
+    def _split_noise(self, x, n_samples: int, generator) -> list:
+        """This rank's block of the whole stack's noise for ``x (R_local,
+        B, n_in)``: the unsharded stack's draws, sliced."""
+        from whvi_tpu_torch.parallel.mesh import local_noise
+
+        B = x.shape[-2]
+        eps = self.net.draw_noise((self.replicas, n_samples, B), generator, x.dtype, x.device)
+        return local_noise(eps, self._part, None, B)
+
+    def _refuse_hyper(self, hyper) -> None:
+        if hyper and self.mesh is not None:
+            raise ValueError(
+                "hyper overrides ride the replica axis; they are not supported "
+                "with the mesh loss"
+            )
 
     # ---------------------------------------------------------------- init
     def init(self, seed: int | Sequence[int]) -> TrainState:
@@ -164,7 +226,9 @@ class Trainer:
         device, whose stream the run's noise and permutations continue.
         A replicated net takes one seed a replica: replica ``r`` is drawn
         from a generator seeded ``seed[r]``, exactly as an unreplicated
-        net from that seed, and the run continues replica 0's stream."""
+        net from that seed, and the run continues replica 0's stream (on
+        every rank of a split mesh, each rank holding its slice of the
+        seeds' replicas)."""
         cfg = self.config
         seeds = [seed] if isinstance(seed, (int, np.integer)) else [int(s) for s in seed]
         if len(seeds) != (self.replicas or 1):
@@ -173,8 +237,9 @@ class Trainer:
         if self.replicas is None:
             self.net.reset_parameters(generator)
         else:
-            for r, s in enumerate(seeds):
-                g = generator if r == 0 else torch.Generator(device=self.device).manual_seed(s)
+            self.net.reset_parameters(generator, replica=0)  # the run's stream goes on from here
+            for r, s in enumerate(seeds[self._part]):
+                g = torch.Generator(device=self.device).manual_seed(s)
                 self.net.reset_parameters(g, replica=r)
         optimizer, scheduler = decayed_adam(
             self.net.parameters(), cfg.lr0, cfg.gamma, cfg.p
@@ -205,6 +270,7 @@ class Trainer:
         layer, as ``WHVINetwork.kl``), as JAX's ``train_step(hyper=...)``."""
         cfg = self.config
         hyper = hyper or {}
+        self._refuse_hyper(hyper)
         kl_scale, train_noise = hyper_schedule(hyper, state.step)
         if kl_scale is not None:
             kl_scale = self._per_replica(kl_scale)
@@ -213,19 +279,26 @@ class Trainer:
         else:
             kl_scale = 1.0
         state.optimizer.zero_grad(set_to_none=False)
-        loss, aux = self.net.loss(
-            x,
-            y,
-            n,
-            state.generator,
-            ignore_kl=cfg.ignore_kl,
-            kl_scale=kl_scale,
-            weights=weights,
-            eps=eps,
-            lambdas=hyper.get("lambdas"),
-        )
-        # replicas share no parameter: the sum's gradient is each replica's own
-        (loss if self.replicas is None else loss.sum()).backward()
+        if self.mesh is not None:  # the backward and the all-reduce inside
+            loss, aux = self._sharded_loss(
+                x, y, n, state.generator, kl_scale=kl_scale, weights=weights, eps=eps
+            )
+        else:
+            if eps is None and self.split_mesh is not None:
+                eps = self._split_noise(x, self.net.train_samples, state.generator)
+            loss, aux = self.net.loss(
+                x,
+                y,
+                n,
+                state.generator,
+                ignore_kl=cfg.ignore_kl,
+                kl_scale=kl_scale,
+                weights=weights,
+                eps=eps,
+                lambdas=hyper.get("lambdas"),
+            )
+            # replicas share no parameter: the sum's gradient is each replica's own
+            (loss if self.replicas is None else loss.sum()).backward()
         mask_likelihood_grads(self.net, train_likelihood)
         if train_noise is not None:
             mask_noise_branch_grads(self.net, self._per_replica(train_noise))
@@ -250,12 +323,12 @@ class Trainer:
             perm = torch.randperm(n_train, generator=state.generator, device=wrap.device)
             return perm[wrap]
         if not self.config.shuffle:
-            return wrap.expand(self.replicas, -1)
+            return wrap.expand(self.net.replicas, -1)
         keys = torch.rand(
             self.replicas, n_train, generator=state.generator, device=wrap.device,
             dtype=torch.float64,
-        )
-        return torch.argsort(keys, dim=1)[:, wrap]
+        )  # the whole stack's, on every rank of a split mesh
+        return torch.argsort(keys[self._part], dim=1)[:, wrap]
 
     def run_epochs(self, state, X, Y, train_likelihood: bool, n_epochs: int, hyper=None):
         """``n_epochs`` epochs over ``X (n, d)``, ``Y (n, out)`` (``(R, n,
@@ -264,7 +337,8 @@ class Trainer:
         cfg = self.config
         n_train = X.shape[-2]
         B, num_batches, weights = batch_layout(
-            n_train, cfg.batch_size, X.dtype, X.device
+            n_train, cfg.batch_size, X.dtype, X.device,
+            self.mesh.shape["data"] if self.mesh is not None else 1,
         )
         wrap = torch.arange(num_batches * B, device=X.device) % n_train
         metrics = {}
@@ -275,9 +349,10 @@ class Trainer:
                 yb = Y[idx].reshape(num_batches, B, -1)
             else:
                 # (num_batches, R, B, .): each batch one contiguous block
-                rows = torch.arange(self.replicas, device=X.device)[:, None]
-                xb = X[rows, idx].reshape(self.replicas, num_batches, B, -1)
-                yb = Y[rows, idx].reshape(self.replicas, num_batches, B, -1)
+                R = self.net.replicas
+                rows = torch.arange(R, device=X.device)[:, None]
+                xb = X[rows, idx].reshape(R, num_batches, B, -1)
+                yb = Y[rows, idx].reshape(R, num_batches, B, -1)
                 xb = xb.transpose(0, 1).contiguous()
                 yb = yb.transpose(0, 1).contiguous()
             for b in range(num_batches):
@@ -291,7 +366,7 @@ class Trainer:
         X = torch.as_tensor(X, dtype=self.dtype, device=self.device)
         y = torch.as_tensor(y, dtype=self.dtype, device=self.device)
         data_ndim = 2 if self.replicas is None else 3
-        return X, (y if y.ndim >= data_ndim else y[..., None])
+        return self.replica_part(X), self.replica_part(y if y.ndim >= data_ndim else y[..., None])
 
     # ----------------------------------------------------------- checkpoint
     def state_tree(self, state: TrainState) -> dict:
@@ -346,10 +421,33 @@ class Trainer:
         state.step = int(tree["step"])
         state.generator.set_state(tree["generator"].cpu())
 
+    _STACKED = ("params", "exp_avg", "exp_avg_sq")  # a leading replica axis
+
+    def _whole_tree(self, state: TrainState) -> dict:
+        """:meth:`state_tree` of the whole stack (gathered over a split
+        mesh: every rank takes part)."""
+        tree = self.state_tree(state)
+        if self.split_mesh is not None:
+            for k in self._STACKED:
+                tree[k] = tuple(self.gather_replicas(t) for t in tree[k])
+        return tree
+
+    def save(self, path: str, state: TrainState, metadata: dict | None = None) -> None:
+        """Save ``state`` to ``path`` (rank 0 writes; every rank of a mesh
+        calls, and returns once the file is there)."""
+        tree = self._whole_tree(state)
+        if self._group is None or self._group.rank == 0:
+            save_checkpoint(path, tree, metadata)
+        if self._group is not None:
+            self._group.barrier()
+
     def restore(self, path: str, state: TrainState) -> dict:
-        """Restore ``state`` from the checkpoint ``path``; returns its
+        """Restore ``state`` from the checkpoint ``path`` (on every rank of a
+        mesh, each taking its replicas of a split stack); returns its
         metadata. Raises on a checkpoint of another net or optimizer."""
-        tree, meta = restore_checkpoint(path, self.state_tree(state))
+        tree, meta = restore_checkpoint(path, self._whole_tree(state))
+        for k in self._STACKED:
+            tree[k] = tuple(self.replica_part(t) for t in tree[k])
         self.load_state_tree(state, tree)
         return meta
 
@@ -364,9 +462,12 @@ class Trainer:
                 return None
             if isinstance(t, (tuple, list)):
                 return tuple(put(v) for v in t)
-            return torch.as_tensor(t, dtype=self.dtype, device=self.device)
+            return self.replica_part(torch.as_tensor(t, dtype=self.dtype, device=self.device))
 
-        out = {k: np.asarray(v, np.float32) for k, v in hyper.items() if k != "lambdas"}
+        out = {
+            k: self.replica_part(np.asarray(v, np.float32))
+            for k, v in hyper.items() if k != "lambdas"
+        }
         if hyper.get("lambdas") is not None:
             out["lambdas"] = put(hyper["lambdas"])
         return out
@@ -395,6 +496,7 @@ class Trainer:
         checkpoint holds the whole stack. ``hyper``: per-replica overrides
         (see :meth:`train_step`)."""
         cfg = self.config
+        self._refuse_hyper(hyper)
         hyper = self._hyper_on_device(hyper)
         X, y = self._as_data(X, y)
         start_epoch = 0
@@ -419,9 +521,12 @@ class Trainer:
             metrics = self.run_epochs(state, X, y, not in_phase1, chunk, hyper)
             epoch += chunk
             # the chunk's one host fetch (replica means)
-            loss, mnll, kl = torch.stack(
-                [metrics[k].mean() for k in ("loss", "mnll", "kl")]
-            ).tolist()
+            values = torch.stack(
+                [metrics[k].float().reshape(-1) for k in ("loss", "mnll", "kl")]
+            )
+            if self.split_mesh is not None:
+                values = self.split_mesh.gather(values, {1: "split"})
+            loss, mnll, kl = values.mean(dim=1).tolist()
             seconds = time.perf_counter() - t0
             entry = {
                 "epoch": epoch,
@@ -440,29 +545,42 @@ class Trainer:
                 or epoch == total
             ):
                 os.makedirs(ckpt_dir, exist_ok=True)
-                save_checkpoint(
-                    os.path.join(ckpt_dir, f"ckpt-{epoch}.npz"), self.state_tree(state),
-                    {"epoch": epoch},
-                )
+                self.save(os.path.join(ckpt_dir, f"ckpt-{epoch}.npz"), state, {"epoch": epoch})
         return state, logs
 
     # ------------------------------------------------------------ evaluate
     @torch.no_grad()
     def predict(self, X, generator: torch.Generator, n_samples: int | None = None):
         """``eval_samples`` (or ``n_samples``) MC predictions of ``X``:
-        ``(S, B, out)``, ``(R, S, B, out)`` with replicas."""
+        ``(S, B, out)``, ``(R, S, B, out)`` with replicas. On a mesh, the
+        rows are zero-padded to the data-shard multiple, predicted sharded,
+        gathered and cut back; on a split mesh ``X`` is the whole stack's
+        and the result this rank's replicas (:meth:`gather_replicas`)."""
         X = torch.as_tensor(X, dtype=self.dtype, device=self.device)
         S = self.net.eval_samples if n_samples is None else n_samples
+        if self.mesh is not None:
+            from whvi_tpu_torch.parallel.mesh import make_sharded_predict
+
+            B = X.shape[0]
+            pad = -B % self.mesh.shape["data"]
+            pred = make_sharded_predict(self.net, self.mesh, S)
+            return pred.gather(pred(torch.nn.functional.pad(X, (0, 0, 0, pad)), generator))[:, :B]
+        if self.split_mesh is not None:
+            X = self.replica_part(X)
+            return self.net.predict(X, S, eps=self._split_noise(X, S, generator))
         return self.net.predict(X, S, generator)
 
     @torch.no_grad()
     def metrics(self, y, y_hat) -> dict:
         """Test metrics of predictions ``y_hat`` (:meth:`predict`): floats,
-        or ``(R,)`` numpy arrays with replicas."""
+        or ``(R,)`` numpy arrays with replicas (every replica's, on a split
+        mesh, from ``y`` of the whole stack)."""
         y = torch.as_tensor(y, dtype=self.dtype, device=self.device)
-        y = y if y.ndim >= y_hat.ndim - 1 else y[..., None]
+        y = self.replica_part(y if y.ndim >= y_hat.ndim - 1 else y[..., None])
         out = self.net.metrics_from_predictions(y, y_hat)
-        values = torch.stack([v.reshape(-1) for v in out.values()]).cpu().numpy()
+        values = torch.stack([v.reshape(-1) for v in out.values()])
+        values = (values if self.split_mesh is None else self.split_mesh.gather(values, {1: "split"}))
+        values = values.cpu().numpy()
         if self.replicas is None:
             return {k: float(v[0]) for k, v in zip(out, values)}
         return {k: v.astype(np.float64) for k, v in zip(out, values)}
