@@ -164,6 +164,33 @@ Phases, each of which raises on failure:
    9's batch of 4 chains is logged). A rank that fails fails the smoke;
    the phase's parts are timed.
 
+12. The checks and figures (no new kernel), each through its entry point
+   on the card, each part's launches counted alone: (a) bench/grad_check
+   --backend all at --dim 64 and at the scaling path's D=4096 (batch 4):
+   gradcheck and gradgradcheck of both transforms in float64, the
+   autograd Functions' VJPs against the plain versions' (fp32 within
+   grad_check.GRAD_TOL = 1e-5, the bf16 precision within bf16_tol) with
+   K2-K4 and K2-K3 bf16 launched, and the float64 self-adjointness; (b)
+   bench/precision_check at its sizes (D = 1024, 4096, 16384; the auto
+   rows at 2048, 4096, 8192), batch 512, --iters cut from 100 to 20:
+   rel_err_vs_f64 <= PRECISION_BOUND of each mode (fp32 1e-6; the bf16
+   precision and bf16 storage 2^-7), auto_equals_fp32 at every D, K1 in
+   each mode launched (us_per_call and hbm_frac logged beside PERF.md's K1
+   rows); (c) bench/column_lrt_check at its sizes (D = 128, 1024, 8192,
+   300 epochs, 64 draws): every variance finite, K4 launched; the
+   gradient variance's direction at D=8192 logged (JAX's own rows put the
+   column LRT on either side of the explicit sample: PERF.md); (d)
+   bench/diag_matmul at its sizes: match_left and match_right; (e)
+   utils.profiling.trace around one whvi_mul at D=4096 in a fresh
+   process: the trace names whvi_fused_kernel, K1's symbol, and the call
+   launched K1 once (in the smoke's own process, after phase 11's ranks
+   used the card, torch.profiler loses kernel records, and trace raises);
+   (f) bench/make_figures --quick --only toy_fan (500 + 2000 of 500 +
+   20000 epochs): its JSON written, the
+   with-KL net's predictive sd in the gap x in [0.6, 1.4] larger than the
+   no-KL net's, K1-K4 launched. No part may copy an operand for
+   alignment. The parts are timed.
+
 Before the last line it prints one JSON object of the kernels (each with
 its launches on the main path, max abs error, ms, plain_ms, bound_ms,
 bound_by and library_ms; the error and the times both at the scaling
@@ -189,6 +216,7 @@ import time
 import numpy as np
 import torch
 
+from whvi_tpu_torch.bench.common import fused_ops
 from whvi_tpu_torch.utils.profiling import cuda_ms
 
 KERNEL_TOL = 1e-5  # fp32 butterflies: same adds as the plain version
@@ -777,13 +805,6 @@ def bf16_vs_plain(fc, kc, dev, seed) -> dict:
     for label, D, u_lead, x_rows, samples in shapes:
         abs_errs = compare_bf16(fc, kc, dev, gen, label, D, u_lead, x_rows, samples)
     return abs_errs  # the last shape: the scaling path's at D=4096
-
-
-def fused_ops(D: int, rows: int) -> int:
-    """Operations of one fused product over ``rows`` rows: two transforms of
-    D log2 D adds and three diagonal products an element (fp32 CUDA cores;
-    the bf16 mode's roundings are conversions, not operations)."""
-    return rows * (2 * D * int(math.log2(D)) + 3 * D)
 
 
 def _timed(kernel, plain, bound, library=None) -> dict:
@@ -1546,7 +1567,7 @@ def run_sampler_path(fc, dev, seed, posteriors) -> dict:
         f"{max(float(split_rhat(s4[i]).max()) for i in s4):.3f}, ESS min "
         f"{min(float(ess(s4[i]).min()) for i in s4):.1f}")
     log(f"  PT 6-8-1, 2 ladders x 4 rungs x (10 + 10) rounds, 8 leapfrog steps, no host sync: "
-        f"{wall6:.3f} s, {rates['pt_681_rounds_per_s']:.2f} cold draws/s, "
+        f"{wall6:.3f} s, {rates['pt_681_rounds_per_s']:.2f} rounds/s, "
         f"{rates['pt_681_grad_evals_per_s']:.1f} gradient evaluations/s ({evals6} of 8 walkers); "
         f"swap rates {st6['swap_rate'].cpu().numpy().round(2).tolist()}")
     log(f"  predictive of the PT draws on 100 held-out rows: "
@@ -2184,6 +2205,131 @@ def run_mesh_path(fc, dev, seed, protocol_out, nuts_s4) -> None:
     check(not fails, "phase 11: " + "; ".join(fails))
 
 
+# ------------------------------------------------ 12. checks and figures
+
+GRAD_CHECK_DIMS = (64, SCALING_D)
+PRECISION_ITERS = "20"  # precision_check's --iters (100 by default)
+PRECISION_BOUND = {"fp32": 1e-6, "bf16": 2.0**-7, "bf16s": 2.0**-7}
+PRECISION_KERNELS = ("fused_y", "fused_y_bf16", "fused_y_bf16s")  # K1 in each mode
+GRAD_KERNELS = ("fused_res", "fused_bwd", "fused_res_bf16", "fused_bwd_bf16", "fwht")
+TOY_FAN_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")
+# (e): one whvi_mul at D = argv[1] traced into argv[2], in a fresh process
+TRACE_ONE = """
+import json, sys, torch
+from whvi_tpu_torch.ops import fwht_cuda as fc, whvi_mul
+from whvi_tpu_torch.utils.profiling import trace
+dev = torch.device("cuda", 0)
+s1, u, s2, x = (torch.randn(*lead, int(sys.argv[1]), device=dev) for lead in ((), (), (), (256,)))
+whvi_mul(s1, u, s2, x)  # loads the kernel library outside the trace
+fc.reset_launches()
+with trace(sys.argv[2]) as path:
+    whvi_mul(s1, u, s2, x)
+print(json.dumps({"path": path, "launches": {k: v for k, v in fc.LAUNCHES.items() if v},
+                  "realigned": fc.REALIGNED}))
+"""
+
+
+def run_checks_path(fc, dev, seed, tmp) -> None:
+    """Phase 12: the check CLIs, the profiler trace and the toy fan's data,
+    each part's launches counted alone (see the module docstring)."""
+    from whvi_tpu_torch.bench import column_lrt_check, diag_matmul, grad_check, make_figures
+    from whvi_tpu_torch.bench import precision_check
+
+    fails, times = [], {}
+
+    def hold(ok: bool, what: str) -> None:
+        if not ok:
+            fails.append(what)
+
+    def part(name, kernels, fn):
+        torch.cuda.synchronize()
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches = {k: v for k, v in fc.LAUNCHES.items() if v}
+        log(f"  ({name}) launches " + (", ".join(f"{k} {v}" for k, v in launches.items()) or "none")
+            + f"; realigned {fc.REALIGNED}; {times[name]:.1f} s")
+        hold(fc.REALIGNED == 0, f"({name}) copied misaligned operands")
+        for k in kernels:
+            hold(launches.get(k, 0) > 0, f"({name}) launched no {k}")
+        return out
+
+    def grad_checks():
+        return [row for D in GRAD_CHECK_DIMS
+                for row in grad_check.main(["--dim", str(D), "--batch", "4"])]
+
+    rows = part("a", GRAD_KERNELS, grad_checks)
+    hold(len(rows) == 4 * len(GRAD_CHECK_DIMS) and all(r["ok"] for r in rows), "(a) grad_check")
+    for r in rows:
+        if r["backend"] == "kernel":
+            log(f"  (a) D={r['dim']} kernel VJPs against plain: max error fp32 "
+                f"{max(v for k, v in r['errors'].items() if 'fp32' in k):.2e} (<= "
+                f"{r['tol']['fp32']}), bf16 {max(v for k, v in r['errors'].items() if 'bf16' in k):.2e}")
+
+    rows = part("b", PRECISION_KERNELS, lambda: precision_check.main(["--iters", PRECISION_ITERS]))
+    for r in rows:
+        hold(r["auto_equals_fp32"], f"(b) the default precision differs from fp32 at D={r['D']}")
+        if "mode" in r:
+            bound = PRECISION_BOUND[r["mode"]]
+            hold(r["rel_err_vs_f64"] <= bound,
+                 f"(b) {r['mode']} at D={r['D']}: rel_err_vs_f64 {r['rel_err_vs_f64']:.3e} > {bound}")
+            log(f"  (b) D={r['D']:<6} {r['mode']:<6} rel_err_vs_f64 {r['rel_err_vs_f64']:.3e} "
+                f"(<= {bound:.2e}); {r['us_per_call']:.2f} us a call, {r['GBps']:.0f} GB/s, "
+                f"hbm_frac {r['hbm_frac']:.3f}, bound {r['bound_ms'] * 1e3:.2f} us "
+                f"(share {r['bound_ms'] * 1e3 / r['us_per_call']:.3f})")
+
+    rows = part("c", ("fwht",), lambda: column_lrt_check.main([]))
+    for r in rows:
+        hold(all(math.isfinite(r[f"{e}_{v}_var"]) for e in ("explicit", "column_lrt")
+                 for v in ("loss", "grad")), f"(c) a variance is not finite at D={r['D']}")
+        log(f"  (c) D={r['D']:<5} grad_var explicit {r['explicit_grad_var']:.4e} column LRT "
+            f"{r['column_lrt_grad_var']:.4e} (reduction {r['grad_var_reduction']:.3f}); loss_var "
+            f"{r['explicit_loss_var']:.4e} / {r['column_lrt_loss_var']:.4e} "
+            f"(reduction {r['loss_var_reduction']:.3f})")
+    last = rows[-1]
+    log(f"  (c) at D={last['D']} the column LRT's gradient variance is "
+        + ("at most" if last["column_lrt_grad_var"] <= last["explicit_grad_var"] else "above")
+        + " the explicit sample's (logged, not held: PERF.md)")
+
+    rows = part("d", (), lambda: diag_matmul.main([]))
+    hold(all(r["match_left"] and r["match_right"] for r in rows), "(d) diag_matmul mismatch")
+
+    def kernel_events(path):
+        with open(path) as f:
+            return [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+
+    def fresh_trace():
+        # in a fresh process: after phase 11's ranks used the card, this
+        # process's profiler loses kernel records (utils.profiling)
+        out = subprocess.run(
+            [sys.executable, "-c", TRACE_ONE, str(SCALING_D), os.path.join(tmp, "trace")],
+            capture_output=True, text=True, timeout=300, check=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    fresh = part("e", (), fresh_trace)  # its launch counts in the fresh process
+    names = kernel_events(fresh["path"])
+    hold(any("whvi_fused_kernel" in n for n in names),
+         "(e) the trace does not name whvi_fused_kernel")
+    hold(fresh["launches"].get("fused_y") == 1 and fresh["realigned"] == 0,
+         f"(e) the traced call launched {fresh['launches']}, realigned {fresh['realigned']}")
+    log(f"  (e) trace of one whvi_mul at D={SCALING_D} in a fresh process: kernel events "
+        f"{names}; launches {fresh['launches']}")
+
+    (fan,) = part("f", TOY_FAN_KERNELS, lambda: make_figures.main(
+        ["--quick", "--only", "toy_fan", "--out-dir", os.path.join(tmp, "figures")]))
+    with open(fan["data"]) as f:
+        gap = json.load(f)["gap_sd"]
+    log(f"  (f) toy fan, predictive sd in the gap: with KL {gap['with_kl']:.4f}, no KL "
+        f"{gap['no_kl']:.4f}")
+    hold(gap["with_kl"] > gap["no_kl"], "(f) the with-KL net is not wider in the gap")
+    log("  phase 12 parts: " + ", ".join(f"({k}) {v:.1f} s" for k, v in times.items()))
+    check(not fails, "phase 12: " + "; ".join(fails))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2245,6 +2391,11 @@ def main() -> int:
     run_mesh_path(fc, dev, args.seed, protocol_out, nuts_s4)
     t_f = time.perf_counter()
     log(f"phase 11: {t_f - t_e:.1f} s; the smoke: {t_f - t_start:.1f} s")
+    log("phase 12: the checks and figures")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_checks_path(fc, dev, args.seed, tmp)
+    t_g = time.perf_counter()
+    log(f"phase 12: {t_g - t_f:.1f} s; the smoke: {t_g - t_start:.1f} s")
 
     kernels = [
         {

@@ -93,6 +93,17 @@ def test_nonlinear_and_mixed_tiers_run_small():
     assert len(row["tempering"]["swap_rate_per_pair"]) == 15  # 16 rungs
 
 
+def test_tempering_row_counts_kept_cold_draws():
+    """The 4 ladders keep n_draws cold draws each after as many warm-up
+    rounds: cold_draws_per_s counts the kept draws, rounds_per_s (the JAX
+    row's "cold_draws_per_s") every round."""
+    ctx = run_vi_vs_hmc._train_mixed_posterior(0, n_train=16, epochs=2, device="cpu")
+    n_draws = 8
+    row = run_vi_vs_hmc.tempering_row(ctx, n_draws=n_draws, n_rungs=2, n_leapfrog=2)
+    assert row["cold_draws_per_s"] * row["wall_s"] == pytest.approx(4 * n_draws, rel=1e-12)
+    assert row["rounds_per_s"] == pytest.approx(2 * row["cold_draws_per_s"], rel=1e-12)
+
+
 def test_mains_refuse_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry points would run")

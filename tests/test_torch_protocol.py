@@ -515,6 +515,50 @@ def test_grid_refuses_where_jax_refuses(bad):
     assert str(got.value) == str(want.value)
 
 
+@pytest.mark.parametrize("stacked", [False, True])
+def test_bad_calib_mode_is_refused_before_any_train_step(monkeypatch, stacked):
+    """The calibration's refusal of a mode, raised before the first split
+    trains (``calibration.fit_temperature_from_z`` raises it only after
+    every split has), with the JAX package's text."""
+    def trained(*args, **kwargs):
+        raise AssertionError("a split trained before the refusal")
+
+    monkeypatch.setattr(Trainer, "train_step", trained)
+    monkeypatch.setattr(Trainer, "fit", trained)
+    X, y = _data(60)
+    cfg = pev.ProtocolConfig(n_splits=2, hidden=(8,), epochs1=1, epochs2=1, eval_samples=4,
+                             calibrate=True, calib_mode="ml", vmap_splits=stacked)
+    with pytest.raises(ValueError) as want:
+        jcal.fit_temperature_from_z(np.zeros(8), mode="ml")
+    with pytest.raises(ValueError) as got:
+        pev.evaluate_bayesian_regression(X, y, cfg, device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("mode", ["ml", "quantile", "nll"])
+def test_one_rule_decides_the_calib_mode(monkeypatch, mode):
+    """``calibration.check_calib_mode`` is the one rule: the early check of
+    the protocol and the fit both call it, and it refuses what the JAX
+    package's fit refuses, with its text."""
+    try:
+        jcal.fit_temperature_from_z(np.zeros(32), mode=mode)
+        want = None
+    except ValueError as e:
+        want = str(e)
+    try:
+        pcal.check_calib_mode(mode)
+        got = None
+    except ValueError as e:
+        got = str(e)
+    assert got == want
+    seen = []
+    monkeypatch.setattr(pcal, "check_calib_mode", seen.append)
+    pcal.fit_temperature_from_z(np.zeros(32) + 0.5, mode="nll")
+    net = pm.WHVIRegression([pm.WHVILinear(2, 1)])
+    pev._check_calibratable(net, mode)
+    assert seen == ["nll", mode]
+
+
 def test_protocol_resumes_from_its_checkpoints(tmp_path):
     X, y = _data(120)
     cfg = pev.ProtocolConfig(n_splits=2, hidden=(8,), epochs1=1, epochs2=4, checkpoint_every=2,

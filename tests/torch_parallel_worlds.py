@@ -41,19 +41,25 @@ KL_SCALE = 0.5
 # "shared" and "per_example": 13 -> 16 (stacked) -> 16 -> 2 (stacked);
 # "weighted": per-example noise and three weight-0 rows; "column": a
 # per-row column LRT head 16 -> 1; "bf16": shared noise under the bf16
-# operand precision (its 16 x 16 layer takes the bf16 kernel's rounding)
-CASES = ("shared", "per_example", "weighted", "column", "bf16")
+# operand precision (its 16 x 16 layer takes the bf16 kernel's rounding);
+# "bf16s": shared noise on bf16 storage (every parameter, input and noise
+# bfloat16) in the fp32 precision
+CASES = ("shared", "per_example", "weighted", "column", "bf16", "bf16s")
+
+
+def dtype(case: str) -> torch.dtype:
+    return torch.bfloat16 if case == "bf16s" else torch.float32
 
 
 def build_net(case: str, seed: int = SEED) -> WHVINetwork:
     """The case's net, random weights from ``seed``, away from the init's
     zero means."""
     pe = case in ("per_example", "weighted", "column")
-    kw = dict(per_example_noise=pe, column_lrt=pe)
+    kw = dict(per_example_noise=pe, column_lrt=pe, dtype=dtype(case))
     head = WHVILinear(16, 1, 1e-5, **kw) if case == "column" else WHVILinear(16, 2, 1e-5, **kw)
     net = WHVIRegression(
         [WHVILinear(13, 16, 3.0, **kw), relu, WHVILinear(16, 16, 3.0, **kw), relu, head],
-        train_samples=S, eval_samples=S,
+        train_samples=S, eval_samples=S, dtype=dtype(case),
     )
     gen = torch.Generator().manual_seed(seed)
     net.reset_parameters(gen)
@@ -67,18 +73,19 @@ def batch(case: str):
     """``x (B, 13)``, ``y (B, n_out)`` and the weights (None, or three
     padding rows of weight 0)."""
     rng = np.random.RandomState(11)
-    x = torch.from_numpy(rng.randn(B, 13).astype(np.float32))
-    y = torch.from_numpy(rng.randn(B, 1 if case == "column" else 2).astype(np.float32))
+    x = torch.from_numpy(rng.randn(B, 13).astype(np.float32)).to(dtype(case))
+    y = torch.from_numpy(rng.randn(B, 1 if case == "column" else 2).astype(np.float32)).to(dtype(case))
     w = (torch.arange(B) < B - 3).float() if case == "weighted" else None
     return x, y, w
 
 
 def given_eps(net) -> list:
     """Global per-layer noise from numpy (the JAX comparison's): the shapes
-    ``net.draw_noise`` gives."""
+    ``net.draw_noise`` gives, in the net's storage dtype."""
     rng = np.random.RandomState(12)
+    dt = next(net.parameters()).dtype
     return [
-        None if e is None else torch.from_numpy(rng.randn(*e.shape).astype(np.float32))
+        None if e is None else torch.from_numpy(rng.randn(*e.shape).astype(np.float32)).to(dt)
         for e in net.draw_noise((S, B))
     ]
 
@@ -118,6 +125,21 @@ def _equal_on_every_rank(mesh, t: torch.Tensor) -> bool:
 # ----------------------------------------------------------- loss, step, predict
 
 
+def _reduced_dtypes(mesh, fn):
+    """``fn()`` and the dtypes of the tensors it all-reduced over ``mesh``."""
+    seen, plain = [], mesh.all_reduce
+
+    def all_reduce(t, *args, **kwargs):
+        seen.append(str(t.dtype))
+        return plain(t, *args, **kwargs)
+
+    mesh.all_reduce = all_reduce
+    try:
+        return fn(), seen
+    finally:
+        del mesh.all_reduce
+
+
 def loss_world(device) -> dict:
     out = {}
     for layout in LAYOUTS:
@@ -129,9 +151,9 @@ def loss_world(device) -> dict:
                 net = build_net(case)
                 x, y, w = batch(case)
                 reset_collectives()
-                loss, aux = sharded_loss_fn(net, mesh, S)(
+                (loss, aux), reduced = _reduced_dtypes(mesh, lambda: sharded_loss_fn(net, mesh, S)(
                     x, y, N, torch.Generator().manual_seed(5), kl_scale=KL_SCALE, weights=w
-                )
+                ))
                 collectives = COLLECTIVES["all_reduce"]
                 grads = [p.grad.clone() for p in net.parameters()]
                 pred = make_sharded_predict(net, mesh, S)
@@ -145,6 +167,7 @@ def loss_world(device) -> dict:
             out[(layout, case)] = dict(
                 loss=float(loss), mnll=float(aux["mnll"]), grads=grads, y_hat=y_hat,
                 loss_eps=float(loss_eps), y_hat_eps=y_hat_eps, collectives=collectives,
+                reduced=reduced,
                 same_loss=_equal_on_every_rank(mesh, loss.reshape(1)),
             )
         # k steps at once against k steps, the phase flag, the parameters

@@ -15,8 +15,22 @@
   epochs/s, eager (``bench.py``);
 - :mod:`~whvi_tpu_torch.bench.protocol_bench`: the UCI protocol's wall
   clock, replica-stacked against sequential, and the device's busy share
-  in a profiled train step of each.
+  in a profiled train step of each;
+- :mod:`~whvi_tpu_torch.bench.precision_check`: K1's error against
+  float64 and its time in each precision and storage, and whether the
+  default precision is fp32 (``benchmarks/precision_check.py``,
+  ``auto_dispatch_check.py``);
+- :mod:`~whvi_tpu_torch.bench.diag_matmul`: a diagonal product, dense
+  against broadcast (``benchmarks/diag_matmul.py``);
+- :mod:`~whvi_tpu_torch.bench.grad_check`,
+  :mod:`~whvi_tpu_torch.bench.column_lrt_check`: the transforms' and the
+  kernels' gradients, and the column LRT's estimator variance
+  (``benchmarks/grad_check.py``, ``column_lrt_check.py``; ``--cpu`` asks
+  for the CPU);
+- :mod:`~whvi_tpu_torch.bench.make_figures`: the report's figures, their
+  data as JSON (``benchmarks/make_figures.py``; ``--cpu`` too).
 
 Each prints one JSON object a line, the first naming the card and its
-power limit, and raises without a CUDA device: there is no CPU fallback.
+power limit, and raises without a CUDA device unless it takes ``--cpu``
+and is given it: a time never falls back to the CPU.
 """

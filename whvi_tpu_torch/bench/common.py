@@ -13,8 +13,8 @@ import torch
 from whvi_tpu_torch.utils.profiling import H100_HBM_GBPS, card, cuda_ms, require_cuda
 
 __all__ = [
-    "bound_ms", "device_name", "emit", "header", "operands", "rates", "rel_err", "time_us",
-    "unique_bytes",
+    "bound_ms", "device_name", "emit", "fused_ops", "header", "operands", "rates", "rel_err",
+    "time_us", "unique_bytes",
 ]
 
 WARM_S = 0.2  # seconds of graph replays before timing
@@ -86,6 +86,14 @@ def bound_ms(inputs, outputs, ops: float, peak_flops: float) -> tuple[float, str
     t_bytes = nbytes / (H100_HBM_GBPS * 1e9) * 1e3
     t_ops = ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_ops(D: int, rows: int) -> int:
+    """Operations of one fused product ``s1 * H(u * H(s2 * x))`` over
+    ``rows`` rows: two transforms of D log2 D adds and three diagonal
+    products an element (fp32 CUDA cores; the bf16 mode's roundings are
+    conversions, not operations)."""
+    return rows * (2 * D * int(math.log2(D)) + 3 * D)
 
 
 def device_name(device: torch.device) -> str:

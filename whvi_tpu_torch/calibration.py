@@ -80,6 +80,16 @@ def fit_temperature_quantile(
     return fit_temperature_from_z(z, mode="quantile", level=level)
 
 
+def check_calib_mode(mode: str) -> None:
+    """Refuse a temperature-fit ``mode`` that :func:`fit_temperature_from_z`
+    does not take (the protocol calls it before training; not in
+    ``__all__``, which is the JAX module's)."""
+    if mode not in ("quantile", "nll"):
+        raise ValueError(
+            f"mode must be 'quantile' or 'nll', got {mode!r}"
+        )
+
+
 def fit_temperature_from_z(
     z: np.ndarray, mode: str = "quantile", level: float = 0.95
 ) -> float:
@@ -90,10 +100,7 @@ def fit_temperature_from_z(
     fallback) or "nll" (closed-form Gaussian-ML)."""
     from scipy.stats import norm
 
-    if mode not in ("quantile", "nll"):
-        raise ValueError(
-            f"mode must be 'quantile' or 'nll', got {mode!r}"
-        )
+    check_calib_mode(mode)
     z = np.asarray(z, np.float64).reshape(-1)
     if mode == "quantile":
         n_min = int(np.ceil(1.0 / max(1.0 - level, 1e-9)))

@@ -239,7 +239,13 @@ def _to_original_units(metrics: dict, y_hat: np.ndarray, mu_y, sd_y, y_te) -> di
     return out
 
 
-def _check_calibratable(net) -> None:
+def _check_calibratable(net, mode: str) -> None:
+    """Refuse, before any split trains, what the calibration after the fit
+    would refuse: a likelihood without two moments, or a ``calib_mode``
+    that ``calibration.fit_temperature_from_z`` does not take."""
+    from whvi_tpu_torch import calibration
+
+    calibration.check_calib_mode(mode)
     if not isinstance(net.likelihood, (GaussianLikelihood, HeteroscedasticGaussianLikelihood)):
         raise ValueError(
             "calibrate=True needs a Gaussian-family likelihood "
@@ -282,7 +288,7 @@ def evaluate_bayesian_regression(
         # the calibration rows come out of the train rows: the warm-up and
         # freeze fractions are of the steps actually trained
         n_tr -= max(1, int(round(n_tr * config.calib_frac)))
-        _check_calibratable(net)
+        _check_calibratable(net, config.calib_mode)
     # as the epoch runner rounds the batch up to the data-shard multiple,
     # which can lower the batch count the warm-up and freeze are counted in
     d = mesh.shape["data"] if mesh is not None else 1

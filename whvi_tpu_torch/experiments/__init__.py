@@ -24,5 +24,8 @@
   for the CPU);
 - :mod:`~whvi_tpu_torch.experiments.run_protocol_feasibility`: the whole
   protocol at kin8nm's shape on synthetic data, with its wall clock
-  (``experiments/run_protocol_feasibility.py``; ``--cpu`` too).
+  (``experiments/run_protocol_feasibility.py``; ``--cpu`` too);
+- :mod:`~whvi_tpu_torch.experiments.make_toy_notebook`: writes the toy
+  example notebook, its cells on the CPU unless ``--device cuda``
+  (``experiments/make_toy_notebook.py``).
 """

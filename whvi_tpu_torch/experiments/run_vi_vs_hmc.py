@@ -520,8 +520,12 @@ def tempering_row(ctx, n_draws=1600, n_rungs=16, beta_min=0.05, n_leapfrog=16):
         "swap_rate_min": float(swap.mean(0).min()),
         "cold_accept_rate": float(stats["accept_rate"][:, 0].mean()),
         "wall_s": wall,
-        # a round spends K rungs x n_leapfrog gradients for one cold draw a ladder
-        "cold_draws_per_s": 4 * 2 * n_draws / max(wall, 1e-9),
+        # the 4 ladders keep n_draws cold draws each, after as many warm-up
+        # rounds; a round spends K rungs x n_leapfrog gradients.
+        # rounds_per_s counts the warm-up rounds too, as the JAX row's
+        # "cold_draws_per_s" does
+        "cold_draws_per_s": 4 * n_draws / max(wall, 1e-9),
+        "rounds_per_s": 4 * 2 * n_draws / max(wall, 1e-9),
         "grad_evals_per_s": (1 + 2 * n_draws * n_leapfrog) / max(wall, 1e-9),
         "backend": device_name(device),
     }

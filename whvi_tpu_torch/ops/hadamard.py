@@ -38,15 +38,31 @@ __all__ = [
     "build_H_rows",
     "factor_H",
     "fwht",
+    "fwht_butterfly",
     "fwht_factors",
     "fwht_kron",
     "kl_diag_normal",
+    "kl_normal",
+    "matmul_diag_left",
+    "matmul_diag_right",
     "round_bf16",
     "round_scalar",
     "softplus",
 ]
 
 PRECISIONS = ("fp32", "bf16")
+
+
+def matmul_diag_left(d: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """``diag(d) @ A`` by broadcasting, without the ``D x D`` diagonal
+    matrix (``whvi_tpu.ops.hadamard.matmul_diag_left``)."""
+    return d[..., :, None] * A
+
+
+def matmul_diag_right(A: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``A @ diag(d)`` by broadcasting (``whvi_tpu.ops.hadamard
+    .matmul_diag_right``)."""
+    return A * d[..., None, :]
 
 
 def is_pow_of_2(n: int) -> bool:
@@ -112,6 +128,9 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
         x = torch.stack((a + b, a - b), dim=2)
         h *= 2
     return x.reshape(shape)
+
+
+fwht_butterfly = fwht  # the JAX package's name for its butterfly transform
 
 
 def fwht_factors(D: int, max_factor: int = 128) -> tuple[int, ...]:
@@ -234,3 +253,16 @@ def kl_diag_normal(mu_q, sigma_q, mu_p, sigma_p, keep: int = 0) -> torch.Tensor:
     if keep:
         return torch.sum(terms, dim=tuple(range(keep, terms.dim())))
     return torch.sum(terms)
+
+
+def kl_normal(mu_q, sigma_q, mu_p, sigma_p) -> torch.Tensor:
+    """KL(N(mu_q, sigma_q^2) || N(mu_p, sigma_p^2)) of scalar normals, or of
+    each element of a tensor of them, summed: :func:`kl_diag_normal` on the
+    flattened arguments, standard deviations as there
+    (``whvi_tpu.ops.hadamard.kl_normal``). Python floats for ``mu_q`` and
+    ``sigma_q`` become float32 tensors, the JAX package's default float."""
+    mu_q = torch.as_tensor(mu_q)
+    if not mu_q.is_floating_point():
+        mu_q = mu_q.to(torch.float32)
+    sigma_q = torch.as_tensor(sigma_q, dtype=mu_q.dtype, device=mu_q.device)
+    return kl_diag_normal(mu_q.reshape(-1), sigma_q.reshape(-1), mu_p, sigma_p)

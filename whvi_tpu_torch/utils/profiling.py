@@ -17,16 +17,26 @@ Counterpart of :mod:`whvi_tpu.utils.profiling`:
 - :func:`device_profile`: what ``torch.profiler`` reads over a window of
   work: the device's own time and events, the busy share, host time in
   ``Optimizer.step``;
+- :func:`trace`: a ``torch.profiler`` Chrome trace of a block, the
+  counterpart of the JAX ``trace`` (a ``jax.profiler`` trace); and
+  :func:`timed`, each call's wall clock, the card synchronized;
 - :func:`card`, :func:`require_cuda`: what the measuring code states
   beside its numbers, and its refusal to run without a card.
+
+The JAX package's ``Benchmark`` (a runner of ``benchmark_*`` methods) is
+used by none of its benchmarks or experiments and has no counterpart.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import json
+import os
 import statistics
 import subprocess
 import time
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -44,6 +54,8 @@ __all__ = [
     "fwht_flops",
     "net_train_step_flops",
     "require_cuda",
+    "timed",
+    "trace",
     "whvi_layer_fwd_flops",
     "whvi_layer_train_flops",
     "whvi_mul_flops",
@@ -148,6 +160,7 @@ def device_profile(fn: Callable[[], object], top: int = 0) -> dict:
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     if cuda:
         torch.cuda.synchronize()
+    launched = _port_launches()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
@@ -155,11 +168,13 @@ def device_profile(fn: Callable[[], object], top: int = 0) -> dict:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict = {}
-    events = 0
+    events, names = 0, []
     for e in prof.events():
         if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             events += 1
+            names.append(e.name)
+    _check_kernel_events(names, _port_launches() - launched, "device_profile")
     device_us = sum(by_name.values())
     return {
         "wall_s": wall,
@@ -171,6 +186,82 @@ def device_profile(fn: Callable[[], object], top: int = 0) -> dict:
             e.cpu_time_total for e in prof.key_averages() if e.key.startswith("Optimizer.step#")
         ),
     }
+
+
+def _on_card(out) -> bool:
+    """Whether ``out`` (a tensor, or a tuple, list or dict of them) holds a
+    tensor on a CUDA device."""
+    if torch.is_tensor(out):
+        return out.is_cuda
+    if isinstance(out, dict):
+        return any(_on_card(o) for o in out.values())
+    return isinstance(out, (tuple, list)) and any(_on_card(o) for o in out)
+
+
+def timed(fn: Callable) -> Callable:
+    """``fn`` that prints the wall clock of each call, after
+    ``torch.cuda.synchronize()`` where its output lies on a card (the
+    counterpart of the JAX ``timed``, which blocks until its output is
+    ready)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if _on_card(out):
+            torch.cuda.synchronize()
+        print(f"{fn.__name__}: {time.perf_counter() - t0:.6f}s", flush=True)
+        return out
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[str]:
+    """Profile the block and write its ``torch.profiler`` Chrome trace, CPU
+    activities and, where there is a card, CUDA activities (kernels by
+    their symbol), to ``log_dir/trace.json``; yields that path. The card
+    is synchronized before the block and at its end, so the trace holds
+    the block's kernels. Open it in ``chrome://tracing`` or Perfetto."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    if cuda:
+        torch.cuda.synchronize()
+    launched = _port_launches()
+    with profile(activities=activities) as prof:
+        yield path
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    _check_kernel_events(names, _port_launches() - launched, f"trace {path}")
+
+
+def _port_launches() -> int:
+    """Launches of the port's K1-K4 so far (``fwht_cuda.LAUNCHES``)."""
+    from whvi_tpu_torch.ops import fwht_cuda
+
+    return sum(fwht_cuda.LAUNCHES.values())
+
+
+def _check_kernel_events(names: list, launched: int, what: str) -> None:
+    """Raise where ``torch.profiler`` recorded fewer of the port's kernels
+    (symbols in the ``whvi::`` namespace) than the block launched: the
+    profiler lost device activity, and its reading would be short of it.
+    On an H100 (PyTorch 2.11) this happens in a process after processes it
+    spawned on the same card ran, a mesh's ranks for example, profiled or
+    not; a fresh process records them all."""
+    seen = sum("whvi::" in n for n in names)
+    if seen < launched:
+        raise RuntimeError(
+            f"{what}: torch.profiler recorded {seen} of the {launched} kernel launches of the "
+            "port in the block (device activity lost; profile in a fresh process)"
+        )
 
 
 def require_cuda() -> None:
