@@ -123,8 +123,9 @@ Phases, each of which raises on failure:
    each bf16-storage kernel (fused_y_bf16s, fused_res_bf16s,
    fused_bwd_bf16s, fwht_bf16s) against its plain version at the scaling
    path's shapes, u (8,1,D) over x (256,D) expanded to 2048 rows at D =
-   4096 and 8192, and the column head (8,1,1,4096): every forward and the
-   backward (against vjp_plain) bit for bit. (b) run_scaling.main
+   4096 and 8192, K1-K3 at D=16384, B=512 (precision_check's shape), and
+   the column head (8,1,1,4096): every forward and the backward (against
+   vjp_plain) bit for bit. (b) run_scaling.main
    --dtype bf16 at --sizes 4096 8192, train and --predict, --profile 10:
    its rows finite, each bf16-storage kernel launched, no fp32-storage
    product and no operand realigned; then the fp32 rows at the same D,
@@ -133,8 +134,9 @@ Phases, each of which raises on failure:
    weights and noise: loss and every gradient within 2^-7 of its max. (d)
    Device times (CUDA graph replay) of the four kernels and their plain
    versions at D=4096, 2048 rows (K4 at the column head, beside
-   torch.matmul(x, H_D) in bf16), each with its bound at 2 bytes an
-   element; then bench/fwht_sweep.py at D = 256, 4096, 16384.
+   torch.matmul(x, H_D) in bf16), and of K1-K3 at D=8192, each with its
+   bound at 2 bytes an element; then bench/fwht_sweep.py at D = 256,
+   4096, 16384.
 
 11. The mesh (whvi_tpu_torch/parallel/, no new kernel): the scaling model
    (batch 256, S=8) for 20 steps and a predictive call, (a) on the 1x1
@@ -226,6 +228,7 @@ SLICE_TOL = 1e-5  # loss and predictions, card (kernels) vs CPU (plain)
 SLICE_GRAD_TOL = 1e-4
 
 _FUSED = "whvi_tpu_torch/csrc/whvi_fused.cu"
+_BF16S = "whvi_tpu_torch/csrc/whvi_bf16s.cu"  # K1-K3 on bf16 storage
 KERNELS = {
     # counter (fwht_cuda.LAUNCHES): (source, the TPU kernel it replaces)
     "fused_y": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
@@ -235,9 +238,9 @@ KERNELS = {
     "fused_y_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_res_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
-    "fused_y_bf16s": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
-    "fused_res_bf16s": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
-    "fused_bwd_bf16s": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
+    "fused_y_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:124"),
+    "fused_res_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:113"),
+    "fused_bwd_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:403"),
     "fwht_bf16s": ("whvi_tpu_torch/csrc/fwht.cu", "whvi_tpu/ops/fwht_pallas.py:191"),
 }
 FLAGSHIP_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")  # phases 3-4
@@ -1627,37 +1630,39 @@ BF16S_NET_TOL = 2.0**-7  # the bf16 scaling net, card vs CPU: loss and gradients
 def bf16s_vs_plain(fc, dev, seed) -> dict:
     """K1-K4 on bf16 storage against their plain versions at the scaling
     path's shapes: u (8,1,D) over x (256,D) expanded to 2048 rows, D = 4096
-    and 8192, and the column head (8,1,1,4096). Every forward (y; y, i1,
+    and 8192; K1-K3 at D=16384 over 512 rows of x (precision_check's
+    shape); and the column head (8,1,1,4096). Every forward (y; y, i1,
     i2; the bare transform) and the backward (against vjp_plain: the same
     kernel on the swapped operands, then the same reductions) bit for bit.
-    Returns the max abs errors (at D=8192, the last shape)."""
+    Returns the largest abs error of each kernel over the shapes."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     bf16 = torch.bfloat16
     log("bf16-storage kernels vs plain (forwards and the backward bit for bit):")
-    max_abs = {}
+    max_abs = dict.fromkeys(("fused_y_bf16s", "fused_res_bf16s", "fused_bwd_bf16s"), 0.0)
     S, B = SCALING_S, SCALING_B
-    for D in BF16S_WIDTHS:
+    for D, u_lead, x_lead in (*((D, (S, 1), (B,)) for D in BF16S_WIDTHS), (16384, (), (KRON_B,))):
         s1, s2 = (torch.randn(D, device=dev, generator=gen).to(bf16) for _ in range(2))
-        u = torch.randn(S, 1, D, device=dev, generator=gen).to(bf16)
-        x0 = torch.randn(B, D, device=dev, generator=gen).to(bf16)
-        x = x0.expand(S, B, D)
+        u = torch.randn(*u_lead, D, device=dev, generator=gen).to(bf16)
+        x0 = torch.randn(*x_lead, D, device=dev, generator=gen).to(bf16)
+        lead = torch.broadcast_shapes(u.shape[:-1], x0.shape[:-1])
+        x = x0.expand(*lead, D)
         ref = fc.fused_plain(s1, u, s2, x, True)
         y = fc.fused_raw(s1, u, s2, x, False)[0]
         res = fc.fused_raw(s1, u, s2, x, True)
         check(y.dtype == bf16 and torch.equal(y, ref[0]), f"fused_y_bf16s at D={D}")
         check(all(torch.equal(a, b) for a, b in zip(res, ref)), f"fused_res_bf16s at D={D}")
         leaves = [a.clone().requires_grad_() for a in (s1, u, s2, x0)]
-        out = fc.WhviMulFunction.apply(*leaves[:3], leaves[3].expand(S, B, D))
+        out = fc.WhviMulFunction.apply(*leaves[:3], leaves[3].expand(*lead, D))
         g = torch.randn(out.shape, device=dev, generator=gen).to(bf16)
         grads = torch.autograd.grad(out, leaves, g)
         want = [r.sum_to_size(a.shape) for r, a in zip(fc.vjp_plain(s1, u, s2, x, g), grads)]
         check(all(torch.equal(a, b) for a, b in zip(grads, want)), f"fused_bwd_bf16s at D={D}")
-        max_abs["fused_y_bf16s"] = (y.float() - ref[0].float()).abs().max().item()
-        max_abs["fused_res_bf16s"] = max(
-            (a.float() - b.float()).abs().max().item() for a, b in zip(res, ref))
-        max_abs["fused_bwd_bf16s"] = max(
-            (a.float() - b.float()).abs().max().item() for a, b in zip(grads, want))
-        log(f"  u ({S},1,D), x ({S},{B},D) D={D}: y, y/i1/i2 and the gradients equal")
+        for name, pairs in (("fused_y_bf16s", [(y, ref[0])]), ("fused_res_bf16s", zip(res, ref)),
+                            ("fused_bwd_bf16s", zip(grads, want))):
+            max_abs[name] = max(max_abs[name], *((a.float() - b.float()).abs().max().item()
+                                                 for a, b in pairs))
+        log(f"  u {tuple(u.shape[:-1])}, x {tuple(x.shape[:-1])} D={D}: y, y/i1/i2 and the "
+            "gradients equal")
     xh = torch.randn(S, 1, 1, SCALING_D, device=dev, generator=gen).to(bf16)
     yh = fc.fwht_raw(xh)
     check(torch.equal(yh, fc.fwht_plain(xh)), "fwht_bf16s at the column head")
@@ -1675,32 +1680,37 @@ def bf16s_times(fc, dev, seed) -> dict:
     """Device ms a call (CUDA graph) of the four bf16-storage kernels and
     their plain versions at the scaling shape (D=4096, 2048 rows; K4 at
     the column head (8,1,1,4096), beside torch.matmul(x, H_D) in bf16),
-    each with its bound at 2 bytes an element."""
+    each with its bound at 2 bytes an element; K1-K3 logged at D=8192
+    too. Returns the kernels line's entries (D=4096)."""
     from whvi_tpu_torch.bench.common import bound_ms
     from whvi_tpu_torch.ops.hadamard import factor_H
     from whvi_tpu_torch.utils.profiling import H100_PEAK_FP32_FLOPS as PEAK
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     bf16 = torch.bfloat16
-    D, S, B = SCALING_D, SCALING_S, SCALING_B
-    s1, s2 = (torch.randn(D, device=dev, generator=gen).to(bf16) for _ in range(2))
-    u = torch.randn(S, 1, D, device=dev, generator=gen).to(bf16)
-    x = torch.randn(B, D, device=dev, generator=gen).to(bf16).expand(S, B, D)
-    g = torch.randn(S, B, D, device=dev, generator=gen).to(bf16)
-    ops = fused_ops(D, S * B)
+    S, B = SCALING_S, SCALING_B
     times = {}
-    log(f"bf16-storage times at D={D}, u ({S},1,D), x ({S},{B},D) (device ms per call, "
-        "20 calls in a CUDA graph, median of 5 replays; bound at 2 bytes an element):")
-    for name, kernel, plain, ins, n_out in (
-        ("fused_y_bf16s", lambda: fc.fused_raw(s1, u, s2, x, False),
-         lambda: fc.fused_plain(s1, u, s2, x, False), (x, u, s1, s2), 1),
-        ("fused_res_bf16s", lambda: fc.fused_raw(s1, u, s2, x, True),
-         lambda: fc.fused_plain(s1, u, s2, x, True), (x, u, s1, s2), 3),
-        ("fused_bwd_bf16s", lambda: fc.fused_bwd_raw(s1, u, s2, g),
-         lambda: fc.fused_plain(s2, u, s1, g, True), (g, u, s1, s2), 3),
-    ):
-        times[name] = _timed(kernel, plain, bound_ms(ins, [g] * n_out, ops, PEAK))
-        _log_time(name, times[name])
+    for D in BF16S_WIDTHS:
+        s1, s2 = (torch.randn(D, device=dev, generator=gen).to(bf16) for _ in range(2))
+        u = torch.randn(S, 1, D, device=dev, generator=gen).to(bf16)
+        x = torch.randn(B, D, device=dev, generator=gen).to(bf16).expand(S, B, D)
+        g = torch.randn(S, B, D, device=dev, generator=gen).to(bf16)
+        ops = fused_ops(D, S * B)
+        log(f"bf16-storage times at D={D}, u ({S},1,D), x ({S},{B},D) (device ms per call, "
+            "20 calls in a CUDA graph, median of 5 replays; bound at 2 bytes an element):")
+        for name, kernel, plain, ins, n_out in (
+            ("fused_y_bf16s", lambda: fc.fused_raw(s1, u, s2, x, False),
+             lambda: fc.fused_plain(s1, u, s2, x, False), (x, u, s1, s2), 1),
+            ("fused_res_bf16s", lambda: fc.fused_raw(s1, u, s2, x, True),
+             lambda: fc.fused_plain(s1, u, s2, x, True), (x, u, s1, s2), 3),
+            ("fused_bwd_bf16s", lambda: fc.fused_bwd_raw(s1, u, s2, g),
+             lambda: fc.fused_plain(s2, u, s1, g, True), (g, u, s1, s2), 3),
+        ):
+            t = _timed(kernel, plain, bound_ms(ins, [g] * n_out, ops, PEAK))
+            _log_time(name if D == SCALING_D else f"{name} D={D}", t)
+            if D == SCALING_D:
+                times[name] = t
+    D = SCALING_D
     xh = torch.randn(S, 1, 1, D, device=dev, generator=gen).to(bf16)
     H = factor_H(D, bf16, dev)
     times["fwht_bf16s"] = _timed(

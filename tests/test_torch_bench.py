@@ -1,8 +1,9 @@
 """The port's kernel-design tools without a card: the parsers of
 ``bench/kernel_sass.py`` on sample ptxas and cuobjdump output, the bounds
-of ``bench/common.py``, the source edits of ``bench/kron_variants.py``
-against the shipped sources, and ``bench/fwht_sweep.py`` on the CPU with
-a stub timer (no time is taken there).
+of ``bench/common.py``, the source edits of ``bench/kron_variants.py`` and
+``tools/kernel_variants.py`` against the shipped sources, and
+``bench/fwht_sweep.py`` on the CPU with a stub timer (no time is taken
+there).
 """
 
 import os
@@ -10,6 +11,7 @@ import os
 import pytest
 import torch
 
+from tools import kernel_variants
 from whvi_tpu_torch.bench import common, fwht_sweep, kernel_sass, kron_variants
 from whvi_tpu_torch.ops.fwht_cuda import CSRC
 
@@ -19,6 +21,10 @@ FUSED_12_BF16S = (
     "_ZN4whvi17whvi_fused_kernelILi12ELb0ELb0E13__nv_bfloat16EEvPKT2_S4_S4_S4_PS2_S5_S5_lNS_8GeometryE"
 )
 FWHT_13_BF16S = "_ZN4whvi11fwht_kernelILi13E13__nv_bfloat16EEvPKT0_PS2_l"
+# the fused product in fp32 storage without the storage type, and in bf16
+# storage as its own kernel (whvi_bf16s.cu)
+FUSED_13 = "_ZN4whvi17whvi_fused_kernelILi13ELb0ELb1EEEvPKfS2_S2_S2_PfS3_S3_lNS_8GeometryE"
+BF16S_14 = "_ZN4whvi17whvi_bf16s_kernelILi14ELb1EEEvPK13__nv_bfloat16S3_S3_S3_PS1_S4_S4_lNS_8GeometryE"
 EMIT_COPY = "_ZN4kron16emit_copy_kernelEPKcPclll"
 CUR_14 = "_ZN4kron15kron_cur_kernelILi14EEEvPKfS2_S2_S2_Pfl"
 FULL = "_ZN4kron16kron_full_kernelILi4EEEvPKfS2_S2_S2_Pfli"
@@ -83,6 +89,12 @@ def test_kernel_instances_are_named_from_their_symbols():
         "kernel": "whvi_fused", "L": 12, "storage": "bf16", "residuals": False, "bf16": False,
     }
     assert kernel_sass._instance(FWHT_13_BF16S) == {"kernel": "fwht", "L": 13, "storage": "bf16"}
+    assert kernel_sass._instance(FUSED_13) == {
+        "kernel": "whvi_fused", "L": 13, "storage": "fp32", "residuals": False, "bf16": True,
+    }
+    assert kernel_sass._instance(BF16S_14) == {
+        "kernel": "whvi_fused", "L": 14, "storage": "bf16", "residuals": True, "bf16": False,
+    }
     assert kernel_sass._instance("_ZN4whvi16kron_stage_kernelILi7EEEvPKf") is None
 
 
@@ -167,6 +179,52 @@ def test_kron_variants_refuse_an_edit_that_does_not_match():
     with pytest.raises(ValueError, match="out of order"):
         kron_variants._edit("[b] [a]", ("[a]", "[b]"), "", "v", "f.cu")
     assert kron_variants._edit("x [a] y [b] z", ("[a]", "[b]"), "-", "v", "f.cu") == "x - z"
+
+
+def test_sass_lengths_count_instructions_but_nops():
+    sass = (f"        Function : {BF16S_14}\n"
+            "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
+            "        /*0010*/              @!P0 BRA 0x80 ;\n"
+            "        /*0020*/                   NOP;\n"
+            "        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;\n"
+            f"        Function : {FWHT_14}\n"
+            "        /*0000*/                   EXIT ;\n")
+    assert dict(kernel_sass.sass_lengths(sass)) == {BF16S_14: 3, FWHT_14: 1}
+
+
+@pytest.mark.parametrize("name", list(kernel_variants.VARIANTS))
+def test_kernel_variants_edit_the_shipped_sources(name, tmp_path):
+    """Every edit of a K1-K4 design variant matches its shipped source
+    exactly once (make_sources raises otherwise), and only ``base``
+    leaves the sources as they are."""
+    src = kernel_variants.make_sources(name, str(tmp_path))
+    changed = []
+    for f in sorted(os.listdir(CSRC)):
+        with open(os.path.join(src, f)) as a, open(os.path.join(CSRC, f)) as b:
+            if a.read() != b.read():
+                changed.append(f)
+    assert changed == sorted({f for f, _, _ in kernel_variants.VARIANTS[name]})
+    assert (changed == []) == (name == "base")
+
+
+def test_kernel_variants_compare_held_instances_across_symbol_forms():
+    """A build from before the bf16-storage kernel had a file of its own
+    names the fp32 fused instances with their storage type; the ptxas
+    comparison of the held instances (K1-K3 in fp32 storage, K4) matches
+    them all the same and leaves the bf16-storage fused ones out."""
+    old = FUSED_12
+    new = "_ZN4whvi17whvi_fused_kernelILi12ELb1ELb0EEEvPKfS2_S2_S2_PfS3_S3_lNS_8GeometryE"
+    report = ("ptxas info    : Compiling entry function '{0}' for 'sm_90a'\n"
+              "ptxas info    : Function properties for {0}\n"
+              "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+              "ptxas info    : Used {1} registers\n")
+    held = kernel_variants.held_ptxas
+    rows_old = held(report.format(old, 108) + report.format(FUSED_12_BF16S, 90)
+                    + report.format(FWHT_13_BF16S, 40))
+    rows_new = held(report.format(new, 108) + report.format(BF16S_14, 128)
+                    + report.format(FWHT_13_BF16S, 40))
+    assert rows_old == rows_new and len(rows_new) == 2
+    assert held(report.format(new, 110) + report.format(FWHT_13_BF16S, 40)) != rows_old
 
 
 def test_unique_bytes_counts_a_broadcast_axis_once():

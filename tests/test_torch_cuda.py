@@ -262,6 +262,10 @@ BF16S_SHAPES = [
     *SHAPES,
     (4096, (), (8, 1), (8, 256)),
     (8192, (), (8, 1), (8, 256)),
+    # 2048 distinct rows of x under stacked (8, D) diagonals and a u per outer row
+    (4096, (8,), (256, 1), (256, 8)),
+    (8192, (8,), (256, 1), (256, 8)),
+    (16384, (), (), (512,)),  # K1's large-D shape
 ]
 
 

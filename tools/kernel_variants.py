@@ -4,10 +4,11 @@ on one card: what each choice of the butterfly design is worth.
 A variant is a copy of ``whvi_tpu_torch/csrc/`` with named edits
 (``VARIANTS``: a constant changed, or a step of the kernels cut out). Each
 edit is a piece of source text that must occur exactly once in its file,
-so a variant never times the sources unchanged by mistake; the edits match
-the sources of K1-K4 as first written for Hopper, and a later change to
-those lines needs its variant edited before it runs again. This is a
-design tool, kept outside the package and its tests.
+so a variant never times the sources unchanged by mistake; a change to
+those lines needs its variant edited too (``tests/test_torch_bench.py``
+applies every edit to the shipped sources). ``--parent DIR`` adds the
+sources of another checkout (``DIR/whvi_tpu_torch/csrc``, for example the
+parent commit unpacked by ``git archive``) as the variant ``parent``.
 
 Every variant is built into its own library, one ``nvcc`` a source, all
 started together, then loaded in turn. The diagnostic variants
@@ -17,15 +18,20 @@ held against the plain versions (fp32 and bf16 storage bit for bit, the
 bf16 precision within ``fwht_cuda.bf16_tol``).
 
 JSON rows: first the card and its power limit; then per variant the
-ptxas report of the fused kernel at D = 4096, 8192, 16384 (registers and
+ptxas report of the fused kernels at D = 4096, 8192, 16384 (registers and
 spill bytes, fp32 and bf16, with residuals and without, in both
-storages); then per variant and kernel the device ms a call
-(``time_us``: 20 calls in a CUDA graph, median of 5 replays) of K1-K3 in
-both precisions and on bf16 storage at the scaling path's shape (u
-(8,1,D), x (256,D) expanded to 2048 rows) at D = 4096 and 8192, of K1 at
-D=16384, B=512 and of K4 at (2048, 4096) in both storages, with the
-bound (bytes read once and written once over 3.35 TB/s) and its share. ``base`` runs first and last,
-so that drift of the card's clock shows.
+storages), and whether the instances a bf16-storage design change must
+leave as they are (K1-K3 in fp32 storage, K4 in both; every D) have the
+ptxas report and the SASS (``cuobjdump``) of ``base``'s; then per variant
+and kernel the device ms
+a call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) of
+K1-K3 in both precisions and on bf16 storage at the scaling path's shape
+(u (8,1,D), x (256,D) expanded to 2048 rows) at D = 4096 and 8192, of K1
+at D=16384, B=512 in every mode, and of K4 at (2048, 4096) and at the
+column head (8,1,1,4096) in both storages, with the bound (bytes read
+once and written once over 3.35 TB/s) and its share. ``base`` runs first
+and last (``parent`` around it), so that drift of the card's clock shows;
+``--rounds N`` runs that order N times.
 
 Run from the repository root: python -m tools.kernel_variants [base large_r16 ...]
 """
@@ -35,7 +41,9 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import os
+import re
 import shutil
+import subprocess
 
 import torch
 
@@ -44,6 +52,10 @@ from whvi_tpu_torch.bench.kernel_sass import _instance, ptxas
 from whvi_tpu_torch.ops import fwht_cuda as fc
 
 CORE = "fwht_core.cuh"
+BF16S = "whvi_bf16s.cu"  # K1-K3 on bf16 storage
+_SYNC = "    if constexpr (S::kTpr <= 32) __syncwarp();\n    else __syncthreads();\n"
+_IO, _W0 = "kBf16sIoSchedule = true;", "kBf16sIoSchedule = false;"
+_CAP = "kBf16sRegCap = 64;"
 # name -> [(file, text, replacement)]; each text occurs once in its file
 VARIANTS = {
     "base": [],
@@ -51,13 +63,53 @@ VARIANTS = {
     "no_exchange": [
         (CORE, "      ex.template move<kW, nw>(v);\n", ""),
         (CORE, "  if constexpr (kW != kSplit) ex.template move<kW, kSplit>(v);\n", ""),
+        (BF16S, "    char* const p = smem + kBuf * S::kBuf32;\n",
+         "    return;\n    char* const p = smem + kBuf * S::kBuf32;\n"),
+        (BF16S, "    char* const p = smem + S::kBuf16;\n", "    return;\n    char* const p = smem + S::kBuf16;\n"),
     ],
     # diagnostic: the exchanges without their barriers
-    "no_barrier": [
-        (CORE, "    if constexpr (S::kTpr <= 32) __syncwarp();\n    else __syncthreads();\n", ""),
-    ],
+    "no_barrier": [(CORE, _SYNC, ""), (BF16S, _SYNC, "")],
     # the exchanges' slots unswizzled: bank conflicts
-    "no_swizzle": [(CORE, "    return e ^ (((e >> kSwizzleShift) & 7) << 2);", "    return e;")],
+    "no_swizzle": [
+        (CORE, "    return e ^ (((e >> kSwizzleShift) & 7) << 2);", "    return e;"),
+        (BF16S, "    return kIoSchedule ? e + 4 * (e >> 5) + 4 * (e >> (kLog2R + 2)) : e ^ (((e >> kLog2R) & 7) << 2);",
+         "    return e;"),
+        (BF16S, "    return e ^ (((e >> kLog2R) & 7) << 3);", "    return e;"),
+    ],
+    # bf16 storage, the window-0 schedule: each transform from [0, r) to
+    # [L - r, L), one bf16 exchange between them and one into the I/O
+    # window for i2, s1, y (bf16s_w0_store_last: none; bf16s_w0_load_io:
+    # x and s2 through one more); bf16s_w0_r16 with 16 elements a thread
+    # (32 from D = 8192) in 256-thread blocks, 3 windows a transform at
+    # D = 4096
+    "bf16s_w0": [(BF16S, _IO, _W0)],
+    "bf16s_w0_store_last": [(BF16S, _IO, _W0),
+                            (BF16S, "kBf16sStoreViaIo = true;", "kBf16sStoreViaIo = false;")],
+    "bf16s_w0_load_io": [(BF16S, _IO, _W0),
+                         (BF16S, "kBf16sLoadViaIo = false;", "kBf16sLoadViaIo = true;")],
+    "bf16s_w0_r16": [
+        (BF16S, _IO, _W0),
+        (BF16S, "kBf16sLog2Regs = 5;", "kBf16sLog2Regs = 4;"),
+        (BF16S, "kBf16sLargeLog2Regs = 6;", "kBf16sLargeLog2Regs = 5;"),
+        (BF16S, "kBf16sMinBlock = 64;", "kBf16sMinBlock = 256;"),
+    ],
+    # the I/O schedule: u and s1 copied into shared memory at the start
+    # (cp.async), not read where they are used; two fp32 buffers (one
+    # barrier less an exchange but the first); other register caps; 64 or
+    # 16 elements a thread up to D = 4096, 32 or 128 from D = 8192; blocks
+    # of at least 128 or 256 threads
+    "bf16s_prefetch": [(BF16S, "kBf16sPrefetch = false;", "kBf16sPrefetch = true;")],
+    "bf16s_two_buffers": [(BF16S, "kBf16sFp32Buffers = 1;", "kBf16sFp32Buffers = 2;")],
+    "bf16s_cap168": [(BF16S, _CAP, "kBf16sRegCap = 168;")],
+    "bf16s_cap255": [(BF16S, _CAP, "kBf16sRegCap = 255;")],
+    "bf16s_large_cap168": [(BF16S, "kBf16sLargeRegCap = 255;", "kBf16sLargeRegCap = 168;")],
+    "bf16s_large_r32": [(BF16S, "kBf16sLargeLog2Regs = 6;", "kBf16sLargeLog2Regs = 5;")],
+    "bf16s_small_r64": [(BF16S, "kBf16sLog2Regs = 5;", "kBf16sLog2Regs = 6;")],
+    "bf16s_small_r16": [(BF16S, "kBf16sLog2Regs = 5;", "kBf16sLog2Regs = 4;")],
+    "bf16s_cap128": [(BF16S, _CAP, "kBf16sRegCap = 128;")],
+    "bf16s_large_r128": [(BF16S, "kBf16sLargeLog2Regs = 6;", "kBf16sLargeLog2Regs = 7;")],
+    "bf16s_block128": [(BF16S, "kBf16sMinBlock = 64;", "kBf16sMinBlock = 128;")],
+    "bf16s_block256": [(BF16S, "kBf16sMinBlock = 64;", "kBf16sMinBlock = 256;")],
     # 64 elements a thread from D = 4096 (2 exchanges a transform), one
     # row a block (64 threads at D = 4096), registers uncapped
     "r64_row": [
@@ -72,6 +124,7 @@ VARIANTS = {
 }
 DIAGNOSTIC = ("no_exchange", "no_barrier")
 PTXAS_LOG2D = (12, 13, 14)
+_SAME = ("registers", "stack", "spill_stores", "spill_loads")
 SCALING_WIDTHS = (4096, 8192)  # run_scaling's u (8,1,D) over x (256,D) expanded
 
 
@@ -92,15 +145,21 @@ def make_sources(name: str, root: str) -> str:
     return d
 
 
-def build(names, root: str) -> tuple[dict, dict]:
-    """Library path and ptxas report of each variant, all compiled at once."""
+def build(names, root: str, parent: str | None = None) -> tuple[dict, dict]:
+    """Library path and ptxas report of each variant (and of ``parent``'s
+    sources), all compiled at once."""
     nvcc = fc._nvcc()
 
     def one(name):
-        src = make_sources(name, root)
-        objs = [os.path.join(root, name, s + ".o") for s in fc.SOURCES]
+        if name == "parent":
+            src = os.path.join(parent, "whvi_tpu_torch", "csrc")
+        else:
+            src = make_sources(name, root)
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        sources = sorted(f for f in os.listdir(src) if f.endswith(".cu"))
+        objs = [os.path.join(root, name, s + ".o") for s in sources]
         report = fc._run_all([[nvcc, *fc.NVCC_FLAGS, "-c", "-o", o, os.path.join(src, s)]
-                              for s, o in zip(fc.SOURCES, objs)])
+                              for s, o in zip(sources, objs)])
         lib = os.path.join(root, name, "lib.so")
         fc._run_all([[nvcc, *fc._ARCH, "-shared", "-o", lib, *objs]])
         return lib, report
@@ -190,6 +249,45 @@ def cases(dev):
         ]
     xh = xb.to(torch.bfloat16)
     out.append(("fwht_bf16s", "D=4096 2048 rows", lambda: fc.fwht_raw(xh), (xh,), (xh,)))
+    dh = [t.to(torch.bfloat16) for t in (d1, du, d2, xl)]
+    out.append(("fused_y_bf16s", "D=16384 512 rows", lambda: fc.fused_raw(*dh, False),
+                (dh[3], dh[1], dh[0], dh[2]), (dh[3],)))
+    xc = torch.randn(8, 1, 1, 4096, device=dev, generator=gen)  # K4 at the column head
+    xch = xc.to(torch.bfloat16)
+    out.append(("fwht", "(8,1,1,4096)", lambda: fc.fwht_raw(xc), (xc,), (xc,)))
+    out.append(("fwht_bf16s", "(8,1,1,4096)", lambda: fc.fwht_raw(xch), (xch,), (xch,)))
+    return out
+
+
+def _held(symbol: str):
+    """The instance key of a kernel a bf16-storage design change must leave
+    as it is (K1-K3 in fp32 storage, K4 in both storages), else None."""
+    inst = _instance(symbol)
+    if inst and (inst["kernel"] == "fwht" or (inst["kernel"] == "whvi_fused"
+                                              and inst["storage"] == "fp32")):
+        return tuple(sorted(inst.items()))
+    return None
+
+
+def held_ptxas(report: str) -> dict:
+    """The ptxas rows of the held instances, by instance."""
+    return {key: {k: row.get(k) for k in _SAME}
+            for symbol, row in ptxas(report).items() if (key := _held(symbol))}
+
+
+def held_sass(lib: str) -> dict:
+    """The SASS text of the held instances in ``lib`` (``cuobjdump``), by
+    instance: equal text is the same machine code."""
+    sass = subprocess.run(["cuobjdump", "-sass", lib], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    out, key = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            key = _held(m.group(1))
+            if key:
+                out[key] = []
+        elif key and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            out[key].append(line.strip())
     return out
 
 
@@ -197,20 +295,34 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="*", help=f"of {', '.join(VARIANTS)} (default: all)")
     ap.add_argument("--root", default=os.path.join(fc.BUILD_DIR, "variants"))
+    ap.add_argument("--parent", help="a checkout whose sources run as the variant 'parent'")
+    ap.add_argument("--rounds", type=int, default=1, help="times the order of variants is run")
     args = ap.parse_args(argv)
     if unknown := set(args.variants) - set(VARIANTS):
         ap.error(f"unknown variants {sorted(unknown)}")
     header("kernel_variants")
     names = list(dict.fromkeys(["base", *(args.variants or VARIANTS)]))
-    libs, reports = build(names, args.root)
+    if args.parent:
+        names.append("parent")
+    libs, reports = build(names, args.root, args.parent)
+    base_ptxas, base_sass = held_ptxas(reports["base"]), held_sass(libs["base"])
     for name in names:
         for symbol, row in sorted(ptxas(reports[name]).items()):
             inst = _instance(symbol)
             if inst and inst["kernel"] == "whvi_fused" and inst["L"] in PTXAS_LOG2D:
                 emit({"variant": name, "ptxas": True, **inst, **row})
+        own, sass = held_ptxas(reports[name]), held_sass(libs[name])
+        emit({"variant": name, "held_ptxas_as_base": own == base_ptxas,
+              "held_sass_as_base": sass == base_sass, "held_instances": len(own),
+              "differ": [dict(k) for k in base_ptxas
+                         if own.get(k) != base_ptxas[k] or sass.get(k) != base_sass.get(k)]})
     dev = torch.device("cuda")
     runs = cases(dev)
-    for name in [*names, "base"] if len(names) > 1 else names:
+    order = [n for n in names if n != "parent"]
+    order = [*order, "base"] if len(order) > 1 else order
+    if args.parent:
+        order = ["parent", *order, "parent"]
+    for name in order * args.rounds:
         use_library(libs[name])
         if name not in DIAGNOSTIC:
             check(name, dev)

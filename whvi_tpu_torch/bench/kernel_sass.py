@@ -4,7 +4,8 @@ of the SASS instructions that show the design.
 
 Builds the kernels' library (``fwht_cuda.build_kernels``, ``-Xptxas -v``)
 and disassembles it with ``cuobjdump -sass``. One JSON row per instance of
-``whvi_fused_kernel`` (K1-K3: ``L`` = log2 D, ``storage`` fp32 or bf16,
+``whvi_fused_kernel`` and ``whvi_bf16s_kernel`` (K1-K3 in fp32 and bf16
+storage, both named ``whvi_fused``: ``L`` = log2 D, ``storage``,
 ``residuals``, ``bf16`` the operand precision), ``fwht_kernel`` (K4, with
 its ``storage``), ``kron_swap_kernel`` (``k_swap``) and
 ``kron_cur_kernel`` (``k_cur``, which ``k_onecast`` launches too; the
@@ -21,12 +22,15 @@ products, ``wgmma``: the contractions of ``k_mm1``, ``k_mm2`` and ``k_full``), `
 barriers: in K1-K4 one an exchange of the row through shared memory),
 ``SHFL.BFLY`` (warp shuffles by lane XOR: ``k_cur``'s lane stages),
 ``LDG.E.128`` / ``STG.E.128`` (16-byte device-memory accesses; the
-``.EF`` forms are the streaming ones, ``ld``/``st.global.cs``), ``LDS`` /
+``.EF`` forms are the streaming ones, ``ld``/``st.global.cs``),
+``LDG.E.64`` / ``STG.E.64`` and ``LDG.E.U16`` / ``STG.E.U16`` (8- and
+2-byte ones: bf16 storage's narrower accesses), ``LDS`` /
 ``STS`` (shared memory), ``LDL`` / ``STL`` (local memory: spills),
 ``LDGSTS`` (``cp.async``), ``UBLKCP.S.G`` / ``UBLKCP.G.S`` (TMA bulk
 copies into and out of shared memory), ``SYNCS.ARRIVE.TRANS64`` (mbarrier
 arrivals, with or without expected bytes) and
-``SYNCS.PHASECHK.TRANS64.TRYWAIT`` (mbarrier waits). Needs ``nvcc`` and
+``SYNCS.PHASECHK.TRANS64.TRYWAIT`` (mbarrier waits), and ``instructions``,
+the length of its SASS (NOPs aside). Needs ``nvcc`` and
 ``cuobjdump``, no card.
 
 Run: python -m whvi_tpu_torch.bench.kernel_sass [--log2d 4 7 12 13 14]
@@ -45,11 +49,17 @@ import subprocess
 from whvi_tpu_torch.bench.common import emit
 from whvi_tpu_torch.ops import fwht_cuda as fc
 
-OPS = ("HGMMA", "BAR.SYNC", "SHFL.BFLY", "LDG.E.128", "LDG.E.EF.128", "STG.E.128", "STG.E.EF.128", "LDS", "STS",
+OPS = ("HGMMA", "BAR.SYNC", "SHFL.BFLY", "LDG.E.128", "LDG.E.EF.128", "STG.E.128", "STG.E.EF.128",
+       "LDG.E.64", "STG.E.64", "LDG.E.U16", "STG.E.U16", "LDS", "STS",
        "LDL", "STL", "LDGSTS", "UBLKCP.S.G", "UBLKCP.G.S", "SYNCS.ARRIVE.TRANS64",
        "SYNCS.PHASECHK.TRANS64.TRYWAIT")
+# whvi_fused_kernel<L, residuals, bf16> (fp32 storage; builds before the
+# bf16-storage kernel had its own add the storage type), fwht_kernel<L, T>,
+# whvi_bf16s_kernel<L, residuals> (the fused product in bf16 storage)
+_BF16 = "13__nv_bfloat16"
 _KERNEL = re.compile(
-    r"_ZN4whvi(?:17whvi_fused_kernel|11fwht_kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?(f|13__nv_bfloat16)E"
+    rf"_ZN4whvi(?:17whvi_fused_kernelILi(\d+)ELb(\d)ELb(\d)E(f|{_BF16})?E"
+    rf"|11fwht_kernelILi(\d+)E(f|{_BF16})E|17whvi_bf16s_kernelILi(\d+)ELb(\d)EE)"
 )
 # kron_kernel<stage> of the copy (0) and the scale (1); kron_full_kernel<n>
 # after n contractions (1 k_mm1, 2 k_mm2, 4 the whole product: k_full,
@@ -81,10 +91,14 @@ def _instance(symbol: str) -> dict | None:
     m = _KERNEL.search(symbol)
     if m is None:
         return None
-    storage = "fp32" if m.group(4) == "f" else "bf16"
-    if m.group(2) is None:
-        return {"kernel": "fwht", "L": int(m.group(1)), "storage": storage}
-    return {"kernel": "whvi_fused", "L": int(m.group(1)), "storage": storage,
+    if m.group(5) is not None:
+        return {"kernel": "fwht", "L": int(m.group(5)),
+                "storage": "bf16" if m.group(6) == _BF16 else "fp32"}
+    if m.group(7) is not None:
+        return {"kernel": "whvi_fused", "L": int(m.group(7)), "storage": "bf16",
+                "residuals": m.group(8) == "1", "bf16": False}
+    return {"kernel": "whvi_fused", "L": int(m.group(1)),
+            "storage": "bf16" if m.group(4) == _BF16 else "fp32",
             "residuals": m.group(2) == "1", "bf16": m.group(3) == "1"}
 
 
@@ -121,21 +135,35 @@ def sass_counts(sass: str) -> dict:
     return counts
 
 
+def sass_lengths(sass: str) -> dict:
+    """Instructions (NOPs aside) per kernel symbol in ``cuobjdump -sass``
+    output."""
+    counts, fn = collections.Counter(), None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = m.group(1)
+        elif fn is not None and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", line)):
+            counts[fn] += m.group(1) != "NOP"
+    return counts
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2d", type=int, nargs="+", default=[4, 7, 12, 13, 14])
     args = ap.parse_args(argv)
     report = fc.build_kernels()
     regs = ptxas(report)
-    counts = sass_counts(subprocess.run(
+    sass = subprocess.run(
         ["cuobjdump", "-sass", fc.LIB_PATH], capture_output=True, text=True, check=True, timeout=600,
-    ).stdout)
+    ).stdout
+    counts, lengths = sass_counts(sass), sass_lengths(sass)
     print(f"nvcc {fc._nvcc()}; library {os.path.basename(fc.LIB_PATH)}", flush=True)
     for symbol in sorted(counts.keys() | regs.keys()):
         inst = _instance(symbol)
         if inst is None or ("L" in inst and inst["L"] not in args.log2d):
             continue
-        emit({**inst, **regs.get(symbol, {}), **{op: counts[symbol][op] for op in OPS}})
+        emit({**inst, **regs.get(symbol, {}), "instructions": lengths[symbol],
+              **{op: counts[symbol][op] for op in OPS}})
 
 
 if __name__ == "__main__":

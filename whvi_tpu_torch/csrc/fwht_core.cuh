@@ -3,6 +3,9 @@
 // the register-resident radix-2 butterfly over one row, the block shape,
 // the bf16 rounding of registers, and the broadcast geometry the fused
 // product receives from its Python wrapper (whvi_tpu_torch/ops/fwht_cuda.py).
+// The bf16-storage product (whvi_bf16s.cu) has a block shape and windows of
+// its own and takes the butterfly, the bf16 packing, the geometry and the
+// dispatch from here.
 //
 // Layout. A row of D = 2^log2d floats is held by tpr = D / R threads, R =
 // 2^log2_regs(log2d) elements in registers each (R = D up to D = 16; 16
@@ -374,6 +377,18 @@ __device__ __forceinline__ void row_offsets(int64_t row, const Geometry& g, int6
 #pragma unroll
     for (int k = 0; k < 4; ++k) off[k] += idx * g.stride[k][d];
   }
+}
+
+// Whether every row of the operands starts on a multiple of `width` bytes:
+// the base pointers and, for the inputs, each leading stride read through.
+inline bool rows_aligned(const void* const* ptrs, int n_ptrs, const Geometry& g,
+                         int64_t elem_bytes, int64_t width) {
+  for (int k = 0; k < n_ptrs; ++k)
+    if (ptrs[k] != nullptr && reinterpret_cast<uintptr_t>(ptrs[k]) % width) return false;
+  for (int k = 0; k < 4; ++k)
+    for (int d = 0; d < 4; ++d)
+      if (g.size[d] > 1 && (g.stride[k][d] * elem_bytes) % width) return false;
+  return true;
 }
 
 // Runs fn.template operator()<L>() for L = log2d in 1 .. kMaxLog2D.

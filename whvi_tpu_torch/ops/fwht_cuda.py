@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for the WHVI product and the FWHT.
 
-Counterpart of :mod:`whvi_tpu.ops.fwht_pallas`. Two kernels live in
-``whvi_tpu_torch/csrc/`` and are used eleven ways:
+Counterpart of :mod:`whvi_tpu.ops.fwht_pallas`. Three kernels live in
+``whvi_tpu_torch/csrc/`` (the fused product in fp32 storage,
+``whvi_fused.cu``, and in bf16 storage, ``whvi_bf16s.cu``; the bare
+transform, ``fwht.cu``) and are used eleven ways:
 
 ===================  ====================================  ==================================
 launch counter       wrapper                               replaces (whvi_tpu/ops/fwht_pallas.py)
@@ -58,7 +60,7 @@ no fallback from one to the other.
 
 Alignment. The kernels hold a row in registers and move it to and from
 device memory in vectors: ``float4``s in fp32, 8 or 16 bytes of bf16
-(``csrc/fwht_core.cuh``). Rows must start on :func:`vector_bytes`
+(``csrc/fwht_core.cuh``, ``csrc/whvi_bf16s.cu``). Rows must start on :func:`vector_bytes`
 (16 bytes, less only where a whole row is shorter), which the bf16
 C entries also check. Before a launch every operand is checked
 (:func:`vector_aligned`): its base pointer and every leading stride it
@@ -129,7 +131,8 @@ ONE_FACTOR_MAX = 1024  # D <= 1024: one factor H_D (_factor_pair)
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = (
-    "whvi_fused.cu", "fwht.cu", "whvi_kron.cu", "whvi_full.cu", "whvi_pipe.cu", "copy_floor.cu",
+    "whvi_fused.cu", "whvi_bf16s.cu", "fwht.cu", "whvi_kron.cu", "whvi_full.cu", "whvi_pipe.cu",
+    "copy_floor.cu",
 )
 _HEADERS = ("fwht_core.cuh", "kron_core.cuh", "tma.cuh", "wgmma.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "whvi_tpu_torch")
