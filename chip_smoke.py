@@ -119,24 +119,36 @@ Phases, each of which raises on failure:
    within ANALYTIC_MEAN_TOL_SD exact posterior sds of the exact mean and
    its sd within ANALYTIC_SD_RATIO_TOL of the exact sd.
 
-10. bf16 storage (the JAX package's dtype=bfloat16) through K1-K4: (a)
-   each bf16-storage kernel (fused_y_bf16s, fused_res_bf16s,
-   fused_bwd_bf16s, fwht_bf16s) against its plain version at the scaling
-   path's shapes, u (8,1,D) over x (256,D) expanded to 2048 rows at D =
-   4096 and 8192, K1-K3 at D=16384, B=512 (precision_check's shape), and
-   the column head (8,1,1,4096): every forward and the backward (against
-   vjp_plain) bit for bit. (b) run_scaling.main
-   --dtype bf16 at --sizes 4096 8192, train and --predict, --profile 10:
-   its rows finite, each bf16-storage kernel launched, no fp32-storage
-   product and no operand realigned; then the fp32 rows at the same D,
-   step ms and peak memory logged beside them. (c) The
+10. bf16 storage (the JAX package's dtype=bfloat16) through K1-K4 and
+   the column kernel: (a) each bf16-storage kernel (fused_y_bf16s,
+   fused_res_bf16s, fused_bwd_bf16s, fwht_bf16s) against its plain
+   version at the scaling path's shapes, u (8,1,D) over x (256,D)
+   expanded to 2048 rows at D = 4096 and 8192, K1-K3 at D=16384, B=512
+   (precision_check's shape), and K4 at (8,1,1,4096): every forward and
+   the backward (against vjp_plain) bit for bit; the column kernel's
+   three modes (column_y_bf16s, column_res_bf16s, column_bwd_bf16s)
+   against column_plain / column_bwd_plain bit for bit at the column
+   head (8,1,D), D = 4096 and 8192, the column LRT's rows (8,256,4096),
+   8 replicas, and D = 2 and 16384. (b) run_scaling.main
+   --dtype bf16 at --sizes 4096 8192, train and --predict: its rows
+   finite, K1-K3 and the column kernel launched, no fp32-storage
+   product, no bare fwht_bf16s and no operand realigned; the same with
+   --profile 10 in a fresh process (this one's profiler has lost kernel
+   records after the phases before); then the fp32 rows at the same D,
+   step ms, device events and peak memory logged beside them. (c) The
    bf16 scaling net at D=4096 on the card against a CPU copy on the same
-   weights and noise: loss and every gradient within 2^-7 of its max. (d)
+   weights and noise: loss and every gradient within 2^-7 of its max; a
+   train step launches column_res_bf16s and column_bwd_bf16s once each,
+   a predictive call column_y_bf16s once, neither fwht_bf16s. (d)
    Device times (CUDA graph replay) of the four kernels and their plain
    versions at D=4096, 2048 rows (K4 at the column head, beside
    torch.matmul(x, H_D) in bf16), and of K1-K3 at D=8192, each with its
-   bound at 2 bytes an element; then bench/fwht_sweep.py at D = 256,
-   4096, 16384.
+   bound at 2 bytes an element; the column kernel's modes at the column
+   head (8,1,D), D = 4096 and 8192, and at (8,256,4096), in turns with
+   their plain versions, the chain they replaced and the launch floor (a
+   kernel that does nothing on the same grid), beside g @ H_D; then
+   bench/fwht_sweep.py at D = 256, 4096, 16384 (the launches of
+   fwht_bf16s in the kernels line are this run's).
 
 11. The mesh (whvi_tpu_torch/parallel/, no new kernel): the scaling model
    (batch 256, S=8) for 20 steps and a predictive call, (a) on the 1x1
@@ -194,10 +206,13 @@ Phases, each of which raises on failure:
    alignment. The parts are timed.
 
 Before the last line it prints one JSON object of the kernels (each with
-its launches on the main path, max abs error, ms, plain_ms, bound_ms,
+its launches on the main path, or for fwht_bf16s, which the bf16 scaling
+path launches no more, on phase 10's fwht_sweep run, the counts set to 0
+just before it; max abs error, ms, plain_ms, bound_ms,
 bound_by and library_ms; the error and the times both at the scaling
-path's shapes for K1-K4 in both storages, at D=16384, B=512, TB=4 for
-the large-D kernels) and the nvidia-smi line; the last line is {"ok": true,
+path's shapes for K1-K4 in both storages and the column kernel's modes
+(times at the column head (8,1,4096)), at D=16384, B=512, TB=4 for the
+large-D kernels) and the nvidia-smi line; the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -229,6 +244,7 @@ SLICE_GRAD_TOL = 1e-4
 
 _FUSED = "whvi_tpu_torch/csrc/whvi_fused.cu"
 _BF16S = "whvi_tpu_torch/csrc/whvi_bf16s.cu"  # K1-K3 on bf16 storage
+_COLUMN = "whvi_tpu_torch/csrc/whvi_column.cu"  # the column head on bf16 storage
 KERNELS = {
     # counter (fwht_cuda.LAUNCHES): (source, the TPU kernel it replaces)
     "fused_y": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
@@ -242,10 +258,15 @@ KERNELS = {
     "fused_res_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:403"),
     "fwht_bf16s": ("whvi_tpu_torch/csrc/fwht.cu", "whvi_tpu/ops/fwht_pallas.py:191"),
+    "column_y_bf16s": (_COLUMN, "whvi_tpu/ops/fwht_pallas.py:191"),
+    "column_res_bf16s": (_COLUMN, "whvi_tpu/ops/fwht_pallas.py:191"),
+    "column_bwd_bf16s": (_COLUMN, "whvi_tpu/ops/fwht_pallas.py:191"),
 }
 FLAGSHIP_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")  # phases 3-4
 BF16_KERNELS = ("fused_y_bf16", "fused_res_bf16", "fused_bwd_bf16")  # phase 6
-BF16S_KERNELS = ("fused_y_bf16s", "fused_res_bf16s", "fused_bwd_bf16s", "fwht_bf16s")  # phase 10
+COLUMN_KERNELS = ("column_y_bf16s", "column_res_bf16s", "column_bwd_bf16s")  # by mode
+# phase 10's path; the bare fwht_bf16s runs there no more (its launches are fwht_sweep's)
+BF16S_KERNELS = ("fused_y_bf16s", "fused_res_bf16s", "fused_bwd_bf16s", *COLUMN_KERNELS)
 
 
 def log(*parts) -> None:
@@ -1676,6 +1697,134 @@ def bf16s_vs_plain(fc, dev, seed) -> dict:
     return max_abs
 
 
+# the column kernel's shapes: (s lead, g lead, D): the column head (8, 1, D)
+# at D = 4096 and 8192, the column LRT's rows (8, 256, 4096), 8 replicas,
+# and the edges of the kernel's range, D = 2 and 16384
+COLUMN_SHAPES = [
+    ((), (SCALING_S, 1), 4096),
+    ((), (SCALING_S, 1), 8192),
+    ((), (SCALING_S, SCALING_B), 4096),
+    ((8, 1, 1), (8, SCALING_S, 1), 4096),
+    ((), (SCALING_S, 1), 2),
+    ((), (SCALING_S, 1), 16384),
+]
+
+
+def _column_operands(dev, gen, s_lead, g_lead, D):
+    bf16 = torch.bfloat16
+    s1, s2 = (torch.randn(*s_lead, D, device=dev, generator=gen).to(bf16) for _ in range(2))
+    g = torch.randn(*g_lead, D, device=dev, generator=gen).to(bf16)
+    gy = torch.randn(torch.broadcast_shapes(g.shape, s1.shape), device=dev, generator=gen).to(bf16)
+    return s1, g, s2, gy
+
+
+def column_vs_plain(fc, dev, seed) -> dict:
+    """The column kernel's three modes (y; y and t; the backward's dg, p1,
+    p2) against column_plain / column_bwd_plain at COLUMN_SHAPES, bit for
+    bit. Returns the largest abs error of each mode over the shapes."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    log("column kernel vs plain (every mode bit for bit):")
+    max_abs = dict.fromkeys(COLUMN_KERNELS, 0.0)
+    for s_lead, g_lead, D in COLUMN_SHAPES:
+        s1, g, s2, gy = _column_operands(dev, gen, s_lead, g_lead, D)
+        ref_y, ref_t = fc.column_plain(s1, g, s2, True)
+        y = fc.column_raw(s1, g, s2, False)[0]
+        res = fc.column_raw(s1, g, s2, True)
+        bwd = fc.column_bwd_raw(s1, s2, gy, ref_t.contiguous())
+        ref_bwd = fc.column_bwd_plain(s1, s2, gy, ref_t)
+        for name, pairs in (("column_y_bf16s", [(y, ref_y)]), ("column_res_bf16s", zip(res, (ref_y, ref_t))),
+                            ("column_bwd_bf16s", zip(bwd, ref_bwd))):
+            pairs = list(pairs)
+            check(all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in pairs),
+                  f"{name} at s {s_lead}, g {g_lead}, D={D} is not the plain version bit for bit")
+            max_abs[name] = max(max_abs[name], *((a.float() - b.float()).abs().max().item()
+                                                 for a, b in pairs))
+        log(f"  s {tuple(s1.shape[:-1])}, g {tuple(g.shape[:-1])} D={D}: y, y/t and dg/p1/p2 equal")
+    torch.cuda.synchronize()
+    return max_abs
+
+
+def _column_chain(fc, s1, g, s2, gy, t):
+    """The chain the column kernel replaced (the parent's column_given_g on
+    bf16 storage, n == D): its forward, H_rows * g, K4, s1_0 *, * s2; and
+    its backward up to the reductions, the slice's zero fill and copy, the
+    four products, K4 and * H_rows (autograd's ops, on the same
+    operands)."""
+    D = g.shape[-1]
+    H_rows = torch.ones(1, D, dtype=g.dtype, device=g.device)
+    s1_rows, a = s1[..., :1, None], (s1[..., :1] * t).unsqueeze(-2)
+    t_rows = t.unsqueeze(-2)
+
+    def forward():
+        rows = s1_rows * fc.fwht_raw(H_rows * g[..., None, :]) * s2
+        return rows.reshape(rows.shape[:-2] + (D,))[..., :D]
+
+    def backward():
+        full = gy.new_zeros(gy.shape)
+        full[..., :D] = gy
+        rows = full.unsqueeze(-2)
+        da = rows * s2
+        p2 = rows * a
+        dt = da * s1_rows
+        p1 = da * t_rows
+        return fc.fwht_raw(dt) * H_rows, p1, p2
+
+    return forward, backward
+
+
+def column_times(fc, dev, seed) -> dict:
+    """Device ms a call (20 calls in a CUDA graph, median of 5 replays) of
+    each mode of the column kernel, in turns with its plain version, the
+    chain it replaced on the same operands and the launch floor (a kernel
+    that does nothing, on the same grid, fwht_cuda.column_floor), in the
+    order plain, kernel, chain, floor, floor, chain, kernel, plain; then
+    torch.matmul(g, H_D) in bf16 as the one-call yardstick. Bound: bytes
+    (g or gy, t, s2, s1_0 read once, each output written once) over 3.35
+    TB/s. At the column head (8,1,D) for D = 4096 (the kernels line) and
+    8192, and at the column LRT's rows (8,256,4096)."""
+    from whvi_tpu_torch.bench.common import bound_ms, time_us
+    from whvi_tpu_torch.ops.hadamard import factor_H
+    from whvi_tpu_torch.utils.profiling import H100_PEAK_FP32_FLOPS as PEAK
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    times = {}
+    log("column kernel times (device ms a call, CUDA graph; plain/kernel/chain/floor in turns; "
+        "bound at 2 bytes an element; library: g @ H_D):")
+    for s_lead, g_lead, D in (((), (SCALING_S, 1), SCALING_D), ((), (SCALING_S, 1), 8192),
+                              ((), (SCALING_S, SCALING_B), SCALING_D)):
+        s1, g, s2, gy = _column_operands(dev, gen, s_lead, g_lead, D)
+        y, t = fc.column_raw(s1, g, s2, True)
+        H = factor_H(D, torch.bfloat16, dev)
+        chain_fwd, chain_bwd = _column_chain(fc, s1, g, s2, gy, t)
+        rows, s1_0, log2d = g.numel() // D, s1[..., :1], int(math.log2(D))
+        for name, kernel, plain, chain, ins, outs, ops in (
+            ("column_y_bf16s", lambda: fc.column_raw(s1, g, s2, False),
+             lambda: fc.column_plain(s1, g, s2, False), chain_fwd, (g, s2, s1_0), (y,), log2d + 2),
+            ("column_res_bf16s", lambda: fc.column_raw(s1, g, s2, True),
+             lambda: fc.column_plain(s1, g, s2, True), chain_fwd, (g, s2, s1_0), (y, t), log2d + 2),
+            ("column_bwd_bf16s", lambda: fc.column_bwd_raw(s1, s2, gy, t),
+             lambda: fc.column_bwd_plain(s1, s2, gy, t), chain_bwd, (gy, t, s2, s1_0), (y, y, y),
+             log2d + 5),
+        ):
+            fns = {"plain": plain, "kernel": kernel, "chain": chain,
+                   "floor": lambda: fc.column_floor(rows, D, dev)}
+            order = ["plain", "kernel", "chain", "floor"]
+            got = {k: [] for k in fns}
+            for k in order + order[::-1]:
+                got[k].append(time_us(fns[k], 20) / 1e3)
+            ms = {k: sum(v) / len(v) for k, v in got.items()}
+            bound = bound_ms(ins, outs, g.numel() * ops, PEAK)
+            t_row = {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": time_us(lambda: torch.matmul(g, H), 20) / 1e3}
+            log(f"  {name:<17} g {tuple(g.shape)}: kernel {t_row['ms']:.5f}  chain {ms['chain']:.5f}  "
+                f"floor {ms['floor']:.5f}  plain {t_row['plain_ms']:.5f}  library "
+                f"{t_row['library_ms']:.5f}  bound {bound[0]:.6f} ({bound[1]}; share "
+                f"{bound[0] / t_row['ms']:.3f})")
+            if g.shape == (SCALING_S, 1, SCALING_D):
+                times[name] = t_row
+    return times
+
+
 def bf16s_times(fc, dev, seed) -> dict:
     """Device ms a call (CUDA graph) of the four bf16-storage kernels and
     their plain versions at the scaling shape (D=4096, 2048 rows; K4 at
@@ -1761,6 +1910,12 @@ def bf16s_net_vs_cpu(fc, dev, seed) -> None:
         net.predict(X.to(dev), S)
     call = {k: v for k, v in fc.LAUNCHES.items() if v}
     log(f"  launches of a bf16-storage train step: {step}; of a predictive call: {call}")
+    for name, launches, want in (("column_res_bf16s", step, 1), ("column_bwd_bf16s", step, 1),
+                                 ("column_y_bf16s", step, 0), ("fwht_bf16s", step, 0),
+                                 ("column_y_bf16s", call, 1), ("column_res_bf16s", call, 0),
+                                 ("fwht_bf16s", call, 0)):
+        check(launches.get(name, 0) == want, f"the bf16-storage net launched {name} "
+              f"{launches.get(name, 0)} times, not {want}")
     (l_k, g_k), (l_p, g_p) = results
     err = rel_err(l_k.float(), l_p.float())
     grad_err = max(rel_err(a.float(), b.float()) for a, b in zip(g_k, g_p))
@@ -1773,8 +1928,9 @@ def run_bf16s_path(fc, dev, seed) -> dict:
     """run_scaling --dtype bf16 at D = 4096 and 8192, train and predict,
     through its entry point: its rows finite, each bf16-storage kernel
     launched and no fp32-storage product, no operand realigned. Then the
-    fp32 rows at the same D, for step ms and peak memory beside them.
-    Returns the launch counts of the bf16 run."""
+    same with --profile 10 in a fresh process (device events and kernel
+    ms a step), and the fp32 rows at the same D, for step ms and peak
+    memory beside them. Returns the launch counts of the bf16 run."""
     from whvi_tpu_torch.experiments import run_scaling
 
     sizes = [str(D) for D in BF16S_WIDTHS]
@@ -1783,7 +1939,7 @@ def run_bf16s_path(fc, dev, seed) -> dict:
     rows = []
     for predict in ([], ["--predict"]):
         rows += run_scaling.main(["--sizes", *sizes, "--seed", str(seed), "--dtype", "bf16",
-                                  "--profile", "10", *predict])
+                                  *predict])
     torch.cuda.synchronize()
     launches = dict(fc.LAUNCHES)
     log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
@@ -1793,10 +1949,22 @@ def run_bf16s_path(fc, dev, seed) -> dict:
         check(launches[name] > 0, f"kernel {name} was not launched by the bf16-storage path")
     for name in ("fused_y", "fused_res", "fused_bwd", "fwht", *BF16_KERNELS):
         check(launches[name] == 0, f"the bf16-storage path launched the fp32-storage {name}")
+    check(launches["fwht_bf16s"] == 0, "the bf16-storage path launched the bare fwht_bf16s")
+    # profiled in a fresh process: this one's profiler, after the phases
+    # before, has lost kernel records (utils.profiling raises then)
+    for predict in ([], ["--predict"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "whvi_tpu_torch.experiments.run_scaling", "--sizes", *sizes,
+             "--seed", str(seed), "--dtype", "bf16", "--profile", "10", *predict],
+            capture_output=True, text=True, timeout=300, check=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        rows += [json.loads(line) for line in out.stdout.splitlines()
+                 if line.startswith("{") and '"D"' in line]
     log("  the fp32 rows beside them:")
     for predict in ([], ["--predict"]):
         rows += run_scaling.main(["--sizes", *sizes, "--seed", str(seed), *predict])
-    check(len(rows) == 8, f"run_scaling gave {len(rows)} rows, not 8")
+    check(len(rows) == 12, f"run_scaling gave {len(rows)} rows, not 12")
     for row in rows:
         check(run_scaling.finite(row), f"non-finite row {row}")
     for row in rows:
@@ -1804,22 +1972,31 @@ def run_bf16s_path(fc, dev, seed) -> dict:
         log(f"  D={row['D']} {row['dtype']:>4} {row.get('mode', 'train'):>7}: {what}, "
             f"peak {row['max_memory_gb']} GB")
         if "kernel_ms" in row:  # the profiled bf16 rows
-            log(f"    kernels {row['kernel_ms']} ms, busy {row['busy_share']}, "
+            log(f"    kernels {row['kernel_ms']} ms in {row['device_events']} device events, "
+                f"busy {row['busy_share']}, "
                 f"Optimizer.step host {row['optimizer_host_ms']} ms; top kernels "
                 f"(ms a step): {row['top_kernels']}")
     return launches
 
 
-def run_fwht_sweep() -> None:
+def run_fwht_sweep(fc) -> dict:
     """The FWHT sweep's entry point at three widths, few iterations: every
     row's kernel equal to its plain version (the sweep checks), times
-    finite."""
+    finite, K4 launched in both storages. Returns the launches of that
+    run (the bare fwht_bf16s's path since the column head has a kernel of
+    its own)."""
     from whvi_tpu_torch.bench import fwht_sweep
 
+    fc.reset_launches()
     rows, crossover = fwht_sweep.main(["--sizes", "256", "4096", "16384", "--iters", "10"])
+    torch.cuda.synchronize()
+    launches = dict(fc.LAUNCHES)
     check(len(rows) == 3 and all(math.isfinite(v) for r in rows for v in r.values()),
           "fwht_sweep rows")
-    log(f"  fwht_sweep crossover: {crossover}")
+    check(launches["fwht_bf16s"] > 0 and launches["fwht"] > 0, "fwht_sweep launched no K4")
+    log(f"  fwht_sweep crossover: {crossover}; launches fwht {launches['fwht']}, fwht_bf16s "
+        f"{launches['fwht_bf16s']}")
+    return launches
 
 
 # ------------------------------------------------------------ 11. the mesh
@@ -2384,6 +2561,7 @@ def main() -> int:
     t10 = time.perf_counter()
     log("phase 10: bf16 storage through K1-K4")
     max_abs.update(bf16s_vs_plain(fc, dev, args.seed))
+    max_abs.update(column_vs_plain(fc, dev, args.seed))
     t_a = time.perf_counter()
     bf16s = run_bf16s_path(fc, dev, args.seed)
     launches.update({name: bf16s[name] for name in BF16S_KERNELS})
@@ -2391,8 +2569,9 @@ def main() -> int:
     bf16s_net_vs_cpu(fc, dev, args.seed)
     t_c = time.perf_counter()
     times.update(bf16s_times(fc, dev, args.seed))
+    times.update(column_times(fc, dev, args.seed))
     t_d = time.perf_counter()
-    run_fwht_sweep()
+    launches["fwht_bf16s"] = run_fwht_sweep(fc)["fwht_bf16s"]
     t_e = time.perf_counter()
     log(f"phase 10: {t_e - t10:.1f} s ((a) {t_a - t10:.1f}, (b) {t_b - t_a:.1f}, (c) "
         f"{t_c - t_b:.1f}, (d) {t_d - t_c:.1f}, fwht_sweep {t_e - t_d:.1f}); the smoke: "

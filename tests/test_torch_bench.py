@@ -11,7 +11,7 @@ import os
 import pytest
 import torch
 
-from tools import kernel_variants
+from tools import column_host_ab, kernel_variants
 from whvi_tpu_torch.bench import common, fwht_sweep, kernel_sass, kron_variants
 from whvi_tpu_torch.ops.fwht_cuda import CSRC
 
@@ -25,6 +25,7 @@ FWHT_13_BF16S = "_ZN4whvi11fwht_kernelILi13E13__nv_bfloat16EEvPKT0_PS2_l"
 # storage as its own kernel (whvi_bf16s.cu)
 FUSED_13 = "_ZN4whvi17whvi_fused_kernelILi13ELb0ELb1EEEvPKfS2_S2_S2_PfS3_S3_lNS_8GeometryE"
 BF16S_14 = "_ZN4whvi17whvi_bf16s_kernelILi14ELb1EEEvPK13__nv_bfloat16S3_S3_S3_PS1_S4_S4_lNS_8GeometryE"
+COLUMN_12 = "_ZN4whvi13column_kernelILi12ELi0EEEvNS_10ColumnArgsE"
 EMIT_COPY = "_ZN4kron16emit_copy_kernelEPKcPclll"
 CUR_14 = "_ZN4kron15kron_cur_kernelILi14EEEvPKfS2_S2_S2_Pfl"
 FULL = "_ZN4kron16kron_full_kernelILi4EEEvPKfS2_S2_S2_Pfli"
@@ -209,11 +210,13 @@ def test_kernel_variants_edit_the_shipped_sources(name, tmp_path):
 
 def test_kernel_variants_compare_held_instances_across_symbol_forms():
     """A build from before the bf16-storage kernel had a file of its own
-    names the fp32 fused instances with their storage type; the ptxas
-    comparison of the held instances (K1-K3 in fp32 storage, K4) matches
-    them all the same and leaves the bf16-storage fused ones out."""
+    names the fused instances with their storage type; the ptxas
+    comparison of the held instances (K1-K3 in both storages, K4) matches
+    them all the same, across the two forms of the bf16-storage fused
+    kernel too, and leaves the column kernel out."""
     old = FUSED_12
     new = "_ZN4whvi17whvi_fused_kernelILi12ELb1ELb0EEEvPKfS2_S2_S2_PfS3_S3_lNS_8GeometryE"
+    bf16s_12 = BF16S_14.replace("ILi14ELb1E", "ILi12ELb0E")  # no residuals, as FUSED_12_BF16S
     report = ("ptxas info    : Compiling entry function '{0}' for 'sm_90a'\n"
               "ptxas info    : Function properties for {0}\n"
               "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
@@ -221,10 +224,52 @@ def test_kernel_variants_compare_held_instances_across_symbol_forms():
     held = kernel_variants.held_ptxas
     rows_old = held(report.format(old, 108) + report.format(FUSED_12_BF16S, 90)
                     + report.format(FWHT_13_BF16S, 40))
-    rows_new = held(report.format(new, 108) + report.format(BF16S_14, 128)
-                    + report.format(FWHT_13_BF16S, 40))
-    assert rows_old == rows_new and len(rows_new) == 2
-    assert held(report.format(new, 110) + report.format(FWHT_13_BF16S, 40)) != rows_old
+    rows_new = held(report.format(new, 108) + report.format(bf16s_12, 90)
+                    + report.format(FWHT_13_BF16S, 40) + report.format(COLUMN_12, 72))
+    assert rows_old == rows_new and len(rows_new) == 3
+    assert held(report.format(new, 110) + report.format(bf16s_12, 90)
+                + report.format(FWHT_13_BF16S, 40)) != rows_old
+    assert held(report.format(new, 108) + report.format(bf16s_12, 64)
+                + report.format(FWHT_13_BF16S, 40)) != rows_old
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("L", [1, 12])
+def test_column_instances_carry_their_width_and_mode(mode, L):
+    symbol = COLUMN_12.replace("ILi12ELi0EE", f"ILi{L}ELi{mode}EE")
+    assert kernel_sass._instance(symbol) == {"kernel": "column", "L": L, "mode": mode}
+    assert kernel_variants._held(symbol) is None
+
+
+@pytest.mark.parametrize("k, n, p", [(10, 10, 2 / 1024), (0, 10, 2 / 1024), (9, 10, 22 / 1024),
+                                     (5, 10, 1.0), (3, 3, 0.25)])
+def test_column_host_ab_sign_test(k, n, p):
+    assert column_host_ab._sign_p(k, n) == pytest.approx(p)
+
+
+def test_column_host_ab_summary_pairs_each_metric_and_leaves_ties_out():
+    """Ratios are change / parent within a pair; ties count to neither
+    side; a verdict needs nine tenths of the pairs and medians further apart
+    than the parent's spread."""
+    rows = []
+    for pair in range(10):
+        for tree in ("parent", "change") if pair % 2 == 0 else ("change", "parent"):
+            slow = tree == "change"
+            rows.append({"tree": tree, "pair": pair, "host_us_predict": 50.0 + 10 * slow,
+                         "host_us_train": 100.0 - 5 * slow * (pair > 0), "call_ms": 1.0,
+                         "step_ms": 5.0 + (0.1 if slow == pair % 2 else 0.0),
+                         "call_ms_wide": (1.0 + pair) * (1.01 if slow else 1.0)})
+    out = column_host_ab.summary(rows)
+    assert out["host_us_predict"]["verdict"] == "slower"
+    assert out["host_us_predict"]["ratio_median"] == pytest.approx(1.2)
+    assert out["host_us_train"]["pairs_faster"] == 9 and out["host_us_train"]["verdict"] == "faster"
+    assert out["call_ms"]["pairs_slower"] == out["call_ms"]["pairs_faster"] == 0
+    assert out["call_ms"]["verdict"] == "unresolved" and out["call_ms"]["sign_p"] == 1.0
+    assert (out["step_ms"]["pairs_slower"], out["step_ms"]["pairs_faster"]) == (5, 5)
+    assert out["step_ms"]["verdict"] == "unresolved"
+    wide = column_host_ab.summary(rows, ("call_ms_wide",))["call_ms_wide"]
+    assert wide["pairs_slower"] == 10 and wide["parent_iqr"] > 1  # within the parent's spread
+    assert wide["verdict"] == "unresolved"
 
 
 def test_unique_bytes_counts_a_broadcast_axis_once():

@@ -386,6 +386,118 @@ def test_bf16_storage_wrappers_refuse_the_bf16_precision(dev):
     assert all(v == 0 for v in fc.LAUNCHES.values())
 
 
+# ---------------------------------------- the column head on bf16 storage
+#
+# (D, s lead, g lead): the smoke's shapes (the column head (8, 1, D) at D
+# = 4096 and 8192, the column LRT's rows (8, 256, 4096), 8 replicas, D = 2
+# and 16384), then every width at a few rows.
+COLUMN_SHAPES = [
+    (4096, (), (8, 1)),
+    (8192, (), (8, 1)),
+    (4096, (), (8, 256)),
+    (4096, (8, 1, 1), (8, 8, 1)),
+    (128, (8, 1, 1), (8, 4, 64)),
+    (2, (), (8, 1)),
+    (16384, (), (8, 1)),
+    *((D, (), (3, 5)) for D in WIDTHS),
+]
+
+
+def _column_operands(dev, D, s_lead, g_lead, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s1, s2 = (torch.randn(*s_lead, D, device=dev, generator=gen).to(torch.bfloat16) for _ in range(2))
+    g = torch.randn(*g_lead, D, device=dev, generator=gen).to(torch.bfloat16)
+    return s1, g, s2
+
+
+@pytest.mark.parametrize("shape", COLUMN_SHAPES, ids=lambda s: f"D{s[0]}-{s[1]}-{s[2]}")
+def test_column_modes_are_the_plain_version_bit_for_bit(dev, shape):
+    """The column kernel's three modes against column_plain and
+    column_bwd_plain, torch.equal, one launch each."""
+    s1, g, s2 = _column_operands(dev, *shape)
+    fc.reset_launches()
+    y = fc.column_raw(s1, g, s2, False)[0]
+    y_res, t = fc.column_raw(s1, g, s2, True)
+    ref_y, ref_t = fc.column_plain(s1, g, s2, True)
+    assert y.dtype == torch.bfloat16 and y.is_contiguous() and t.is_contiguous()
+    assert torch.equal(y, ref_y) and torch.equal(y_res, ref_y) and torch.equal(t, ref_t)
+    gy = torch.randn(y.shape, device=dev).to(torch.bfloat16)
+    got = fc.column_bwd_raw(s1, s2, gy, t)
+    for a, b in zip(got, fc.column_bwd_plain(s1, s2, gy, t)):
+        assert a.shape == y.shape and torch.equal(a, b)
+    torch.cuda.synchronize()
+    want = {"column_y_bf16s": 1, "column_res_bf16s": 1, "column_bwd_bf16s": 1}
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | want and fc.REALIGNED == 0
+
+
+@pytest.mark.parametrize("shape", COLUMN_SHAPES[:5], ids=lambda s: f"D{s[0]}-{s[1]}-{s[2]}")
+def test_column_head_gradients_are_the_chain_bit_for_bit(dev, shape):
+    """ColumnFunction on the card (two launches) against autograd over the
+    chain it replaces (K4 and PyTorch's ops), forward and the gradients of
+    g, s1 and s2."""
+    s1, g, s2 = _column_operands(dev, *shape, seed=1)
+    cot = torch.randn(torch.broadcast_shapes(g.shape, s1.shape), device=dev).to(torch.bfloat16)
+    results = []
+    for column in (True, False):
+        leaves = [a.clone().requires_grad_() for a in (s1, g, s2)]
+        fc.reset_launches()
+        if column:
+            out = fc.column_head(*leaves)
+        else:  # ColumnMatrix.column_given_g's chain, its replica views
+            s2_rows = leaves[2] if s2.dim() == 1 else leaves[2][..., None, :]
+            out = (leaves[0][..., :1, None] * fc.fwht_cuda(g.new_ones(1, g.shape[-1])
+                   * leaves[1][..., None, :]) * s2_rows).squeeze(-2)
+        out.backward(cot)
+        results.append((out.detach(), *(a.grad for a in leaves)))
+        if column:
+            assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {
+                "column_res_bf16s": 1, "column_bwd_bf16s": 1}
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+def test_column_entry_refuses_misaligned_operands_and_null_pointers(dev):
+    """column_bf16s refuses in, s2, res or an output off 16 bytes (a base
+    pointer or a leading stride read through) and a null pointer its mode
+    needs: cudaErrorInvalidValue, nothing launched, nothing written. s1 is
+    read one element a row and may lie anywhere. column_nop launches."""
+    lib = fc.load_library()
+    D, B = 256, 8
+    s1, g, s2 = _column_operands(dev, D, (), (B,))
+    t = fc.column_raw(s1, g, s2, True)[1]
+    outs = [torch.zeros_like(g) for _ in range(3)]
+    stream = torch.cuda.current_stream().cuda_stream
+    invalid_value = 1  # cudaErrorInvalidValue
+    geom = fc._geometry(g.shape[:-1], (g, s1[..., :1], s2, t))
+    base = [g.data_ptr(), s1.data_ptr(), s2.data_ptr(), t.data_ptr(), *(o.data_ptr() for o in outs)]
+
+    def call(ptrs, mode=2, geometry=geom):
+        return lib.column_bf16s(mode, *ptrs, B, 8, ctypes.byref(geometry), stream)
+
+    for k in (0, 2, 3, 4, 5, 6):
+        for off in (2, 4, 8):
+            bad = list(base)
+            bad[k] += off
+            assert call(bad) == invalid_value
+        bad = list(base)
+        bad[k] = None
+        assert call(bad) == invalid_value
+    odd = fc._geometry(g.shape[:-1], (g, s1[..., :1], s2, t))
+    odd.stride[4 * 2 + 3] = D + 1  # s2 read through a row stride of D + 1 elements
+    odd.size[3] = B
+    assert call(base, geometry=odd) == invalid_value
+    assert call(base, mode=3) == invalid_value
+    torch.cuda.synchronize()
+    assert not any(o.any() for o in outs)
+    shifted = list(base)
+    shifted[1] += 2  # s1_0 one element on: allowed
+    assert call(shifted, mode=0) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], fc.column_plain(s1[1:2].expand(D), g, s2, False)[0])
+    assert lib.column_nop(B, 8, stream) == 0 and lib.column_nop(0, 8, stream) == invalid_value
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------ the large-D diagnosis kernels
 #
 # Tolerances: kc.tol(name, D) against the plain version (0 for the

@@ -8,7 +8,8 @@ so a variant never times the sources unchanged by mistake; a change to
 those lines needs its variant edited too (``tests/test_torch_bench.py``
 applies every edit to the shipped sources). ``--parent DIR`` adds the
 sources of another checkout (``DIR/whvi_tpu_torch/csrc``, for example the
-parent commit unpacked by ``git archive``) as the variant ``parent``.
+parent commit unpacked by ``git archive``) as the variant ``parent``; a
+parent from before the column kernel times and checks the rest.
 
 Every variant is built into its own library, one ``nvcc`` a source, all
 started together, then loaded in turn. The diagnostic variants
@@ -18,18 +19,22 @@ held against the plain versions (fp32 and bf16 storage bit for bit, the
 bf16 precision within ``fwht_cuda.bf16_tol``).
 
 JSON rows: first the card and its power limit; then per variant the
-ptxas report of the fused kernels at D = 4096, 8192, 16384 (registers and
-spill bytes, fp32 and bf16, with residuals and without, in both
-storages), and whether the instances a bf16-storage design change must
-leave as they are (K1-K3 in fp32 storage, K4 in both; every D) have the
-ptxas report and the SASS (``cuobjdump``) of ``base``'s; then per variant
-and kernel the device ms
+ptxas report of the fused kernels and of the column kernel at D = 4096,
+8192, 16384 (registers and spill bytes, fp32 and bf16, with residuals and
+without, in both storages; the column kernel's three modes), and whether
+the instances a design change of the column kernel must leave as they are
+(K1-K3 in both storages and precisions, K4 in both storages; every D)
+have the ptxas report and the SASS (``cuobjdump``) of ``base``'s; then
+per variant and kernel the device ms
 a call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) of
 K1-K3 in both precisions and on bf16 storage at the scaling path's shape
 (u (8,1,D), x (256,D) expanded to 2048 rows) at D = 4096 and 8192, of K1
 at D=16384, B=512 in every mode, and of K4 at (2048, 4096) and at the
-column head (8,1,1,4096) in both storages, with the bound (bytes read
-once and written once over 3.35 TB/s) and its share. ``base`` runs first
+column head (8,1,1,4096) in both storages, and of the column kernel's
+three modes at the column head (8,1,D), D = 4096 and 8192, and at the
+column LRT's rows (8,256,4096) beside the launch floor on the same grid
+(``column_floor``), with the bound (bytes read once and written once over
+3.35 TB/s) and its share. ``base`` runs first
 and last (``parent`` around it), so that drift of the card's clock shows;
 ``--rounds N`` runs that order N times.
 
@@ -201,6 +206,17 @@ def check(name: str, dev) -> None:
             raise AssertionError(f"variant {name}: D={D} bf16 storage is wrong")
         if not torch.equal(fc.fwht_raw(h[3]), fc.fwht_plain(h[3])):
             raise AssertionError(f"variant {name}: fwht D={D} bf16 storage is wrong")
+        if not hasattr(fc.load_library(), "column_bf16s"):  # a parent from before the column kernel
+            continue
+        s1h, s2h, gh = h[0], h[2], x.to(torch.bfloat16)  # the column head's rows: bit for bit
+        y, t = fc.column_plain(s1h, gh, s2h, True)
+        got_y, got_t = fc.column_raw(s1h, gh, s2h, True)
+        gy = torch.randn(y.shape, device=dev, generator=gen).to(torch.bfloat16)
+        bwd = fc.column_bwd_raw(s1h, s2h, gy, t)
+        ok = torch.equal(fc.column_raw(s1h, gh, s2h, False)[0], y) and torch.equal(got_y, y)
+        ok = ok and torch.equal(got_t, t)
+        if not (ok and all(torch.equal(a, b) for a, b in zip(bwd, fc.column_bwd_plain(s1h, s2h, gy, t)))):
+            raise AssertionError(f"variant {name}: the column kernel at D={D} is wrong")
 
 
 def cases(dev):
@@ -256,15 +272,29 @@ def cases(dev):
     xch = xc.to(torch.bfloat16)
     out.append(("fwht", "(8,1,1,4096)", lambda: fc.fwht_raw(xc), (xc,), (xc,)))
     out.append(("fwht_bf16s", "(8,1,1,4096)", lambda: fc.fwht_raw(xch), (xch,), (xch,)))
+    for lead, D in (((8, 1), 4096), ((8, 1), 8192), ((8, 256), 4096)):  # the column kernel
+        s1, s2 = (torch.randn(D, device=dev, generator=gen).to(torch.bfloat16) for _ in range(2))
+        g, gy = (torch.randn(*lead, D, device=dev, generator=gen).to(torch.bfloat16) for _ in range(2))
+        t = fc.column_raw(s1, g, s2, True)[1]
+        label, rows = f"({lead[0]},{lead[1]},{D})", g.numel() // D
+        out += [
+            ("column_y_bf16s", label, lambda a=(s1, g, s2): fc.column_raw(*a, False),
+             (g, s2, s1[:1]), (g,)),
+            ("column_res_bf16s", label, lambda a=(s1, g, s2): fc.column_raw(*a, True),
+             (g, s2, s1[:1]), (g, g)),
+            ("column_bwd_bf16s", label, lambda a=(s1, s2, gy, t): fc.column_bwd_raw(*a),
+             (gy, t, s2, s1[:1]), (g, g, g)),
+            ("column_floor", label, lambda r=rows, D=D: fc.column_floor(r, D, dev), (), ()),
+        ]
     return out
 
 
 def _held(symbol: str):
-    """The instance key of a kernel a bf16-storage design change must leave
-    as it is (K1-K3 in fp32 storage, K4 in both storages), else None."""
+    """The instance key of a kernel a design change of the column kernel
+    must leave as it is (K1-K3 in both storages and precisions, K4 in both
+    storages), else None."""
     inst = _instance(symbol)
-    if inst and (inst["kernel"] == "fwht" or (inst["kernel"] == "whvi_fused"
-                                              and inst["storage"] == "fp32")):
+    if inst and inst["kernel"] in ("fwht", "whvi_fused"):
         return tuple(sorted(inst.items()))
     return None
 
@@ -309,7 +339,7 @@ def main(argv=None) -> None:
     for name in names:
         for symbol, row in sorted(ptxas(reports[name]).items()):
             inst = _instance(symbol)
-            if inst and inst["kernel"] == "whvi_fused" and inst["L"] in PTXAS_LOG2D:
+            if inst and inst["kernel"] in ("whvi_fused", "column") and inst["L"] in PTXAS_LOG2D:
                 emit({"variant": name, "ptxas": True, **inst, **row})
         own, sass = held_ptxas(reports[name]), held_sass(libs[name])
         emit({"variant": name, "held_ptxas_as_base": own == base_ptxas,
@@ -326,7 +356,10 @@ def main(argv=None) -> None:
         use_library(libs[name])
         if name not in DIAGNOSTIC:
             check(name, dev)
+        has_column = hasattr(fc.load_library(), "column_bf16s")
         for kernel, label, call, ins, outs in runs:
+            if kernel.startswith("column") and not has_column:
+                continue
             ms = time_us(call, 20) / 1e3
             bound, _ = bound_ms(ins, outs, 0.0, 1.0)
             emit({"variant": name, "kernel": kernel, "shape": label, "ms": ms,

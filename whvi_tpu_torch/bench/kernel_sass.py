@@ -7,7 +7,9 @@ and disassembles it with ``cuobjdump -sass``. One JSON row per instance of
 ``whvi_fused_kernel`` and ``whvi_bf16s_kernel`` (K1-K3 in fp32 and bf16
 storage, both named ``whvi_fused``: ``L`` = log2 D, ``storage``,
 ``residuals``, ``bf16`` the operand precision), ``fwht_kernel`` (K4, with
-its ``storage``), ``kron_swap_kernel`` (``k_swap``) and
+its ``storage``), ``column_kernel`` (the bf16-storage column head,
+``column``: ``L`` and ``mode``, 0 y, 1 y and t, 2 the backward),
+``kron_swap_kernel`` (``k_swap``) and
 ``kron_cur_kernel`` (``k_cur``, which ``k_onecast`` launches too; the
 last two from ``L`` = 7) at the widths asked for, and one each for
 ``kron_kernel<kCopy>`` (``k_copy``), ``kron_kernel<kScale>``
@@ -61,6 +63,8 @@ _KERNEL = re.compile(
     rf"_ZN4whvi(?:17whvi_fused_kernelILi(\d+)ELb(\d)ELb(\d)E(f|{_BF16})?E"
     rf"|11fwht_kernelILi(\d+)E(f|{_BF16})E|17whvi_bf16s_kernelILi(\d+)ELb(\d)EE)"
 )
+# column_kernel<L, mode> (the column head on bf16 storage)
+_COLUMN = re.compile(r"_ZN4whvi13column_kernelILi(\d+)ELi(\d)EE")
 # kron_kernel<stage> of the copy (0) and the scale (1); kron_full_kernel<n>
 # after n contractions (1 k_mm1, 2 k_mm2, 4 the whole product: k_full,
 # k_flat, emit_full) and kron_whole_kernel<n>; emit_copy_kernel
@@ -74,8 +78,11 @@ _RING = "_ZN9kron_copy14copy_2d_kernelE"  # hbm_copy and copy_2d
 
 def _instance(symbol: str) -> dict | None:
     """``{"kernel", "L", "storage", "residuals", "bf16"}`` of a K1-K4 symbol,
+    ``{"kernel", "L", "mode"}`` of the column kernel,
     ``{"kernel", "L"}`` of ``k_swap`` or ``k_cur``, ``{"kernel"}`` (the
     wrapper's name) of a large-D copy or scale, else None."""
+    if m := _COLUMN.search(symbol):
+        return {"kernel": "column", "L": int(m.group(1)), "mode": int(m.group(2))}
     if m := _ROW.search(symbol):
         return {"kernel": "k_cur" if "kron_cur" in symbol else "k_swap", "L": int(m.group(1))}
     if _RING in symbol:

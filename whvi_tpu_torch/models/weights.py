@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from whvi_tpu_torch.ops.fwht_cuda import fwht_cuda
+from whvi_tpu_torch.ops.fwht_cuda import column_head, fwht_cuda
 from whvi_tpu_torch.ops.hadamard import (
     build_H_rows,
     is_pow_of_2,
@@ -262,7 +262,8 @@ class ColumnMatrix(_WHVIMatrix):
     first ``n`` entries, row-major, of a square ``D_adj`` WHVI sample,
     ``D_adj = next_pow_of_2(n)``. Only the ``ceil(n / D_adj)`` surviving
     rows are computed, ``row_i = s1[i] * fwht(H[i, :] * g) * s2``, through
-    the FWHT kernel. Parameters ``(D_adj,)``.
+    the FWHT kernel (fp32 storage) or the column kernel (bf16 storage).
+    Parameters ``(D_adj,)``.
 
     By default one explicit column a sample, as the reference
     (``whvi_tpu/models/weights.py:389-396``). With ``use_lrt`` and
@@ -303,8 +304,18 @@ class ColumnMatrix(_WHVIMatrix):
 
     def column_given_g(self, g):
         """Column from ``g (..., D_adj)``; returns ``(..., n)``: one column
-        a row of ``g``, so ``g (*S, B, D_adj)`` gives one a batch row."""
+        a row of ``g``, so ``g (*S, B, D_adj)`` gives one a batch row.
+
+        ``n_rows = ceil(n / D_adj)`` is 1 and ``H_rows`` a row of ones, so
+        on bf16 storage the rows are ``fwht_cuda.column_head``: one launch
+        of the column kernel a direction on the card, the same chain's
+        plain version on the CPU, bit for bit with the chain below, which
+        fp32 storage runs (K4 and PyTorch's ops)."""
         n_rows = self.H_rows.shape[0]
+        if self.s1.dtype == torch.bfloat16:
+            assert n_rows == 1, f"a column of n={self.n} has one row of H, got {n_rows}"
+            col = column_head(self._view(self.s1, g.dim()), g, self._view(self.s2, g.dim()))
+            return col[..., : self.n] if self.n < self.D_adj else col
         rank = g.dim() + 1
         rows = (
             self._view(self.s1[..., :n_rows, None], rank)

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for the WHVI product and the FWHT.
 
-Counterpart of :mod:`whvi_tpu.ops.fwht_pallas`. Three kernels live in
+Counterpart of :mod:`whvi_tpu.ops.fwht_pallas`. Four kernels live in
 ``whvi_tpu_torch/csrc/`` (the fused product in fp32 storage,
 ``whvi_fused.cu``, and in bf16 storage, ``whvi_bf16s.cu``; the bare
-transform, ``fwht.cu``) and are used eleven ways:
+transform, ``fwht.cu``; the column head in bf16 storage,
+``whvi_column.cu``) and are used fourteen ways:
 
 ===================  ====================================  ==================================
 launch counter       wrapper                               replaces (whvi_tpu/ops/fwht_pallas.py)
@@ -19,6 +20,9 @@ launch counter       wrapper                               replaces (whvi_tpu/op
 ``fused_res_bf16s``  ``fused_raw(.., True)`` on bf16       ``_kernel_1f`` / ``_kernel_2f``
 ``fused_bwd_bf16s``  ``fused_bwd_raw`` on bf16             the transform half of ``_bwd``
 ``fwht_bf16s``       ``fwht_raw`` on bf16                  ``_kernel_1f_t`` / ``_kernel_2f_t``
+``column_y_bf16s``   ``column_raw(.., False)``             ``_kernel_1f_t`` / ``_kernel_2f_t``
+``column_res_bf16s`` ``column_raw(.., True)``              ``_kernel_1f_t`` / ``_kernel_2f_t``
+``column_bwd_bf16s`` ``column_bwd_raw``                    ``_kernel_1f_t`` / ``_kernel_2f_t``
 ===================  ====================================  ==================================
 
 Precision. The Pallas product takes ``precision="fp32" | "bf16"``, and
@@ -45,9 +49,11 @@ to nearest even) and each transform summing in fp32::
 
     t0 = R(s2 x), i1 = R(H t0), t1 = R(u i1), i2 = R(H t1), y = R(s1 i2)
 
-and the bare transform ``R(H x)``. The plain versions compute exactly
-that (PyTorch's bf16 ops round where XLA's do; :func:`fwht_plain`
-transforms in fp32 and rounds once), and the kernels do too, bit for bit.
+and the bare transform ``R(H x)``; the column head's rows ``s1_0 * H(g)
+* s2`` as ``y = R(R(s1_0 t) s2)``, ``t = R(H g)`` (:func:`column_plain`).
+The plain versions compute exactly that (PyTorch's bf16 ops round where
+XLA's do; :func:`fwht_plain` transforms in fp32 and rounds once), and the
+kernels do too, bit for bit.
 Only the ``"fp32"`` precision has a bf16-storage form: the Pallas
 kernels cannot store bf16 (their output stores raise on bf16 refs,
 ``whvi_tpu/ops/fwht_pallas.py:121-204``), so ``"bf16"`` on bf16 storage
@@ -92,12 +98,14 @@ import subprocess
 import threading
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from whvi_tpu_torch.ops.hadamard import PRECISIONS, factor_H, is_pow_of_2, round_bf16
 from whvi_tpu_torch.ops.hadamard import fwht as fwht_plain
 
 __all__ = [
+    "ColumnFunction",
     "FwhtFunction",
     "LAUNCHES",
     "MAX_D",
@@ -110,6 +118,12 @@ __all__ = [
     "check_kernel_args",
     "check_precision",
     "check_storage",
+    "column_bwd_plain",
+    "column_bwd_raw",
+    "column_floor",
+    "column_head",
+    "column_plain",
+    "column_raw",
     "fused_bwd_raw",
     "fused_plain",
     "fused_raw",
@@ -131,8 +145,8 @@ ONE_FACTOR_MAX = 1024  # D <= 1024: one factor H_D (_factor_pair)
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = (
-    "whvi_fused.cu", "whvi_bf16s.cu", "fwht.cu", "whvi_kron.cu", "whvi_full.cu", "whvi_pipe.cu",
-    "copy_floor.cu",
+    "whvi_fused.cu", "whvi_bf16s.cu", "fwht.cu", "whvi_column.cu", "whvi_kron.cu", "whvi_full.cu",
+    "whvi_pipe.cu", "copy_floor.cu",
 )
 _HEADERS = ("fwht_core.cuh", "kron_core.cuh", "tma.cuh", "wgmma.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "whvi_tpu_torch")
@@ -147,6 +161,7 @@ LAUNCHES = {
     "fused_y": 0, "fused_res": 0, "fused_bwd": 0, "fwht": 0,
     "fused_y_bf16": 0, "fused_res_bf16": 0, "fused_bwd_bf16": 0,
     "fused_y_bf16s": 0, "fused_res_bf16s": 0, "fused_bwd_bf16s": 0, "fwht_bf16s": 0,
+    "column_y_bf16s": 0, "column_res_bf16s": 0, "column_bwd_bf16s": 0,
 }
 STORAGE = (torch.float32, torch.bfloat16)  # the kernels' element types
 
@@ -261,6 +276,13 @@ def load_library() -> ctypes.CDLL:
             for name in ("fwht_f32", "fwht_bf16s"):
                 getattr(lib, name).argtypes = [vp, vp, i64, i32, vp]
                 getattr(lib, name).restype = ctypes.c_int
+            if hasattr(lib, "column_bf16s"):  # not in a build of older sources (a parent's)
+                lib.column_bf16s.argtypes = [i32] + [vp] * 7 + [
+                    i64, i32, ctypes.POINTER(_Geometry), vp,
+                ]
+                lib.column_nop.argtypes = [i64, i32, vp]
+                for name in ("column_bf16s", "column_nop"):
+                    getattr(lib, name).restype = ctypes.c_int
             # the kernels of ops/kron_cuda.py
             for name, args in (
                 ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),
@@ -386,6 +408,31 @@ def vjp_plain(s1, u, s2, x, g, precision: str = "fp32"):
     _, i1, i2 = fused_plain(s1, u, s2, x, True, precision)
     dx, w1, t2 = fused_plain(s2, u, s1, g, True, precision)
     return _input_grads((True,) * 4, s1, u, s2, x, g, i1, i2, dx, w1, t2)
+
+
+def column_plain(s1, g, s2, residual: bool):
+    """``(y, t)`` of the column head's rows (``ColumnMatrix.column_given_g``,
+    ``H_rows`` one row of ones) from ``g (..., D)`` and the diagonals
+    ``s1, s2 (..., D)``, which broadcast over ``g``'s leading axes:
+    ``t = H g``, ``y = (s1_0 * t) * s2`` with ``s1_0 = s1[..., :1]``, of
+    the broadcast shape. On bf16 storage each op rounds, ``t = R(H g)``
+    and ``y = R(R(s1_0 t) s2)``, as the chain it replaces does. ``t``
+    (expanded to ``y``'s shape, as the kernel writes it) is None unless
+    ``residual``."""
+    t = fwht_plain(g)
+    y = s1[..., :1] * t * s2
+    return y, (t.expand(y.shape) if residual else None)
+
+
+def column_bwd_plain(s1, s2, gy, t):
+    """``(dg, p1, p2)`` for the cotangent ``gy`` of :func:`column_plain`'s
+    ``y`` and its residual ``t``: ``dg = H((gy * s2) * s1_0)`` (H is
+    self-adjoint), ``p1 = (gy * s2) * t`` and ``p2 = gy * (s1_0 * t)``,
+    the products autograd takes over the chain (each rounded on bf16
+    storage), before the reductions to ``s1_0``'s and ``s2``'s shapes."""
+    s = s1[..., :1]
+    da = gy * s2
+    return fwht_plain(da * s), da * t, gy * (s * t)
 
 
 # ----------------------------------------------------------------- dispatch
@@ -601,6 +648,85 @@ def fwht_raw(x):
     return y
 
 
+_COLUMN_MODES = ("column_y_bf16s", "column_res_bf16s", "column_bwd_bf16s")  # by mode
+
+
+def _launch_column(mode: int, x, s1, s2, res=None):
+    """``column_bf16s`` in ``mode`` (0: y; 1: y, t; 2: the backward, x the
+    cotangent and ``res`` t): its outputs, contiguous of the broadcast
+    shape. ``s1`` is read one element a row, ``s1[..., 0]``, through its
+    own strides."""
+    D = x.shape[-1]
+    operands = (x, s1, s2) if res is None else (x, s1, s2, res)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the column kernel takes bf16 storage, got {x.dtype}")
+    for t in operands:
+        check_kernel_args(t.shape[-1], t.dtype)
+        if t.shape[-1] != D:
+            raise ValueError(f"operands must share the last axis D={D}, got {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError("the last axis of every operand must be contiguous")
+    width = vector_bytes(D, x.element_size())
+    x, s2 = _aligned(x, width), _aligned(s2, width)
+    res = None if res is None else _aligned(res, width)
+    lead = torch.broadcast_shapes(*(t.shape[:-1] for t in operands))
+    geom = _geometry(lead, (x, s1, s2, x if res is None else res))
+    outs = [torch.empty(*lead, D, dtype=x.dtype, device=x.device) for _ in range(mode + 1)]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (2 - mode)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.column_bf16s(
+            mode,
+            x.data_ptr(),
+            s1.data_ptr(),
+            s2.data_ptr(),
+            None if res is None else res.data_ptr(),
+            *ptrs,
+            math.prod(lead),
+            int(math.log2(D)),
+            ctypes.byref(geom),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"column_bf16s launch failed: cudaError_t {err}")
+    LAUNCHES[_COLUMN_MODES[mode]] += 1
+    return outs
+
+
+def column_raw(s1, g, s2, residual: bool):
+    """``(y, t)`` of the column head's rows, no autograd (see
+    :func:`column_plain`; ``t`` None unless ``residual``): one launch of
+    the column kernel on CUDA tensors, which must be bf16 (the fp32 head
+    runs K4 and PyTorch's ops); :func:`column_plain` on CPU tensors."""
+    _storage(s1, g, s2)
+    if _on_cpu(s1, g, s2):
+        return column_plain(s1, g, s2, residual)
+    outs = _launch_column(int(residual), g, s1, s2)
+    return outs[0], (outs[1] if residual else None)
+
+
+def column_bwd_raw(s1, s2, gy, t):
+    """``(dg, p1, p2)`` of :func:`column_bwd_plain`, no autograd: one
+    launch of the column kernel on CUDA tensors (bf16 only);
+    :func:`column_bwd_plain` on CPU tensors."""
+    _storage(s1, s2, gy, t)
+    if _on_cpu(s1, s2, gy, t):
+        return column_bwd_plain(s1, s2, gy, t)
+    return tuple(_launch_column(2, gy, s1, s2, t))
+
+
+def column_floor(n_rows: int, D: int, device) -> None:
+    """Launch a kernel that does nothing on the column kernel's grid, block
+    and shared memory at ``n_rows`` rows of ``D``: the launch floor under
+    its times. Counted nowhere; needs a card."""
+    device = torch.device(device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.column_nop(n_rows, int(math.log2(D)), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"column_nop launch failed: cudaError_t {err}")
+
+
 # ----------------------------------------------------------------- autograd
 
 
@@ -655,6 +781,52 @@ class FwhtFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         return fwht_raw(g.contiguous())
+
+
+class ColumnFunction(torch.autograd.Function):
+    """The column head's rows ``y = (s1_0 * H g) * s2``
+    (``apply(s1, g, s2)``; :func:`column_plain`), ``s1`` and ``s2`` the
+    full ``(.., D)`` diagonals. Forward: one launch with the residual
+    ``t``; backward: one launch for ``dg``, ``p1``, ``p2``, then the
+    reductions autograd takes over the chain, at its shapes (so the
+    gradients equal its bit for bit): ``ds1`` is ``p1`` summed, at element
+    0 of a zero ``(.., D)`` row; ``ds2`` is ``p2`` summed; ``dg`` is summed
+    over the axes ``g`` broadcasts along."""
+
+    @staticmethod
+    def forward(ctx, s1, g, s2):
+        y, t = column_raw(s1, g, s2, True)
+        ctx.save_for_backward(s1, s2, t)
+        ctx.g_shape = g.shape
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        s1, s2, t = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dg, p1, p2 = column_bwd_raw(s1, s2, gy.contiguous(), t)
+        D = gy.shape[-1]
+        ds1 = ds2 = None
+        if need[0]:  # the chain's s1[..., :1, None] view, one row of (.., 1, D)
+            ds1 = p1.unsqueeze(-2).sum_to_size(s1.shape[:-1] + (1, 1))
+            ds1 = F.pad(ds1.reshape(s1.shape[:-1] + (1,)), (0, D - 1))
+        if need[2]:
+            rows = s2.shape if s2.dim() == 1 else s2.shape[:-1] + (1, D)
+            ds2 = p2.unsqueeze(-2).sum_to_size(rows).reshape(s2.shape)
+        if need[1] and tuple(ctx.g_shape) != tuple(dg.shape):
+            g_shape = ctx.g_shape
+            dg = dg.unsqueeze(-2).sum_to_size(g_shape[:-1] + (1, D)).reshape(g_shape)
+        return ds1, (dg if need[1] else None), ds2
+
+
+def column_head(s1, g, s2):
+    """The column head's rows (:class:`ColumnFunction`): the autograd
+    Function only when a gradient is recorded, the y-only launch
+    otherwise."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (s1, g, s2)):
+        return ColumnFunction.apply(s1, g, s2)
+    return column_raw(s1, g, s2, False)[0]
 
 
 def fwht_cuda(x):
