@@ -1,0 +1,23 @@
+"""Host milliseconds a step in the port's ``whvi.loop.train_step`` span (the
+Loop layer: ``Trainer.train_step`` issuing the whole step, backward and
+optimizer included), inclusive, from ``utils.profiling.span_summary()`` over
+the traced window; nothing where the port records no span.
+
+In the train cells the device sets the pace: once the launch queue is full
+the host waits inside the spans, so the reading follows the device's time a
+step, not the host's own (``tools/span_cost.py``'s ``issue`` mode reads
+that)."""
+
+from whvi_tpu_torch.utils import profiling
+
+SPAN = "whvi.loop.train_step"
+
+
+def read(ctx):
+    summary = getattr(profiling, "span_summary", None)
+    if summary is None:  # a port without spans
+        return None
+    spans = summary()["spans"]
+    if SPAN not in spans:
+        raise RuntimeError(f"the traced window recorded no {SPAN} span")
+    return spans[SPAN]["total_s"] / ctx["units"] * 1e3

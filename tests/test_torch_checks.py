@@ -5,7 +5,7 @@ oracle, its fp32 and bf16-storage products against JAX's ``whvi_mul`` at
 ``"xla"`` / ``"highest"``, its rows), ``bench/column_lrt_check.py``,
 ``bench/diag_matmul.py``, ``ops.matmul_diag_left`` / ``matmul_diag_right``
 / ``kl_normal`` / ``fwht_butterfly`` against the JAX functions on the same
-numpy inputs, and ``utils.profiling.trace`` / ``timed``. Times are taken
+numpy inputs, and ``utils.profiling.trace``. Times are taken
 only on a card: the timing CLIs refuse without one, and their row
 functions run here with a stub timer."""
 
@@ -26,7 +26,7 @@ from whvi_tpu.ops import whvi_op as jax_whvi_op
 from whvi_tpu.ops.cpu_oracle import oracle_available, whvi_mul_cpp
 from whvi_tpu_torch import ops
 from whvi_tpu_torch.bench import column_lrt_check, diag_matmul, grad_check, precision_check
-from whvi_tpu_torch.utils.profiling import timed, trace
+from whvi_tpu_torch.utils.profiling import trace
 
 torch.set_num_threads(1)
 
@@ -262,10 +262,3 @@ def test_profiler_readings_refuse_lost_kernel_records(tmp_path, monkeypatch, rea
     with pytest.raises(RuntimeError, match=r"recorded 0 of the 1 kernel launches"):
         run(True)
 
-
-def test_timed_prints_each_call(capsys):
-    f = timed(ops.fwht)
-    y = f(torch.ones(2, 8))
-    assert torch.equal(y, ops.fwht(torch.ones(2, 8)))
-    out = capsys.readouterr().out
-    assert out.startswith("fwht: ") and out.strip().endswith("s")

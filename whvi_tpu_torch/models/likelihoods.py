@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from whvi_tpu_torch.ops.hadamard import round_scalar, softplus
+from whvi_tpu_torch.utils.profiling import span
 
 __all__ = [
     "GaussianLikelihood",
@@ -33,6 +34,9 @@ __all__ = [
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+# The Model layer's span of each likelihood's mnll, log_prob and predict.
+_spanned = span("whvi.model.likelihood")
 
 
 def _weighted_total(lp_per_point, n, weights):
@@ -94,16 +98,19 @@ class GaussianLikelihood(nn.Module):
             return sigma
         return sigma.reshape(sigma.shape + (1,) * (ndim - 1))
 
+    @_spanned
     def mnll(self, y, y_hat, n, weights=None):
         """Total-dataset MNLL from ``y (B, n_out)``, ``y_hat (S, B, n_out)``
         and the dataset size ``n``; optional ``weights (B,)``."""
         lp = _gauss_logpdf(y.unsqueeze(-3), y_hat, self.sigma(y_hat.dim()))
         return _weighted_total(torch.sum(lp, dim=-1), n, weights)
 
+    @_spanned
     def log_prob(self, y, y_hat):
         """Per-sample, per-point joint log density ``(S, B)``."""
         return torch.sum(_gauss_logpdf(y.unsqueeze(-3), y_hat, self.sigma(y_hat.dim())), dim=-1)
 
+    @_spanned
     def predict(self, y_hat):
         """Predictive mean and stddev of the MC mixture ``(S, B, n_out)``."""
         mean = torch.mean(y_hat, dim=-3)
@@ -134,16 +141,19 @@ class HeteroscedasticGaussianLikelihood(nn.Module):
         shift = _inv_softplus(max(self.sigma0 - self.sigma_min, 1e-6))
         return mean, softplus(raw + _scalar(shift, raw)) + _scalar(self.sigma_min, raw)
 
+    @_spanned
     def mnll(self, y, y_hat, n, weights=None):
         mean, sigma = self.split(y_hat)
         lp = _gauss_logpdf(y.unsqueeze(-3), mean, sigma)
         return _weighted_total(torch.sum(lp, dim=-1), n, weights)
 
+    @_spanned
     def log_prob(self, y, y_hat):
         """Per-sample, per-point joint log density ``(S, B)``."""
         mean, sigma = self.split(y_hat)
         return torch.sum(_gauss_logpdf(y.unsqueeze(-3), mean, sigma), dim=-1)
 
+    @_spanned
     def predict(self, y_hat):
         """Predictive mean and stddev: the MC variance of the means (the
         population variance, ``correction=0``, as ``jnp.var``) plus the
@@ -171,13 +181,16 @@ class CategoricalLikelihood(nn.Module):
         index = labels.view(-1, 1).expand(*logp.shape[:-1], 1)
         return torch.gather(logp, -1, index)[..., 0]
 
+    @_spanned
     def mnll(self, y, y_hat, n, weights=None):
         return _weighted_total(self._label_log_prob(y, y_hat), n, weights)
 
+    @_spanned
     def log_prob(self, y, y_hat):
         """Per-sample, per-point class log probability ``(S, B)``."""
         return self._label_log_prob(y, y_hat)
 
+    @_spanned
     def predict(self, y_hat):
         """Posterior-mean class probabilities ``(B, C)``."""
         return torch.mean(F.softmax(y_hat, dim=-1), dim=0)

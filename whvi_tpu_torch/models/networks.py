@@ -33,10 +33,22 @@ from torch import nn
 
 from whvi_tpu_torch.models.layers import Activation, WHVILinear, relu
 from whvi_tpu_torch.models.likelihoods import CategoricalLikelihood, GaussianLikelihood
+from whvi_tpu_torch.utils.profiling import span
 
 __all__ = [
     "WHVINetwork", "WHVIRegression", "WHVIClassification", "mlp_layers", "stack_replicas",
 ]
+
+
+class _LayerSpans(dict):
+    """The Model layer's span of layer ``i``, ``whvi.model.layer<i>``."""
+
+    def __missing__(self, i: int) -> str:
+        name = self[i] = f"whvi.model.layer{i}"
+        return name
+
+
+_LAYER_SPANS = _LayerSpans()
 
 
 class WHVINetwork(nn.Module):
@@ -83,14 +95,15 @@ class WHVINetwork(nn.Module):
                 f"lambdas must have one entry per layer ({len(self.layers)}), "
                 f"got {len(lambdas)}"
             )
-        total = 0
-        for layer, lam in zip(self.layers, lambdas):
-            if isinstance(layer, Activation):
-                if torch.is_tensor(total) and total.dtype.itemsize < 4:
-                    total = total.float()
-            else:
-                total = total + layer.kl(lam)
-        return total
+        with span("whvi.model.kl"):
+            total = 0
+            for layer, lam in zip(self.layers, lambdas):
+                if isinstance(layer, Activation):
+                    if torch.is_tensor(total) and total.dtype.itemsize < 4:
+                        total = total.float()
+                else:
+                    total = total + layer.kl(lam)
+            return total
 
     def forward(self, x, generator=None, eps=None):
         """One stochastic pass over ``x (S, B, n_in)`` for all S samples."""
@@ -101,8 +114,9 @@ class WHVINetwork(nn.Module):
                 f"eps must have one entry per layer ({len(self.layers)}), "
                 f"got {len(eps)}"
             )
-        for layer, e in zip(self.layers, eps):
-            x = layer(x, generator, e)
+        for i, (layer, e) in enumerate(zip(self.layers, eps)):
+            with span(_LAYER_SPANS[i]):
+                x = layer(x, generator, e)
         return x
 
     def draw_noise(self, lead, generator=None, dtype=torch.float32, device=None) -> list:
@@ -114,11 +128,13 @@ class WHVINetwork(nn.Module):
 
     def predict(self, x, n_samples: int, generator=None, eps=None):
         """``(S, B, n_out)`` MC predictions for ``x (B, n_in)``; ``(R, S,
-        B, n_out)`` for ``x (R, B, n_in)`` on a replicated net."""
-        if self.replicas is None:
-            return self(x.expand(n_samples, *x.shape), generator, eps)
-        R = x.shape[0]
-        return self(x[:, None].expand(R, n_samples, *x.shape[1:]), generator, eps)
+        B, n_out)`` for ``x (R, B, n_in)`` on a replicated net. The Model
+        layer's span ``whvi.model.predict`` covers it."""
+        with span("whvi.model.predict"):
+            if self.replicas is None:
+                return self(x.expand(n_samples, *x.shape), generator, eps)
+            R = x.shape[0]
+            return self(x[:, None].expand(R, n_samples, *x.shape[1:]), generator, eps)
 
     def loss(
         self,
@@ -136,13 +152,15 @@ class WHVINetwork(nn.Module):
         """``(loss, {"mnll", "kl"})`` with ``loss = mnll + kl_scale * kl``
         (``mnll`` alone under ``ignore_kl``); ``weights (B,)`` mark
         padding rows with 0; ``lambdas`` as :meth:`kl`. Each is ``(R,)`` on
-        a replicated net, and so may ``kl_scale`` be."""
-        S = self.train_samples if n_samples is None else n_samples
-        y_hat = self.predict(x, S, generator, eps)
-        mnll = self.likelihood.mnll(y, y_hat, n, weights=weights)
-        kl = self.kl(lambdas)
-        loss = mnll if ignore_kl else mnll + kl_scale * kl
-        return loss, {"mnll": mnll, "kl": kl}
+        a replicated net, and so may ``kl_scale`` be. The Model layer's span
+        ``whvi.model.loss`` covers it."""
+        with span("whvi.model.loss"):
+            S = self.train_samples if n_samples is None else n_samples
+            y_hat = self.predict(x, S, generator, eps)
+            mnll = self.likelihood.mnll(y, y_hat, n, weights=weights)
+            kl = self.kl(lambdas)
+            loss = mnll if ignore_kl else mnll + kl_scale * kl
+            return loss, {"mnll": mnll, "kl": kl}
 
     def eval_metrics(self, x, y, generator=None, n_samples: int | None = None):
         """Test-set metrics from ``eval_samples`` MC predictions."""

@@ -51,6 +51,7 @@ from whvi_tpu_torch.ops.hadamard import (
     softplus,
 )
 from whvi_tpu_torch.ops.whvi_op import whvi_dense, whvi_mul
+from whvi_tpu_torch.utils.profiling import span
 
 __all__ = [
     "replica_view",
@@ -310,7 +311,12 @@ class ColumnMatrix(_WHVIMatrix):
         on bf16 storage the rows are ``fwht_cuda.column_head``: one launch
         of the column kernel a direction on the card, the same chain's
         plain version on the CPU, bit for bit with the chain below, which
-        fp32 storage runs (K4 and PyTorch's ops)."""
+        fp32 storage runs (K4 and PyTorch's ops). The Op layer's span
+        ``whvi.op.column`` covers it."""
+        with span("whvi.op.column"):
+            return self._column(g)
+
+    def _column(self, g):
         n_rows = self.H_rows.shape[0]
         if self.s1.dtype == torch.bfloat16:
             assert n_rows == 1, f"a column of n={self.n} has one row of H, got {n_rows}"
@@ -333,10 +339,11 @@ class ColumnMatrix(_WHVIMatrix):
         whether a column serves a sample or a row (``per_example_noise``
         is not needed: the FWHT has no bf16 mode)."""
         del per_example_noise
-        col = self.column_given_g(g)
-        if self.transposed:
-            return torch.sum(x * col, dim=-1, keepdim=True)
-        return x * col
+        with span("whvi.op.column"):
+            col = self._column(g)
+            if self.transposed:
+                return torch.sum(x * col, dim=-1, keepdim=True)
+            return x * col
 
     def dense_given_g(self, g):
         col = self.column_given_g(g)

@@ -103,6 +103,7 @@ from torch.autograd.function import once_differentiable
 
 from whvi_tpu_torch.ops.hadamard import PRECISIONS, factor_H, is_pow_of_2, round_bf16
 from whvi_tpu_torch.ops.hadamard import fwht as fwht_plain
+from whvi_tpu_torch.utils.profiling import span
 
 __all__ = [
     "ColumnFunction",
@@ -163,6 +164,8 @@ LAUNCHES = {
     "fused_y_bf16s": 0, "fused_res_bf16s": 0, "fused_bwd_bf16s": 0, "fwht_bf16s": 0,
     "column_y_bf16s": 0, "column_res_bf16s": 0, "column_bwd_bf16s": 0,
 }
+# The Kernel layer's span of each launch: ``whvi.kernel.<counter>``.
+KERNEL_SPANS = {name: "whvi.kernel." + name for name in LAUNCHES}
 STORAGE = (torch.float32, torch.bfloat16)  # the kernels' element types
 
 # Operands copied to an aligned allocation before a launch, since the
@@ -556,7 +559,7 @@ def _launch_fused(s1, u, s2, x, want_residuals: bool, precision: str, counter: s
     n_rows = y.numel() // D
     lib = load_library()
     entry = "whvi_fused_bf16s" if half else "whvi_fused_f32"
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), span(KERNEL_SPANS[counter]):
         err = getattr(lib, entry)(
             x.data_ptr(),
             s1.data_ptr(),
@@ -633,8 +636,8 @@ def fwht_raw(x):
     y = torch.empty_like(x)
     lib = load_library()
     half = x.dtype == torch.bfloat16
-    entry = "fwht_bf16s" if half else "fwht_f32"
-    with torch.cuda.device(x.device):
+    entry, counter = ("fwht_bf16s", "fwht_bf16s") if half else ("fwht_f32", "fwht")
+    with torch.cuda.device(x.device), span(KERNEL_SPANS[counter]):
         err = getattr(lib, entry)(
             x.data_ptr(),
             y.data_ptr(),
@@ -644,7 +647,7 @@ def fwht_raw(x):
         )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
-    LAUNCHES["fwht_bf16s" if half else "fwht"] += 1
+    LAUNCHES[counter] += 1
     return y
 
 
@@ -674,7 +677,8 @@ def _launch_column(mode: int, x, s1, s2, res=None):
     outs = [torch.empty(*lead, D, dtype=x.dtype, device=x.device) for _ in range(mode + 1)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (2 - mode)
     lib = load_library()
-    with torch.cuda.device(x.device):
+    counter = _COLUMN_MODES[mode]
+    with torch.cuda.device(x.device), span(KERNEL_SPANS[counter]):
         err = lib.column_bf16s(
             mode,
             x.data_ptr(),
@@ -689,7 +693,7 @@ def _launch_column(mode: int, x, s1, s2, res=None):
         )
     if err != 0:
         raise RuntimeError(f"column_bf16s launch failed: cudaError_t {err}")
-    LAUNCHES[_COLUMN_MODES[mode]] += 1
+    LAUNCHES[counter] += 1
     return outs
 
 
@@ -763,9 +767,11 @@ class WhviMulFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        s1, u, s2, x, i1, i2 = ctx.saved_tensors
-        dx, w1, t2 = fused_bwd_raw(s1, u, s2, g.contiguous(), ctx.precision)
-        grads = _input_grads(ctx.needs_input_grad, s1, u, s2, x, g, i1, i2, dx, w1, t2)
+        with span("whvi.op.whvi_mul_bwd"):
+            s1, u, s2, x, i1, i2 = ctx.saved_tensors
+            dx, w1, t2 = fused_bwd_raw(s1, u, s2, g.contiguous(), ctx.precision)
+        with span("whvi.op.input_grads"):
+            grads = _input_grads(ctx.needs_input_grad, s1, u, s2, x, g, i1, i2, dx, w1, t2)
         return (*grads, None)
 
 

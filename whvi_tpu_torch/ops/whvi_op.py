@@ -25,6 +25,7 @@ from whvi_tpu_torch.ops.fwht_cuda import (
     fused_raw,
 )
 from whvi_tpu_torch.ops.hadamard import build_H, is_pow_of_2
+from whvi_tpu_torch.utils.profiling import span
 
 __all__ = [
     "bf16_eligible",
@@ -126,17 +127,20 @@ def whvi_mul(
 
     With a gradient to record this is :class:`WhviMulFunction` (the
     kernel with residuals forward, the swapped kernel backward);
-    otherwise the y-only launch.
+    otherwise the y-only launch. The Op layer's span ``whvi.op.whvi_mul``
+    covers the call; its backward is ``whvi.op.whvi_mul_bwd`` up to the
+    kernel, then ``whvi.op.input_grads`` (the batch reductions).
     """
-    if precision is None:
-        precision = _PRECISION
-    if precision == "bf16" and not bf16_eligible(s1, u, s2, x, per_example, replicated):
-        precision = "fp32"
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (s1, u, s2, x)
-    ):
-        return WhviMulFunction.apply(s1, u, s2, x, precision)
-    return fused_raw(s1, u, s2, x, False, precision)[0]
+    with span("whvi.op.whvi_mul"):
+        if precision is None:
+            precision = _PRECISION
+        if precision == "bf16" and not bf16_eligible(s1, u, s2, x, per_example, replicated):
+            precision = "fp32"
+        if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (s1, u, s2, x)
+        ):
+            return WhviMulFunction.apply(s1, u, s2, x, precision)
+        return fused_raw(s1, u, s2, x, False, precision)[0]
 
 
 def whvi_dense(s1, u, s2):

@@ -49,6 +49,7 @@ import torch.distributed as dist
 from whvi_tpu_torch.models.likelihoods import _scalar
 from whvi_tpu_torch.parallel.distributed import init_distributed
 from whvi_tpu_torch.train.trainer import TrainConfig, Trainer
+from whvi_tpu_torch.utils.profiling import span
 
 __all__ = [
     "COLLECTIVES",
@@ -219,25 +220,30 @@ def sharded_loss_fn(net, mesh: Mesh, n_samples: int, ignore_kl: bool = False):
     state (or the same global ``eps``, per-layer as ``net.loss`` takes it).
     It runs the backward and leaves the global gradient in every
     parameter's ``.grad`` (one all-reduce); the returned values are
-    detached and the same on every rank."""
+    detached and the same on every rank. Its forward, ``net.predict``
+    through ``net.kl``, is the span ``whvi.model.loss`` and its
+    ``torch.autograd.grad`` ``whvi.model.backward``, as in a one-device
+    ``Trainer.train_step``."""
     S_local = _check_samples(mesh, n_samples)
 
     def loss(x, y, n, generator=None, kl_scale=1.0, weights=None, eps=None):
         B = x.shape[0]
         rows, x_local, eps_local = _block(net, mesh, n_samples, x, generator, eps)
-        y_hat = net.predict(x_local, S_local, eps=eps_local)
-        y_local = y if rows is None else y[rows]
-        lp = net.likelihood.log_prob(y_local, y_hat)  # (S_local, B_local)
-        if weights is None:
-            total = torch.sum(lp)
-            share = _scalar(-(n / (n_samples * B)), total) * total
-        else:
-            w = weights if rows is None else weights[rows]
-            share = -(n / (n_samples * torch.sum(weights))) * torch.sum(lp * w)
-        kl = net.kl()
-        local = share if ignore_kl else share + kl_scale * kl / mesh.size
+        with span("whvi.model.loss"):
+            y_hat = net.predict(x_local, S_local, eps=eps_local)
+            y_local = y if rows is None else y[rows]
+            lp = net.likelihood.log_prob(y_local, y_hat)  # (S_local, B_local)
+            if weights is None:
+                total = torch.sum(lp)
+                share = _scalar(-(n / (n_samples * B)), total) * total
+            else:
+                w = weights if rows is None else weights[rows]
+                share = -(n / (n_samples * torch.sum(weights))) * torch.sum(lp * w)
+            kl = net.kl()
+            local = share if ignore_kl else share + kl_scale * kl / mesh.size
         params = list(net.parameters())
-        grads = torch.autograd.grad(local, params, allow_unused=True)
+        with span("whvi.model.backward"):
+            grads = torch.autograd.grad(local, params, allow_unused=True)
         flat = torch.cat(
             [torch.zeros(p.numel(), device=p.device) if g is None else g.float().reshape(-1)
              for p, g in zip(params, grads)]

@@ -74,6 +74,7 @@ from whvi_tpu_torch.train.optim import (
     mask_noise_branch_grads,
     validate_split_head,
 )
+from whvi_tpu_torch.utils.profiling import span
 
 __all__ = ["TrainConfig", "TrainState", "Trainer", "batch_layout", "hyper_schedule"]
 
@@ -267,51 +268,58 @@ class Trainer:
         optional per-layer noise. ``hyper``: optional per-replica
         overrides of the config (``kl_warmup_steps``,
         ``noise_freeze_steps``: ``(R,)`` arrays; ``lambdas``: one entry a
-        layer, as ``WHVINetwork.kl``), as JAX's ``train_step(hyper=...)``."""
-        cfg = self.config
-        hyper = hyper or {}
-        self._refuse_hyper(hyper)
-        kl_scale, train_noise = hyper_schedule(hyper, state.step)
-        if kl_scale is not None:
-            kl_scale = self._per_replica(kl_scale)
-        elif cfg.kl_warmup_steps > 0:
-            kl_scale = min(1.0, state.step / cfg.kl_warmup_steps)
-        else:
-            kl_scale = 1.0
-        state.optimizer.zero_grad(set_to_none=False)
-        if self.mesh is not None:  # the backward and the all-reduce inside
-            loss, aux = self._sharded_loss(
-                x, y, n, state.generator, kl_scale=kl_scale, weights=weights, eps=eps
-            )
-        else:
-            if eps is None and self.split_mesh is not None:
-                eps = self._split_noise(x, self.net.train_samples, state.generator)
-            loss, aux = self.net.loss(
-                x,
-                y,
-                n,
-                state.generator,
-                ignore_kl=cfg.ignore_kl,
-                kl_scale=kl_scale,
-                weights=weights,
-                eps=eps,
-                lambdas=hyper.get("lambdas"),
-            )
-            # replicas share no parameter: the sum's gradient is each replica's own
-            (loss if self.replicas is None else loss.sum()).backward()
-        mask_likelihood_grads(self.net, train_likelihood)
-        if train_noise is not None:
-            mask_noise_branch_grads(self.net, self._per_replica(train_noise))
-        elif cfg.noise_freeze_steps > 0:
-            mask_noise_branch_grads(self.net, state.step >= cfg.noise_freeze_steps)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return {
-            "loss": loss.detach(),
-            "mnll": aux["mnll"].detach(),
-            "kl": aux["kl"].detach(),
-        }
+        layer, as ``WHVINetwork.kl``), as JAX's ``train_step(hyper=...)``.
+
+        The Loop layer's span ``whvi.loop.train_step`` covers it; inside it
+        ``whvi.model.loss`` and ``whvi.model.backward`` (on a card, the
+        main thread's wait while autograd's device thread runs the
+        backward). Adam is torch's own ``Optimizer.step#`` range."""
+        with span("whvi.loop.train_step"):
+            cfg = self.config
+            hyper = hyper or {}
+            self._refuse_hyper(hyper)
+            kl_scale, train_noise = hyper_schedule(hyper, state.step)
+            if kl_scale is not None:
+                kl_scale = self._per_replica(kl_scale)
+            elif cfg.kl_warmup_steps > 0:
+                kl_scale = min(1.0, state.step / cfg.kl_warmup_steps)
+            else:
+                kl_scale = 1.0
+            state.optimizer.zero_grad(set_to_none=False)
+            if self.mesh is not None:  # the backward and the all-reduce inside
+                loss, aux = self._sharded_loss(
+                    x, y, n, state.generator, kl_scale=kl_scale, weights=weights, eps=eps
+                )
+            else:
+                if eps is None and self.split_mesh is not None:
+                    eps = self._split_noise(x, self.net.train_samples, state.generator)
+                loss, aux = self.net.loss(
+                    x,
+                    y,
+                    n,
+                    state.generator,
+                    ignore_kl=cfg.ignore_kl,
+                    kl_scale=kl_scale,
+                    weights=weights,
+                    eps=eps,
+                    lambdas=hyper.get("lambdas"),
+                )
+                # replicas share no parameter: the sum's gradient is each replica's own
+                with span("whvi.model.backward"):
+                    (loss if self.replicas is None else loss.sum()).backward()
+            mask_likelihood_grads(self.net, train_likelihood)
+            if train_noise is not None:
+                mask_noise_branch_grads(self.net, self._per_replica(train_noise))
+            elif cfg.noise_freeze_steps > 0:
+                mask_noise_branch_grads(self.net, state.step >= cfg.noise_freeze_steps)
+            state.optimizer.step()
+            state.scheduler.step()
+            state.step += 1
+            return {
+                "loss": loss.detach(),
+                "mnll": aux["mnll"].detach(),
+                "kl": aux["kl"].detach(),
+            }
 
     # --------------------------------------------------------- epoch runner
     def _epoch_index(self, state, n_train: int, wrap):

@@ -18,8 +18,12 @@ Counterpart of :mod:`whvi_tpu.utils.profiling`:
   work: the device's own time and events, the busy share, host time in
   ``Optimizer.step``;
 - :func:`trace`: a ``torch.profiler`` Chrome trace of a block, the
-  counterpart of the JAX ``trace`` (a ``jax.profiler`` trace); and
-  :func:`timed`, each call's wall clock, the card synchronized;
+  counterpart of the JAX ``trace`` (a ``jax.profiler`` trace);
+- :func:`span`: the port's own spans at its layer boundaries (Loop,
+  Model, Op, Kernel, Mesh), on while a ``torch.profiler`` session records
+  (as ranges on its timeline) or inside
+  :func:`recording`; :func:`span_summary` sums them by name, with the
+  launch and collective counters over the same interval;
 - :func:`card`, :func:`require_cuda`: what the measuring code states
   beside its numbers, and its refusal to run without a card.
 
@@ -35,13 +39,12 @@ import json
 import os
 import statistics
 import subprocess
+import sys
+import threading
 import time
 from typing import Callable, Iterator
 
 import torch
-
-from whvi_tpu_torch.models.weights import PaddedSquareMatrix, SquarePow2Matrix, StackedMatrix
-from whvi_tpu_torch.ops.hadamard import fwht_factors
 
 __all__ = [
     "H100_HBM_GBPS",
@@ -53,8 +56,11 @@ __all__ = [
     "elbo_step_flops",
     "fwht_flops",
     "net_train_step_flops",
+    "recording",
     "require_cuda",
-    "timed",
+    "reset_spans",
+    "span",
+    "span_summary",
     "trace",
     "whvi_layer_fwd_flops",
     "whvi_layer_train_flops",
@@ -73,6 +79,8 @@ def fwht_flops(D: int, batch: int) -> int:
     operand: factor ``f_i`` is a ``(batch * D / f_i, f_i) @ (f_i, f_i)``
     contraction, ``2 * batch * D * f_i`` flops. Elementwise work is not
     counted."""
+    from whvi_tpu_torch.ops.hadamard import fwht_factors
+
     return 2 * batch * D * sum(fwht_factors(D))
 
 
@@ -104,6 +112,12 @@ def net_train_step_flops(net, batch: int, n_samples: int | None = None) -> int:
     types of its layers' matrices: square, stacked and padded matrices
     count, column matrices (O(n), no matmul), activations and the layers
     without a ``matrix`` (``Dense``, ``Parallel``) do not, as in JAX."""
+    from whvi_tpu_torch.models.weights import (
+        PaddedSquareMatrix,
+        SquarePow2Matrix,
+        StackedMatrix,
+    )
+
     S = net.train_samples if n_samples is None else n_samples
     total = 0
     for layer in net.layers:
@@ -188,34 +202,6 @@ def device_profile(fn: Callable[[], object], top: int = 0) -> dict:
     }
 
 
-def _on_card(out) -> bool:
-    """Whether ``out`` (a tensor, or a tuple, list or dict of them) holds a
-    tensor on a CUDA device."""
-    if torch.is_tensor(out):
-        return out.is_cuda
-    if isinstance(out, dict):
-        return any(_on_card(o) for o in out.values())
-    return isinstance(out, (tuple, list)) and any(_on_card(o) for o in out)
-
-
-def timed(fn: Callable) -> Callable:
-    """``fn`` that prints the wall clock of each call, after
-    ``torch.cuda.synchronize()`` where its output lies on a card (the
-    counterpart of the JAX ``timed``, which blocks until its output is
-    ready)."""
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if _on_card(out):
-            torch.cuda.synchronize()
-        print(f"{fn.__name__}: {time.perf_counter() - t0:.6f}s", flush=True)
-        return out
-
-    return wrapper
-
-
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[str]:
     """Profile the block and write its ``torch.profiler`` Chrome trace, CPU
@@ -279,3 +265,255 @@ def card() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------- spans
+#
+# The port's own spans, at the layer boundaries (``whvi.<layer>.<what>``).
+# Off, ``span`` checks ``_ON`` and hands back the name's shared no-op: no
+# clock read, no allocation, no profiler range. On (a torch.profiler
+# session records, or a ``recording()`` block is open), each span adds its
+# inclusive and self time to ``_TOTALS`` and, under the profiler, lies on
+# its timeline as a range of torch's ``RecordFunction``. A session runs
+# from the moment spans turn on until they turn off, and a new one starts
+# afresh.
+
+_ON = False  # a session is open: _PROFILING or _RECORDING
+_PROFILING = False  # a torch.profiler session records
+_RECORDING = 0  # open recording() blocks
+_SESSION = 0  # sessions started so far; a span open across a new start is dropped
+_TOTALS: dict = {}  # name -> [count, inclusive s, self s], this session's
+_COUNTS: list = [None, None]  # the counters at the session's start and end
+_LOCK = threading.Lock()
+_THREAD = threading.local()  # .stack: one [children's seconds] a span open on the thread
+# The profiler's range: torch's C++ RecordFunction, entered without the
+# two dispatcher calls of ``torch.profiler.record_function`` (1.4 against
+# 13.7 µs a range under the profiler, CPU). The class is private (checked
+# on PyTorch 2.11 and 2.13); where a torch lacks it, ``record_function``.
+_RANGE = (
+    getattr(getattr(torch._C, "_profiler", None), "_RecordFunctionFast", None)
+    or torch.profiler.record_function
+)
+
+
+def _stack() -> list:
+    try:
+        return _THREAD.stack
+    except AttributeError:
+        _THREAD.stack = []
+        return _THREAD.stack
+
+
+def _decorated(name: str, fn: Callable) -> Callable:
+    """``fn`` run inside the span ``name`` whenever spans are on."""
+
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        if not _ON:
+            return fn(*args, **kwargs)
+        with _Span(name):
+            return fn(*args, **kwargs)
+
+    return inner
+
+
+class _NoSpan:
+    """The shared no-op of one span name, handed out while spans are off."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def __call__(self, fn: Callable) -> Callable:
+        return _decorated(self.name, fn)
+
+
+class _NoSpans(dict):
+    def __missing__(self, name: str) -> _NoSpan:
+        off = self[name] = _NoSpan(name)
+        return off
+
+
+_OFF = _NoSpans()
+
+
+class _Span:
+    """One span while spans are on (see :func:`span`)."""
+
+    __slots__ = ("name", "_range", "_frame", "_session", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = None
+        if _PROFILING:
+            self._range = _RANGE(self.name)
+            self._range.__enter__()
+        self._frame = [0.0]
+        _stack().append(self._frame)
+        self._session = _SESSION
+        self._t0 = time.perf_counter()
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        took = time.perf_counter() - self._t0
+        stack = _stack()
+        stack.pop()
+        if stack:
+            stack[-1][0] += took
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        with _LOCK:
+            if self._session == _SESSION:
+                total = _TOTALS.get(self.name)
+                if total is None:
+                    total = _TOTALS[self.name] = [0, 0.0, 0.0]
+                total[0] += 1
+                total[1] += took
+                total[2] += took - self._frame[0]
+        return False
+
+    def __call__(self, fn: Callable) -> Callable:
+        return _decorated(self.name, fn)
+
+
+def span(name: str):
+    """The span ``name`` (``whvi.<layer>.<what>``), a context manager;
+    ``@span(name)`` on a function spans each of its calls.
+
+    Off (no ``torch.profiler`` session records and no :func:`recording`
+    block is open) it is one check of a flag and a shared no-op. On, it
+    adds its count, inclusive time and self time (inclusive less the
+    spans it encloses on the same thread) to :func:`span_summary`, and
+    while a ``torch.profiler`` session records it is a range of that name
+    on the profiler's timeline (torch's ``RecordFunction``, as
+    ``record_function`` makes, entered directly). Spans on other threads
+    (autograd's device threads) count alike, each thread nesting its
+    own."""
+    if not _ON:
+        return _OFF[name]
+    return _Span(name)
+
+
+def _counters() -> dict:
+    """The port's counters now, from the modules that hold them where they
+    are loaded (a module not loaded has counted nothing): kernel launches by
+    name (``fwht_cuda.LAUNCHES``, ``kron_cuda.LAUNCHES``), operands
+    realigned (``fwht_cuda.REALIGNED``), collectives by kind
+    (``parallel.mesh.COLLECTIVES``)."""
+    out = {"launches": {}, "realigned": 0, "collectives": {}}
+    fwht = sys.modules.get("whvi_tpu_torch.ops.fwht_cuda")
+    kron = sys.modules.get("whvi_tpu_torch.ops.kron_cuda")
+    mesh = sys.modules.get("whvi_tpu_torch.parallel.mesh")
+    for module in (kron, fwht):
+        if module is not None:
+            out["launches"].update(module.LAUNCHES)
+    if fwht is not None:
+        out["realigned"] = fwht.REALIGNED
+    if mesh is not None:
+        out["collectives"] = dict(mesh.COLLECTIVES)
+    return out
+
+
+def _switch(profiling: bool | None = None, recording: int = 0) -> None:
+    """Spans on or off as a profiler session or a recording() block starts
+    or ends; a new session starts from zero and reads the counters."""
+    global _ON, _PROFILING, _RECORDING, _SESSION, _TOTALS
+    with _LOCK:
+        if profiling is not None:
+            _PROFILING = profiling
+        _RECORDING += recording
+        was, _ON = _ON, _PROFILING or _RECORDING > 0
+        if _ON and not was:
+            _SESSION += 1
+            _TOTALS = {}
+            _COUNTS[:] = [_counters(), None]
+        elif was and not _ON:
+            _COUNTS[1] = _counters()
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[None]:
+    """Spans on for the block without ``torch.profiler`` (and without its
+    host cost): :func:`span_summary` then sums the block's spans. Blocks
+    nest; the outermost one is the session."""
+    _switch(recording=1)
+    try:
+        yield
+    finally:
+        _switch(recording=-1)
+
+
+def reset_spans() -> None:
+    """Zero the session's span totals and read its counters afresh."""
+    global _SESSION, _TOTALS
+    with _LOCK:
+        _SESSION += 1
+        _TOTALS = {}
+        now = _counters()
+        _COUNTS[:] = [now, None if _ON else now]
+
+
+def _delta(end: dict, start: dict) -> dict:
+    return {k: v - start.get(k, 0) for k, v in end.items() if v - start.get(k, 0)}
+
+
+def span_summary() -> dict:
+    """The newest session's spans (the open one, or the last to end: a
+    ``torch.profiler`` session, or the outermost :func:`recording` block)
+    and the counters over the same interval:
+
+    - ``spans``: ``{name: {"count", "total_s", "self_s"}}``, inclusive and
+      self seconds on the host clock;
+    - ``launches``: kernel launches by counter name, ``realigned``:
+      operands the kernels' wrappers copied to an aligned allocation, and
+      ``collectives``: the mesh's collectives by kind, each the change of
+      the port's counter (only those that changed)."""
+    with _LOCK:
+        spans = {
+            name: {"count": c, "total_s": t, "self_s": s} for name, (c, t, s) in _TOTALS.items()
+        }
+        start, end = _COUNTS
+    if start is None:
+        return {"spans": spans, "launches": {}, "realigned": 0, "collectives": {}}
+    end = end or _counters()
+    return {
+        "spans": spans,
+        "launches": _delta(end["launches"], start["launches"]),
+        "realigned": end["realigned"] - start["realigned"],
+        "collectives": _delta(end["collectives"], start["collectives"]),
+    }
+
+
+def _watch_profiler() -> None:
+    """Turn spans on and off with every ``torch.profiler`` session: wrap
+    the setter that ``torch.autograd.profiler`` calls as a session starts
+    and stops recording (its ``_run_on_profiler_start`` / ``_stop``). The
+    setter is private (checked on PyTorch 2.11 and 2.13); where a torch
+    lacks it, spans stay off under the profiler, and the benchmark's span
+    readers raise on a traced window that recorded none."""
+    from torch.autograd import profiler as autograd_profiler
+
+    setter = getattr(autograd_profiler, "_set_is_profiler_enabled", None)
+    if setter is None or getattr(setter, "whvi_spans", False):
+        return
+
+    def set_is_profiler_enabled(enable: bool) -> None:
+        setter(enable)
+        _switch(profiling=bool(enable))
+
+    set_is_profiler_enabled.whvi_spans = True
+    autograd_profiler._set_is_profiler_enabled = set_is_profiler_enabled
+    if autograd_profiler._is_profiler_enabled:
+        _switch(profiling=True)
+
+
+_watch_profiler()
