@@ -14,7 +14,10 @@ Phases, each of which raises on failure:
    shapes and at the scaling path's (u (8,1,4096) over x (256,4096)
    expanded to (8,256,4096); the column head (8,1,1,4096)); max |kernel -
    plain| / max |plain| <= 1e-5, and every forward equal to the plain
-   version bit for bit. Times
+   version bit for bit. Where fwht_cuda.sums_group takes a shape the
+   backward runs K3's reduce mode (fused_bwd_sums), also held against its
+   plain version, its dx K3's bit for bit; K3 itself is held bit for bit
+   at every shape. A path's K3 launches count under either counter. Times
    (CUDA events, warm, median of 7 rounds of 20 calls, host cost
    included) of each kernel and its plain version at the flagship's
    shapes, logged.
@@ -53,8 +56,8 @@ Phases, each of which raises on failure:
    (256, D) expanded to (8, 256, D), D = 1024, 4096; tolerance
    fwht_cuda.bf16_tol, 2^-6/sqrt(f), f the last contraction after the last
    rounding; y also against the fp32 product (kron_cuda.BF16_TOL). (b)
-   Device times (CUDA graph replay) of K1-K3 in both precisions and their
-   plain versions at D = 4096, 2048 rows, each beside its bound (bytes
+   Device times (CUDA graph replay) of K1-K3 and K3's reduce mode in both
+   precisions and their plain versions at D = 4096, 2048 rows, each beside its bound (bytes
    read once and written once over 3.35 TB/s, or operations over the
    peak); K1 also at D=16384, B=512; K4 at the scaling path's column head
    beside torch.matmul(x, H_D). (c) The path itself:
@@ -250,10 +253,12 @@ KERNELS = {
     "fused_y": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_res": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
+    "fused_bwd_sums": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),  # _bwd: K3 and its sums
     "fwht": ("whvi_tpu_torch/csrc/fwht.cu", "whvi_tpu/ops/fwht_pallas.py:191"),
     "fused_y_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_res_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
+    "fused_bwd_sums_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
     "fused_y_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_res_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:403"),
@@ -267,6 +272,27 @@ BF16_KERNELS = ("fused_y_bf16", "fused_res_bf16", "fused_bwd_bf16")  # phase 6
 COLUMN_KERNELS = ("column_y_bf16s", "column_res_bf16s", "column_bwd_bf16s")  # by mode
 # phase 10's path; the bare fwht_bf16s runs there no more (its launches are fwht_sweep's)
 BF16S_KERNELS = ("fused_y_bf16s", "fused_res_bf16s", "fused_bwd_bf16s", *COLUMN_KERNELS)
+# A backward counts K3 under one of two counters, by the product's shape
+# (fwht_cuda.sums_group): K3 with PyTorch's batch reductions after it, or
+# its reduce mode, which sums them itself.
+K3_COUNTERS = {"fused_bwd": ("fused_bwd", "fused_bwd_sums"),
+               "fused_bwd_bf16": ("fused_bwd_bf16", "fused_bwd_sums_bf16")}
+
+
+def launched(launches: dict, name: str) -> int:
+    """Launches of kernel ``name`` in ``launches``, K3's under either counter."""
+    return sum(launches.get(n, 0) for n in K3_COUNTERS.get(name, (name,)))
+
+
+def fold_k3(launches: dict) -> dict:
+    """``launches`` with K3's two counters added into one, so that runs whose
+    products differ in shape (a replicated stack keeps K3, one replica's
+    net takes the reduce mode) compare kernel for kernel."""
+    out = {}
+    for name, n in launches.items():
+        base = next((b for b, names in K3_COUNTERS.items() if name in names), name)
+        out[base] = out.get(base, 0) + n
+    return out
 
 
 def log(*parts) -> None:
@@ -345,7 +371,10 @@ def compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead, samples=None) 
     """Normalized and absolute errors of K1, K2, K3 against the plain
     version on one shape; x (*x_lead, D), expanded to (samples, *x_lead, D)
     when samples is given. The forward (y, and y, i1, i2 with residuals)
-    must equal the plain version bit for bit."""
+    and K3's outputs must equal the plain version bit for bit. The
+    gradients through WhviMulFunction count under the counter its backward
+    takes: K3's reduce mode (fused_bwd_sums) where fc.sums_group takes the
+    shape, which is then checked against its plain version too."""
     s1, u, s2, x0 = _operands(dev, gen, D, s_lead, u_lead, x_lead)
     x = x0 if samples is None else x0.expand(samples, *x0.shape)
     errs, abs_errs = {}, {}
@@ -368,10 +397,24 @@ def compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead, samples=None) 
         for l in (leaves, ref_leaves)
     )
     g = torch.randn(y.shape, device=dev, generator=gen)
+    k3, k3_ref = fc.fused_bwd_raw(s1, u, s2, g), fc.fused_plain(s2, u, s1, g, True)
+    check(all(torch.equal(a, b) for a, b in zip(k3, k3_ref)),
+          f"fused_bwd at {label} D={D} is not the plain dx, w1, t2 bit for bit")
     grads = torch.autograd.grad(fc.WhviMulFunction.apply(*inputs), leaves, g)
     ref = torch.autograd.grad(fc.fused_plain(*ref_inputs, False)[0], ref_leaves, g)
-    errs["fused_bwd"] = max(rel_err(a, b) for a, b in zip(grads, ref))
-    abs_errs["fused_bwd"] = max((a - b).abs().max().item() for a, b in zip(grads, ref))
+    errs["fused_bwd"] = max(rel_err(a, b) for a, b in zip(k3, k3_ref))
+    abs_errs["fused_bwd"] = max((a - b).abs().max().item() for a, b in zip(k3, k3_ref))
+    bwd = "fused_bwd" if fc.sums_group(s1, u, s2, x) is None else "fused_bwd_sums"
+    errs[bwd] = max(errs.get(bwd, 0.0), *(rel_err(a, b) for a, b in zip(grads, ref)))
+    abs_errs[bwd] = max(abs_errs.get(bwd, 0.0), *((a - b).abs().max().item()
+                                                 for a, b in zip(grads, ref)))
+    if bwd == "fused_bwd_sums":  # the reduce mode itself: K3's dx, the plain sums
+        got = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1_ref, i2_ref, True)
+        want = fc.fused_bwd_sums_plain(s1, u, s2, x, g, i1_ref, i2_ref, True)
+        check(torch.equal(got[0], k3[0]), f"fused_bwd_sums at {label} D={D}: dx is not K3's")
+        errs[bwd] = max(errs[bwd], *(rel_err(a, b) for a, b in zip(got[1:], want[1:])))
+        abs_errs[bwd] = max(abs_errs[bwd], *((a - b).abs().max().item()
+                                            for a, b in zip(got[1:], want[1:])))
     torch.cuda.synchronize()
     log(
         f"  {label:<26} D={D:<6} "
@@ -522,7 +565,7 @@ def run_slice(fc, dev, seed) -> dict:
     log("  eval: " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
     log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     for name in FLAGSHIP_KERNELS:
-        check(launches[name] > 0, f"kernel {name} was not launched by the slice")
+        check(launched(launches, name) > 0, f"kernel {name} was not launched by the slice")
     check(all(math.isfinite(e["loss"]) for e in logs), "non-finite training loss")
     check(logs[-1]["loss"] < logs[0]["loss"], "the loss did not fall")
     for k in ("rmse", "pred_mnll_per_point", "coverage95"):
@@ -804,9 +847,13 @@ def compare_bf16(fc, kc, dev, gen, label, D, u_lead, x_rows, samples=None) -> di
     x_leaf = leaves[3] if samples is None else leaves[3].expand(samples, x_rows, D)
     out = fc.WhviMulFunction.apply(*leaves[:3], x_leaf, "bf16")
     g = torch.randn(out.shape, device=dev, generator=gen)
+    record("fused_bwd_bf16", zip(fc.fused_bwd_raw(s1, u, s2, g, "bf16"),
+                                 fc.fused_plain(s2, u, s1, g, True, "bf16"), (tol2, tol1, tol2)))
     grads = torch.autograd.grad(out, leaves, g)
     ref = [r.sum_to_size(a.shape) for r, a in zip(fc.vjp_plain(s1, u, s2, x, g, "bf16"), grads)]
-    record("fused_bwd_bf16", zip(grads, ref, (tol2, tol1, tol2, tol2)))
+    # the gradients under the counter the backward takes (K3's reduce mode where it can)
+    bwd = "fused_bwd_bf16" if fc.sums_group(s1, u, s2, x) is None else "fused_bwd_sums_bf16"
+    record(bwd, zip(grads, ref, (tol2, tol1, tol2, tol2)))
     e32 = rel_err(y, fc.fused_plain(s1, u, s2, x, False)[0])
     check(e32 <= kc.BF16_TOL, f"bf16 y at {label} D={D} vs the fp32 product: {e32:.3e}")
     torch.cuda.synchronize()
@@ -854,11 +901,11 @@ def _log_time(label: str, t: dict) -> None:
 
 
 def fused_times(fc, dev, seed) -> dict:
-    """K1-K3 in both precisions at the scaling path's shape (D=4096,
-    u (8,1,D), x (256,D) expanded to (8,256,D): 2048 rows), each with its
-    bound (bytes: x, u, s1, s2 read once, the outputs written once), and
-    K1 at D=16384, B=512 (PERF.md's large-D shape). Returns the kernels
-    line's entries of the six kernels at the scaling shape."""
+    """K1-K3 and K3's reduce mode in both precisions at the scaling path's
+    shape (D=4096, u (8,1,D), x (256,D) expanded to (8,256,D): 2048 rows),
+    each with its bound (bytes: each input read once, the outputs written
+    once), and K1 at D=16384, B=512 (PERF.md's large-D shape). Returns the
+    kernels line's entries of the eight kernels at the scaling shape."""
     from whvi_tpu_torch.bench.common import bound_ms
     from whvi_tpu_torch.utils.profiling import H100_PEAK_FP32_FLOPS as PEAK
 
@@ -868,6 +915,7 @@ def fused_times(fc, dev, seed) -> dict:
     u = torch.randn(S, 1, D, device=dev, generator=gen)
     x = torch.randn(B, D, device=dev, generator=gen).expand(S, B, D)
     g = torch.randn(S, B, D, device=dev, generator=gen)
+    res = {p: fc.fused_raw(s1, u, s2, x, True, p)[1:] for p in ("fp32", "bf16")}
     ops = fused_ops(D, S * B)
     times = {}
     log(f"times at D={D}, u ({S},1,D), x ({S},{B},D) (device ms per call, 20 calls in a "
@@ -880,6 +928,12 @@ def fused_times(fc, dev, seed) -> dict:
              lambda: fc.fused_plain(s1, u, s2, x, True, precision), (x, u, s1, s2), 3),
             ("fused_bwd", lambda: fc.fused_bwd_raw(s1, u, s2, g, precision),
              lambda: fc.fused_plain(s2, u, s1, g, True, precision), (g, u, s1, s2), 3),
+            # the reduce mode (the scaling net's second layer: dx stored),
+            # on the forward's residuals i1, i2
+            ("fused_bwd_sums",
+             lambda: fc.fused_bwd_sums_raw(s1, u, s2, x, g, *res[precision], True, precision),
+             lambda: fc.fused_bwd_sums_plain(s1, u, s2, x, g, *res[precision], True, precision),
+             (g, *res[precision], x, u, s1, s2), 1),
         ):
             t = _timed(kernel, plain, bound_ms(ins, [g] * n_out, ops, PEAK))
             key = name if precision == "fp32" else name + "_bf16"
@@ -995,7 +1049,7 @@ def run_scaling_path(fc, dev, seed) -> dict:
     for row in rows:
         check(run_scaling.finite(row), f"non-finite row {row}")
     for name in (*BF16_KERNELS, "fwht", "fused_y", "fused_res", "fused_bwd"):
-        check(launches[name] > 0, f"kernel {name} was not launched by the scaling path")
+        check(launched(launches, name) > 0, f"kernel {name} was not launched by the scaling path")
     scaling_net_vs_cpu(dev, seed)
     return launches
 
@@ -1043,7 +1097,7 @@ def run_mnist_path(fc, dev, seed) -> None:
                           len(X), np.random.RandomState(seed + 4))
     _path_report("config 4", logs, launches, realigned, per_call)
     for name in FAMILY_KERNELS:
-        check(launches[name] > 0, f"kernel {name} was not launched by config 4")
+        check(launched(launches, name) > 0, f"kernel {name} was not launched by config 4")
     check(logs[-1]["loss"] < logs[0]["loss"], "the config 4 loss did not fall")
     check(0.0 <= row["test_accuracy"] <= 1.0, f"bad accuracy in {row}")
 
@@ -1111,7 +1165,7 @@ def run_hetero_path(fc, dev, seed) -> None:
                           np.random.RandomState(seed + 5))
     _path_report("config 3 split head", logs, launches, realigned, per_call)
     for name in (*FAMILY_KERNELS, "fwht"):
-        check(launches[name] > 0, f"kernel {name} was not launched by the split-head net")
+        check(launched(launches, name) > 0, f"kernel {name} was not launched by the split-head net")
 
 
 def run_family_entry_points(fc, seed) -> None:
@@ -1217,7 +1271,7 @@ def protocol_step(fc, dev, seed) -> dict:
             f"R={R} / one split: "
             + ", ".join(f"{k} {per_call[0][what][k]}/{per_call[1][what][k]}"
                         for k in per_call[0][what] if per_call[0][what][k] or per_call[1][what][k]))
-        check(per_call[0][what] == per_call[1][what],
+        check(fold_k3(per_call[0][what]) == fold_k3(per_call[1][what]),
               f"a stacked {what} launches other kernels than a single split's")
     # host-clock ms a train step, warm, stacked and single in turns
     Xd, Yd = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
@@ -1279,7 +1333,7 @@ def run_protocol_path(fc, dev, seed, tmp) -> dict:
         + f"; REALIGNED {realigned}")
     check(realigned == 0, f"the protocol copied {realigned} misaligned operands")
     for name in PROTOCOL_KERNELS:
-        check(launches[name] > 0, f"kernel {name} was not launched by the protocol")
+        check(launched(launches, name) > 0, f"kernel {name} was not launched by the protocol")
     steps = -(-(X.shape[0] - 51 - 46) // 64)  # train rows after test and calibration rows
     warm = chunks[-1]["epoch"] - chunks[0]["epoch"], chunks[-1]["seconds"] - chunks[0]["seconds"]
     log(f"  protocol_wall_s {out['protocol_wall_s']:.3f}, epochs_per_s_amortized "
@@ -1389,7 +1443,7 @@ def run_protocol_entry_points(fc, seed, tmp) -> None:
         check(all(math.isfinite(v) for v in row.values() if isinstance(v, float)),
               f"non-finite row {row}")
     for name in PROTOCOL_KERNELS:
-        check(fc.LAUNCHES[name] > 0, f"kernel {name} was not launched by the entry points")
+        check(launched(fc.LAUNCHES, name) > 0, f"kernel {name} was not launched by the entry points")
 
 
 # ------------------------------------------------- 9. the golden samplers
@@ -1472,7 +1526,7 @@ def log_posterior_vs_cpu(fc, dev, seed, posteriors) -> dict:
         check(g_err <= MCMC_GRAD_TOL, f"{label} log-posterior gradient disagrees with the CPU")
         check(torch.equal(v_nograd, v_card), f"{label}: the value without a gradient differs")
         check(realigned == 0, f"{label} copied misaligned operands")
-        check(grad_launches["fused_res"] > 0 and grad_launches["fused_bwd"] > 0,
+        check(grad_launches["fused_res"] > 0 and launched(grad_launches, "fused_bwd") > 0,
               f"{label}: a gradient evaluation launched no K2/K3")
         check(value_launches["fused_y"] > 0, f"{label}: a value launched no K1")
         per_eval[label] = {"gradient": grad_launches, "value": value_launches}
@@ -1600,7 +1654,7 @@ def run_sampler_path(fc, dev, seed, posteriors) -> dict:
         + f"; operands realigned {realigned}")
     check(realigned == 0, "the sampler path copied misaligned operands")
     for name in SAMPLER_KERNELS:
-        check(launches[name] > 0, f"kernel {name} was not launched by the sampler path")
+        check(launched(launches, name) > 0, f"kernel {name} was not launched by the sampler path")
     for s in (s4, s6):
         check(all(bool(torch.isfinite(v).all()) for v in s.values()), "non-finite draws")
     check(s4[0].shape == (4, 10, 1, 1024) and s6[0].shape == (2, 10, 1, 8),
@@ -1948,7 +2002,7 @@ def run_bf16s_path(fc, dev, seed) -> dict:
     for name in BF16S_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the bf16-storage path")
     for name in ("fused_y", "fused_res", "fused_bwd", "fwht", *BF16_KERNELS):
-        check(launches[name] == 0, f"the bf16-storage path launched the fp32-storage {name}")
+        check(launched(launches, name) == 0, f"the bf16-storage path launched the fp32-storage {name}")
     check(launches["fwht_bf16s"] == 0, "the bf16-storage path launched the bare fwht_bf16s")
     # profiled in a fresh process: this one's profiler, after the phases
     # before, has lost kernel records (utils.profiling raises then)
@@ -2290,7 +2344,8 @@ def run_mesh_path(fc, dev, seed, protocol_out, nuts_s4) -> None:
                 + _launch_line(got["train"]) + "; a call " + _launch_line(got["predict"]))
             hold(max(errs.values()) <= MESH_ONE_TOL, f"the 1x1 mesh differs from one device at {key}")
             hold(got["all_reduce"] == 1, f"{got['all_reduce']} all-reduces a step at 1x1, not 1")
-            hold(got["train"] == want["train"] and got["predict"] == want["predict"],
+            hold(fold_k3(got["train"]) == fold_k3(want["train"])
+                 and fold_k3(got["predict"]) == fold_k3(want["predict"]),
                  f"the 1x1 mesh launches other kernels than one device at {key}")
             hold(got["realigned"] == 0, "the 1x1 mesh copied misaligned operands")
         rows = []
@@ -2337,7 +2392,8 @@ def run_mesh_path(fc, dev, seed, protocol_out, nuts_s4) -> None:
         hold(mine["predict_vs_one"] <= MESH_ONE_TOL, f"the sharded predict differs at {key}")
         for c in per_rank:
             hold(c["equal_to_rank0"], f"a rank's parameters differ from rank 0's at {key}")
-            hold(c["train"] == want["train"] and c["predict"] == want["predict"],
+            hold(fold_k3(c["train"]) == fold_k3(want["train"])
+                 and fold_k3(c["predict"]) == fold_k3(want["predict"]),
                  f"a rank launches other kernels than one device at {key}")
             hold(c["all_reduce"] == 1 and c["realigned"] == 0, f"collectives or realigned at {key}")
     for row in got["rows"]:
@@ -2386,7 +2442,7 @@ def run_mesh_path(fc, dev, seed, protocol_out, nuts_s4) -> None:
             launches = r[f"{part}_launches"]
             hold(r[f"{part}_realigned"] == 0, f"({part}) copied misaligned operands")
             for name in kernels:
-                hold(launches[name] > 0, f"({part}): a rank launched no {name}")
+                hold(launched(launches, name) > 0, f"({part}): a rank launched no {name}")
     log(f"  phase 11 parts: references {t_a - t0:.1f} s, (a) {t_b - t_a:.1f} s, (b)-(d) "
         f"{t_e - t_b:.1f} s (the world's (c) {got['times']['c']:.1f}, (d) {got['times']['d']:.1f})")
     check(not fails, "phase 11: " + "; ".join(fails))
@@ -2398,7 +2454,8 @@ GRAD_CHECK_DIMS = (64, SCALING_D)
 PRECISION_ITERS = "20"  # precision_check's --iters (100 by default)
 PRECISION_BOUND = {"fp32": 1e-6, "bf16": 2.0**-7, "bf16s": 2.0**-7}
 PRECISION_KERNELS = ("fused_y", "fused_y_bf16", "fused_y_bf16s")  # K1 in each mode
-GRAD_KERNELS = ("fused_res", "fused_bwd", "fused_res_bf16", "fused_bwd_bf16", "fwht")
+# grad_check's (D,) diagonals take K3's reduce mode in both precisions
+GRAD_KERNELS = ("fused_res", "fused_bwd_sums", "fused_res_bf16", "fused_bwd_sums_bf16", "fwht")
 TOY_FAN_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")
 # (e): one whvi_mul at D = argv[1] traced into argv[2], in a fresh process
 TRACE_ONE = """
@@ -2440,7 +2497,7 @@ def run_checks_path(fc, dev, seed, tmp) -> None:
             + f"; realigned {fc.REALIGNED}; {times[name]:.1f} s")
         hold(fc.REALIGNED == 0, f"({name}) copied misaligned operands")
         for k in kernels:
-            hold(launches.get(k, 0) > 0, f"({name}) launched no {k}")
+            hold(launched(launches, k) > 0, f"({name}) launched no {k}")
         return out
 
     def grad_checks():
@@ -2539,7 +2596,7 @@ def main() -> int:
     times.update(fused_times(fc, dev, args.seed))
     times.update(fwht_times(fc, dev, args.seed))
     scaling = run_scaling_path(fc, dev, args.seed)
-    launches.update({name: scaling[name] for name in BF16_KERNELS})
+    launches.update({name: scaling[name] for name in (*BF16_KERNELS, "fused_bwd_sums_bf16")})
     run_mnist_path(fc, dev, args.seed)
     run_hetero_path(fc, dev, args.seed)
     run_family_entry_points(fc, args.seed)

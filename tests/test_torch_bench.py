@@ -99,6 +99,17 @@ def test_kernel_instances_are_named_from_their_symbols():
     assert kernel_sass._instance("_ZN4whvi16kron_stage_kernelILi7EEEvPKf") is None
 
 
+@pytest.mark.parametrize("symbol, instance", [
+    ("_ZN4whvi20whvi_bwd_sums_kernelILi13ELb0EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_liNS_8GeometryE",
+     {"kernel": "whvi_bwd_sums", "L": 13, "storage": "fp32", "bf16": False}),
+    ("_ZN4whvi20whvi_bwd_sums_kernelILi4ELb1EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_liNS_8GeometryE",
+     {"kernel": "whvi_bwd_sums", "L": 4, "storage": "fp32", "bf16": True}),
+    ("_ZN4whvi20whvi_sum_runs_kernelEPKfPfS2_S2_lli", {"kernel": "whvi_sum_runs"}),
+])
+def test_reduce_mode_instances_are_named_from_their_symbols(symbol, instance):
+    assert kernel_sass._instance(symbol) == instance
+
+
 def test_ptxas_report_is_read_per_kernel():
     rows = kernel_sass.ptxas(PTXAS)
     assert rows[FUSED_12] == {"stack": 8, "spill_stores": 4, "spill_loads": 12, "registers": 108}

@@ -55,6 +55,13 @@ def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def _k3(ops, precision="fp32"):
+    """The counter of the backward's K3 launch on the operands: its reduce
+    mode where ``sums_group`` takes them, else K3 with PyTorch's sums."""
+    name = "fused_bwd" if fc.sums_group(*ops) is None else "fused_bwd_sums"
+    return name if precision == "fp32" else name + "_bf16"
+
+
 def _operands(dev, D, s_lead, u_lead, x_lead, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [
@@ -87,7 +94,7 @@ def test_whvi_mul_backward_matches_plain_autograd(dev, shape):
     y = whvi_mul(*mine)
     g = torch.randn_like(y)
     y.backward(g)
-    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res": 1, "fused_bwd": 1}
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res": 1, _k3(ops): 1}
     fc.fused_plain(*ref, False)[0].backward(g)
     for a, b in zip(mine, ref):
         assert a.grad.shape == b.shape
@@ -111,10 +118,91 @@ def test_fp32_at_the_scaling_shape(dev):
     y = whvi_mul(*mine[:3], mine[3].expand(S, B, D))
     g = torch.randn(y.shape, device=dev, generator=gen)
     y.backward(g)
-    assert fc.LAUNCHES["fused_res"] == 1 and fc.LAUNCHES["fused_bwd"] == 1 and fc.REALIGNED == 0
+    assert fc.LAUNCHES["fused_res"] == 1 and fc.LAUNCHES["fused_bwd_sums"] == 1 and fc.REALIGNED == 0
     fc.fused_plain(*ref[:3], ref[3].expand(S, B, D), False)[0].backward(g)
     for a, b in zip(mine, ref):
         assert rel_err(a.grad, b.grad) <= TOL
+
+
+# ------------------------------------------------------ K3's reduce mode
+#
+# Tolerance TOL (or fc.bf16_tol in the bf16 precision): the kernel forms
+# the plain version's rounded products and sums them in another order
+# (runs of rows, then the runs in order). dx is K3's, bit for bit.
+
+# (D, u lead, x lead, x expanded to): the eligible SHAPES, the scaling
+# product and the c5-largeD cell's two layers at (64, 256, 8192)
+SUMS_SHAPES = [
+    *((D, (), (33 if D <= 1024 else 3,), None) for D in WIDTHS if D <= fc.SUMS_MAX_D),
+    (128, (4, 1), (4, 64), None),
+    (4096, (8, 1), (256,), (8, 256)),
+    (8192, (64, 1), (256,), (64, 256)),
+    (8192, (64, 1), (64, 256), None),
+]
+
+
+def _sums_case(dev, D, u_lead, x_lead, x_to, seed=0, precision="fp32"):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s1, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(2))
+    u = torch.randn(*u_lead, D, device=dev, generator=gen)
+    x = torch.randn(*x_lead, D, device=dev, generator=gen)
+    x = x if x_to is None else x.expand(*x_to, D)
+    _, i1, i2 = fc.fused_raw(s1, u, s2, x, True, precision)
+    g = torch.randn(i1.shape, device=dev, generator=gen)
+    return s1, u, s2, x, g, i1, i2
+
+
+@pytest.mark.parametrize("precision", fc.PRECISIONS)
+@pytest.mark.parametrize("shape", SUMS_SHAPES, ids=lambda s: f"D{s[0]}-u{s[1]}-x{s[2]}")
+def test_reduce_mode_matches_plain_and_k3(dev, shape, precision):
+    if precision == "bf16" and shape[0] < fc.MIN_D_BF16:
+        pytest.skip("the bf16 precision takes D >= 4")
+    s1, u, s2, x, g, i1, i2 = _sums_case(dev, *shape, precision=precision)
+    want = fc.fused_bwd_sums_plain(s1, u, s2, x, g, i1, i2, True, precision)
+    fc.reset_launches()
+    got = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True, precision)
+    again = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True, precision)
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {_k3((s1, u, s2, x), precision): 2}
+    assert torch.equal(got[0], fc.fused_bwd_raw(s1, u, s2, g, precision)[0])  # K3's dx
+    D = shape[0]
+    tols = (TOL,) * 3 if precision == "fp32" else (fc.bf16_tol(D), fc.bf16_tol(D, 1), fc.bf16_tol(D))
+    for a, b, tol in zip(got[1:], want[1:], tols):
+        assert a.shape == b.shape
+        assert rel_err(a, b) <= tol
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bit for bit
+    assert fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, False, precision)[0] is None
+
+
+def test_reduce_mode_refuses_what_it_does_not_take(dev):
+    s1, u, s2, x = _operands(dev, *SHAPES[-1])  # a per-example u
+    _, i1, i2 = fc.fused_raw(s1, u, s2, x, True)
+    with pytest.raises(ValueError, match="reduce mode"):
+        fc.fused_bwd_sums_raw(s1, u, s2, x, torch.randn_like(i1), i1, i2, True)
+
+
+def test_reduce_mode_keeps_w1_and_t2_out_of_memory(dev, monkeypatch):
+    """One backward at the c5-largeD cell's product: its peak allocation
+    lies below the old path's (K3, then PyTorch's products) by at least
+    w1's and t2's bytes, which the reduce mode never stores."""
+    s1, u, s2, x, g, _, _ = _sums_case(dev, *SUMS_SHAPES[-1])
+
+    def peak():
+        leaves = [t.clone().requires_grad_() for t in (s1, u, s2, x)]
+        y = whvi_mul(*leaves)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y.backward(g)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    fc.reset_launches()
+    new = peak()
+    assert fc.LAUNCHES["fused_bwd_sums"] == 1 and fc.LAUNCHES["fused_bwd"] == 0
+    monkeypatch.setattr(fc, "sums_group", lambda *a: None)
+    old = peak()
+    assert fc.LAUNCHES["fused_bwd"] == 1
+    assert old - new >= 2 * g.numel() * g.element_size()
 
 
 def test_no_grad_product_is_the_y_only_launch(dev):
@@ -222,7 +310,8 @@ def test_bf16_backward_matches_plain(dev, shape):
     y = whvi_mul(*leaves[:3], _expand(leaves[3], samples), precision="bf16")
     g = torch.randn_like(y)
     y.backward(g)
-    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res_bf16": 1, "fused_bwd_bf16": 1}
+    k3 = _k3((*ops[:3], _expand(ops[3], samples)), "bf16")
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res_bf16": 1, k3: 1}
     s1, u, s2, x0 = ops
     ref = fc.vjp_plain(s1, u, s2, _expand(x0, samples), g, "bf16")
     for i, (leaf, r) in enumerate(zip(leaves, ref)):

@@ -353,6 +353,23 @@ def test_span_readers_raise_where_a_traced_window_recorded_no_span(root):
                 cell.reader(name)({"units": 3})
 
 
+@pytest.mark.parametrize("launches,share", [
+    ({"fused_res": 4, "fused_bwd_sums": 2}, 100.0),  # both square layers take the reduce mode
+    ({"fused_res": 4, "fused_bwd": 2}, 0.0),  # a port without it: its counters absent
+    ({"fused_bwd_sums_bf16": 1, "fused_bwd": 1, "fused_bwd_bf16s": 2}, 25.0),
+    ({"fused_y": 3}, None),  # no K3 launched (a CPU run launches nothing)
+    (None, None),  # a port without span_summary
+], ids=["all", "parent", "mixed", "no-k3", "no-summary"])
+def test_bwd_sums_share_reads_the_launch_counters(root, monkeypatch, launches, share):
+    if launches is None:
+        monkeypatch.delattr(profiling, "span_summary")
+    else:
+        summary = {"spans": {}, "launches": launches, "realigned": 0, "collectives": {}}
+        monkeypatch.setattr(profiling, "span_summary", lambda: summary)
+    cell = harness.Cell(root, "c5-largeD.train")
+    assert cell.reader("bwd_sums_share.train")({"units": 3}) == share
+
+
 def test_span_cost_rows_on_the_cpu(root):
     rows = span_cost.run(root, ["c5-largeD.train", "c4-mnist.eval"], 0.05, 1, 2**31 + 3,
                          torch.device("cpu"), warm_s=0.0)
@@ -392,8 +409,8 @@ def test_backward_spans_on_autograd_device_thread(card):
                 loss.backward()
             torch.cuda.synchronize()
     summary = span_summary()
-    assert summary["launches"] == {"fused_bwd": 1}
-    assert summary["spans"]["whvi.kernel.fused_bwd"]["count"] == 1
+    assert summary["launches"] == {"fused_bwd_sums": 1}  # the reduce mode takes u (S, 1, D)
+    assert summary["spans"]["whvi.kernel.fused_bwd_sums"]["count"] == 1
     events = host_events(prof)
     backward, bwd = events["whvi.model.backward"], events["whvi.op.whvi_mul_bwd"]
     assert bwd.thread != backward.thread

@@ -28,7 +28,9 @@ have the ptxas report and the SASS (``cuobjdump``) of ``base``'s; then
 per variant and kernel the device ms
 a call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) of
 K1-K3 in both precisions and on bf16 storage at the scaling path's shape
-(u (8,1,D), x (256,D) expanded to 2048 rows) at D = 4096 and 8192, of K1
+(u (8,1,D), x (256,D) expanded to 2048 rows) at D = 4096 and 8192, of K3's
+reduce mode at (64,256,8192) and (8,256,4096) with x shared across the
+samples and with x its own (dx stored), of K1
 at D=16384, B=512 in every mode, and of K4 at (2048, 4096) and at the
 column head (8,1,1,4096) in both storages, and of the column kernel's
 three modes at the column head (8,1,D), D = 4096 and 8192, and at the
@@ -206,6 +208,14 @@ def check(name: str, dev) -> None:
             raise AssertionError(f"variant {name}: D={D} bf16 storage is wrong")
         if not torch.equal(fc.fwht_raw(h[3]), fc.fwht_plain(h[3])):
             raise AssertionError(f"variant {name}: fwht D={D} bf16 storage is wrong")
+        if hasattr(fc.load_library(), "whvi_bwd_sums_f32") and fc.sums_group(s1, u, s2, x):
+            _, i1, i2 = fc.fused_raw(s1, u, s2, x, True)
+            g = torch.randn(x.shape, device=dev, generator=gen)
+            got = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True)
+            want = fc.fused_bwd_sums_plain(s1, u, s2, x, g, i1, i2, True)
+            if not (torch.equal(got[0], want[0]) and all(
+                    ((a - b).abs().max() / b.abs().max()).item() <= 1e-5 for a, b in zip(got[1:], want[1:]))):
+                raise AssertionError(f"variant {name}: K3's reduce mode at D={D} is wrong")
         if not hasattr(fc.load_library(), "column_bf16s"):  # a parent from before the column kernel
             continue
         s1h, s2h, gh = h[0], h[2], x.to(torch.bfloat16)  # the column head's rows: bit for bit
@@ -239,6 +249,18 @@ def cases(dev):
                 ("fused_bwd" + sfx, label, lambda p=prec, a=(s1, u, s2, g): fc.fused_bwd_raw(*a, p),
                  (g, u, s1, s2), (g, g, g)),
             ]
+    # K3's reduce mode at the c5-largeD cell's two layers (x shared across
+    # the samples, no dx; x its own, dx stored) and at the scaling shape
+    for D, S, B in ((8192, 64, 256), (4096, 8, 256)):
+        s1, s2 = (torch.randn(D, device=dev, generator=gen) for _ in range(2))
+        u = torch.randn(S, 1, D, device=dev, generator=gen)
+        g = torch.randn(S, B, D, device=dev, generator=gen)
+        for x, want_dx in ((torch.randn(B, D, device=dev, generator=gen).expand(S, B, D), False),
+                          (torch.randn(S, B, D, device=dev, generator=gen), True)):
+            _, i1, i2 = fc.fused_raw(s1, u, s2, x, True)
+            out += [("fused_bwd_sums", f"({S},{B},{D}) {'dx' if want_dx else 'x shared'}",
+                     lambda a=(s1, u, s2, x, g, i1, i2, want_dx): fc.fused_bwd_sums_raw(*a),
+                     (g, i1, i2, x, u, s1, s2), (g,) if want_dx else ())]
     D = 4096
     d1, du, d2 = (torch.randn(16384, device=dev, generator=gen) for _ in range(3))
     xl = torch.randn(512, 16384, device=dev, generator=gen)
@@ -317,7 +339,7 @@ def held_sass(lib: str) -> dict:
             if key:
                 out[key] = []
         elif key and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            out[key].append(line.strip())
+            out[key].append(" ".join(line.split()))  # cuobjdump pads columns to the library's widest
     return out
 
 
@@ -339,7 +361,7 @@ def main(argv=None) -> None:
     for name in names:
         for symbol, row in sorted(ptxas(reports[name]).items()):
             inst = _instance(symbol)
-            if inst and inst["kernel"] in ("whvi_fused", "column") and inst["L"] in PTXAS_LOG2D:
+            if inst and inst["kernel"] in ("whvi_fused", "whvi_bwd_sums", "column") and inst["L"] in PTXAS_LOG2D:
                 emit({"variant": name, "ptxas": True, **inst, **row})
         own, sass = held_ptxas(reports[name]), held_sass(libs[name])
         emit({"variant": name, "held_ptxas_as_base": own == base_ptxas,
@@ -357,8 +379,10 @@ def main(argv=None) -> None:
         if name not in DIAGNOSTIC:
             check(name, dev)
         has_column = hasattr(fc.load_library(), "column_bf16s")
+        has_sums = hasattr(fc.load_library(), "whvi_bwd_sums_f32")
         for kernel, label, call, ins, outs in runs:
-            if kernel.startswith("column") and not has_column:
+            if (kernel.startswith("column") and not has_column) or (
+                    kernel == "fused_bwd_sums" and not has_sums):
                 continue
             ms = time_us(call, 20) / 1e3
             bound, _ = bound_ms(ins, outs, 0.0, 1.0)

@@ -12,7 +12,9 @@ brackets):
              checks its JVPs and VJPs.
   kron       the same on ``ops.hadamard.fwht_kron``.
   kernel     [pallas] the VJP of ``WhviMulFunction`` (K2 forward, K3
-             backward) and of ``FwhtFunction`` (K4 forward and backward)
+             backward: on its ``(D,)`` diagonals, up to ``D = 8192``, K3's
+             reduce mode, which sums the batch reductions itself) and of
+             ``FwhtFunction`` (K4 forward and backward)
              against the plain versions' on the same inputs: in fp32 against
              autograd through ``fused_plain`` / ``fwht_plain`` (GRAD_TOL;
              the kernels add what the plain versions add), in the bf16
@@ -72,8 +74,10 @@ def _transform_grads(fn, x) -> None:
 
 def _kernel_grads(dim: int, batch: int, device) -> dict:
     """Errors of the autograd Functions' VJPs against the plain versions',
-    fp32 and the bf16 precision, each held at its tolerance."""
-    s1, u, s2, x, g = (_randn(k, *((dim,) if k < 3 else (batch, dim)), dtype=torch.float32,
+    fp32 and the bf16 precision, each held at its tolerance. The diagonals
+    are ``(dim,)`` and ``x`` ``(batch, dim)``: on a card, up to ``dim =
+    8192``, the backward is K3's reduce mode."""
+    s1, u, s2, x, g = (_randn(k, *((dim,) if k <= 3 else (batch, dim)), dtype=torch.float32,
                               device=device) for k in range(1, 6))
     errs = {}
     for precision in ("fp32", "bf16"):
@@ -114,8 +118,9 @@ def check(backend: str, dim: int, batch: int, device) -> dict:
         before, realigned = dict(fc.LAUNCHES), fc.REALIGNED
         row["errors"] = _kernel_grads(dim, batch, device)
         row["tol"] = {"fp32": GRAD_TOL, "bf16": fc.bf16_tol(dim, transform=1)}
-        row["route"] = "cpu: the plain versions" if device.type == "cpu" else "cuda: K2, K3, K4"
         row["launches"] = {k: v - before[k] for k, v in fc.LAUNCHES.items() if v > before[k]}
+        k3 = "K3's reduce mode" if "fused_bwd_sums" in row["launches"] else "K3"
+        row["route"] = "cpu: the plain versions" if device.type == "cpu" else f"cuda: K2, {k3}, K4"
         row["realigned"] = fc.REALIGNED - realigned
     elif backend == "f64":
         x, y = _randn(0, batch, dim, device=device), _randn(1, batch, dim, device=device)

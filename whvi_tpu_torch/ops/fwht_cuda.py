@@ -4,26 +4,35 @@ Counterpart of :mod:`whvi_tpu.ops.fwht_pallas`. Four kernels live in
 ``whvi_tpu_torch/csrc/`` (the fused product in fp32 storage,
 ``whvi_fused.cu``, and in bf16 storage, ``whvi_bf16s.cu``; the bare
 transform, ``fwht.cu``; the column head in bf16 storage,
-``whvi_column.cu``) and are used fourteen ways:
+``whvi_column.cu``) and are used sixteen ways:
 
-===================  ====================================  ==================================
-launch counter       wrapper                               replaces (whvi_tpu/ops/fwht_pallas.py)
-===================  ====================================  ==================================
-``fused_y``          ``fused_raw(.., False)``              ``_kernel_1f_y`` / ``_kernel_2f_y``
-``fused_res``        ``fused_raw(.., True)``               ``_kernel_1f`` / ``_kernel_2f``
-``fused_bwd``        ``fused_bwd_raw``                     the transform half of ``_bwd``
-``fwht``             ``fwht_raw``                          ``_kernel_1f_t`` / ``_kernel_2f_t``
-``fused_y_bf16``     ``fused_raw(.., False, "bf16")``      ``_kernel_1f_y`` / ``_kernel_2f_y``
-``fused_res_bf16``   ``fused_raw(.., True, "bf16")``       ``_kernel_1f`` / ``_kernel_2f``
-``fused_bwd_bf16``   ``fused_bwd_raw(.., "bf16")``         the transform half of ``_bwd``
-``fused_y_bf16s``    ``fused_raw(.., False)`` on bf16      ``_kernel_1f_y`` / ``_kernel_2f_y``
-``fused_res_bf16s``  ``fused_raw(.., True)`` on bf16       ``_kernel_1f`` / ``_kernel_2f``
-``fused_bwd_bf16s``  ``fused_bwd_raw`` on bf16             the transform half of ``_bwd``
-``fwht_bf16s``       ``fwht_raw`` on bf16                  ``_kernel_1f_t`` / ``_kernel_2f_t``
-``column_y_bf16s``   ``column_raw(.., False)``             ``_kernel_1f_t`` / ``_kernel_2f_t``
-``column_res_bf16s`` ``column_raw(.., True)``              ``_kernel_1f_t`` / ``_kernel_2f_t``
-``column_bwd_bf16s`` ``column_bwd_raw``                    ``_kernel_1f_t`` / ``_kernel_2f_t``
-===================  ====================================  ==================================
+=======================  ====================================  ==================================
+launch counter           wrapper                               replaces (whvi_tpu/ops/fwht_pallas.py)
+=======================  ====================================  ==================================
+``fused_y``              ``fused_raw(.., False)``              ``_kernel_1f_y`` / ``_kernel_2f_y``
+``fused_res``            ``fused_raw(.., True)``               ``_kernel_1f`` / ``_kernel_2f``
+``fused_bwd``            ``fused_bwd_raw``                     the transform half of ``_bwd``
+``fused_bwd_sums``       ``fused_bwd_sums_raw``                all of ``_bwd``
+``fwht``                 ``fwht_raw``                          ``_kernel_1f_t`` / ``_kernel_2f_t``
+``fused_y_bf16``         ``fused_raw(.., False, "bf16")``      ``_kernel_1f_y`` / ``_kernel_2f_y``
+``fused_res_bf16``       ``fused_raw(.., True, "bf16")``       ``_kernel_1f`` / ``_kernel_2f``
+``fused_bwd_bf16``       ``fused_bwd_raw(.., "bf16")``         the transform half of ``_bwd``
+``fused_bwd_sums_bf16``  ``fused_bwd_sums_raw(.., "bf16")``    all of ``_bwd``
+``fused_y_bf16s``        ``fused_raw(.., False)`` on bf16      ``_kernel_1f_y`` / ``_kernel_2f_y``
+``fused_res_bf16s``      ``fused_raw(.., True)`` on bf16       ``_kernel_1f`` / ``_kernel_2f``
+``fused_bwd_bf16s``      ``fused_bwd_raw`` on bf16             the transform half of ``_bwd``
+``fwht_bf16s``           ``fwht_raw`` on bf16                  ``_kernel_1f_t`` / ``_kernel_2f_t``
+``column_y_bf16s``       ``column_raw(.., False)``             ``_kernel_1f_t`` / ``_kernel_2f_t``
+``column_res_bf16s``     ``column_raw(.., True)``              ``_kernel_1f_t`` / ``_kernel_2f_t``
+``column_bwd_bf16s``     ``column_bwd_raw``                    ``_kernel_1f_t`` / ``_kernel_2f_t``
+=======================  ====================================  ==================================
+
+K3's reduce mode (``fused_bwd_sums``) is the backward of a square product
+whose ``s1`` and ``s2`` are one ``(D,)`` row and whose ``u`` is one row, or
+one a sample (:func:`sums_group`): it sums ``ds1``, ``du`` and ``ds2`` from
+its registers and stores neither ``w1``, ``t2`` nor any product.
+:class:`WhviMulFunction` takes it for such operands on a card, and K3 with
+PyTorch's reductions for every other product.
 
 Precision. The Pallas product takes ``precision="fp32" | "bf16"``, and
 ``"bf16"`` is its default (``_fused_raw``, ``whvi_mul_pallas``) and the
@@ -126,6 +135,8 @@ __all__ = [
     "column_plain",
     "column_raw",
     "fused_bwd_raw",
+    "fused_bwd_sums_plain",
+    "fused_bwd_sums_raw",
     "fused_plain",
     "fused_raw",
     "fwht_cuda",
@@ -133,6 +144,7 @@ __all__ = [
     "fwht_raw",
     "load_library",
     "reset_launches",
+    "sums_group",
     "vector_aligned",
     "vector_bytes",
     "vjp_plain",
@@ -142,6 +154,8 @@ MAX_D = 16384
 MIN_D_BF16 = 4  # pallas_supported: 4 <= D <= 16384
 LANE = 128  # H_128, the last Kronecker factor of the two-factor bodies
 ONE_FACTOR_MAX = 1024  # D <= 1024: one factor H_D (_factor_pair)
+SUMS_MAX_D = 8192  # K3's reduce mode (csrc/whvi_fused.cu, kSumsMaxLog2D)
+SUMS_BLOCKS = 256  # the reduce mode's least grid: about two blocks for each of 132 SMs
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -159,8 +173,8 @@ NVCC_FLAGS = (
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {
-    "fused_y": 0, "fused_res": 0, "fused_bwd": 0, "fwht": 0,
-    "fused_y_bf16": 0, "fused_res_bf16": 0, "fused_bwd_bf16": 0,
+    "fused_y": 0, "fused_res": 0, "fused_bwd": 0, "fused_bwd_sums": 0, "fwht": 0,
+    "fused_y_bf16": 0, "fused_res_bf16": 0, "fused_bwd_bf16": 0, "fused_bwd_sums_bf16": 0,
     "fused_y_bf16s": 0, "fused_res_bf16s": 0, "fused_bwd_bf16s": 0, "fwht_bf16s": 0,
     "column_y_bf16s": 0, "column_res_bf16s": 0, "column_bwd_bf16s": 0,
 }
@@ -276,6 +290,13 @@ def load_library() -> ctypes.CDLL:
                     i32, i32, i64, i32, ctypes.POINTER(_Geometry), vp,
                 ]
                 getattr(lib, name).restype = ctypes.c_int
+            if hasattr(lib, "whvi_bwd_sums_f32"):  # not in a build of older sources (a parent's)
+                lib.whvi_bwd_sums_f32.argtypes = [vp] * 9 + [
+                    i64, i32, i32, i32, ctypes.POINTER(_Geometry), vp,
+                ]
+                lib.whvi_sum_runs_f32.argtypes = [vp] * 4 + [i64, i64, i32, vp]
+                for name in ("whvi_bwd_sums_f32", "whvi_sum_runs_f32"):
+                    getattr(lib, name).restype = ctypes.c_int
             for name in ("fwht_f32", "fwht_bf16s"):
                 getattr(lib, name).argtypes = [vp, vp, i64, i32, vp]
                 getattr(lib, name).restype = ctypes.c_int
@@ -411,6 +432,19 @@ def vjp_plain(s1, u, s2, x, g, precision: str = "fp32"):
     _, i1, i2 = fused_plain(s1, u, s2, x, True, precision)
     dx, w1, t2 = fused_plain(s2, u, s1, g, True, precision)
     return _input_grads((True,) * 4, s1, u, s2, x, g, i1, i2, dx, w1, t2)
+
+
+def fused_bwd_sums_plain(s1, u, s2, x, g, i1, i2, want_dx: bool, precision: str = "fp32"):
+    """``(dx, ds1, du, ds2)`` of K3's reduce mode (``dx`` None unless
+    ``want_dx``): for the cotangent ``g`` of ``y = s1*H(u*H(s2*x))`` and
+    the forward's residuals ``i1``, ``i2``, the swapped product ``dx =
+    s2*t2`` of the broadcast shape and the batch reductions ``ds1 =
+    sum(g*i2)``, ``du = sum(w1*i1)``, ``ds2 = sum(x*t2)``, each summed to
+    its operand's shape (``w1 = H(s1*g)``, ``t2 = H(u*w1)``, rounded as the
+    forward in ``precision``)."""
+    dx, w1, t2 = fused_plain(s2, u, s1, g, True, precision)
+    ds1, du, ds2, _ = _input_grads((True, True, True, False), s1, u, s2, x, g, i1, i2, dx, w1, t2)
+    return (dx if want_dx else None), ds1, du, ds2
 
 
 def column_plain(s1, g, s2, residual: bool):
@@ -621,6 +655,120 @@ def fused_bwd_raw(s1, u, s2, g, precision: str = "fp32"):
     )
 
 
+def sums_group(s1, u, s2, x) -> int | None:
+    """The output rows that share one row of ``u`` where K3's reduce mode
+    takes the backward of ``y = s1*H(u*H(s2*x))``, else None.
+
+    It takes fp32 storage, ``2 <= D <= SUMS_MAX_D``, ``s1`` and ``s2`` of
+    one ``(D,)`` row each (leading axes all 1), and a ``u`` that is one row
+    for all outputs, or one row for each row of the outputs' innermost
+    leading axis (``u (S, 1, D)`` over outputs ``(S, B, D)``, ``B > 1``):
+    then every sum runs over consecutive output rows. Stacked or replicated
+    diagonals, per-example ``u`` (``B = 1`` included, where it looks like
+    a shared one) and bf16 storage are refused. Shapes alone decide."""
+    D = x.shape[-1]
+    if {t.dtype for t in (s1, u, s2, x)} != {torch.float32}:
+        return None
+    if not (is_pow_of_2(D) and 2 <= D <= SUMS_MAX_D) or s1.numel() != D or s2.numel() != D:
+        return None
+    lead = torch.broadcast_shapes(x.shape[:-1], s1.shape[:-1], u.shape[:-1], s2.shape[:-1])
+    rows = math.prod(lead)
+    u_lead = (1,) * (len(lead) - u.dim() + 1) + tuple(u.shape[:-1])
+    if rows == 0:
+        return None
+    if all(n == 1 for n in u_lead):
+        return rows
+    if lead[-1] > 1 and u_lead[-1] == 1 and u_lead[:-1] == tuple(lead[:-1]):
+        return lead[-1]
+    return None
+
+
+def _sums_run(rows: int, group: int, D: int) -> int:
+    """The rows a thread of K3's reduce mode sums before it stores its
+    partial sums: the largest divisor of ``group`` that still leaves
+    :data:`SUMS_BLOCKS` blocks of ``csrc/fwht_core.cuh``'s row shape (one
+    row slot a thread group, 256 threads or one row a block), or 1."""
+    L = int(math.log2(D))
+    tpr = 1 << (L - (L if L <= 4 else 4 if L < 13 else 5))
+    most = max(1, rows // (max(tpr, 256) // tpr * SUMS_BLOCKS))
+    return max(r for r in range(1, min(group, most) + 1) if group % r == 0)
+
+
+def _launch_bwd_sums(s1, u, s2, x, g, i1, i2, want_dx: bool, precision: str, group: int):
+    """K3's reduce mode on CUDA tensors (``group`` from :func:`sums_group`):
+    ``(dx, finish)``, ``dx`` of ``g``'s shape or None, ``finish()`` the
+    second pass, which returns ``(ds1, du, ds2)`` of the operands' shapes.
+
+    Each run of rows (:func:`_sums_run`) stores its partial sums in
+    scratch, and the second pass adds them in fixed order."""
+    D = g.shape[-1]
+    for t in (s1, u, s2, x, g, i1, i2):
+        check_kernel_args(t.shape[-1], t.dtype)
+        if t.shape[-1] != D or t.stride(-1) != 1:
+            raise ValueError(
+                f"operands must share a contiguous last axis D={D}, got {tuple(t.shape)}"
+            )
+    width = vector_bytes(D)
+    s1, u, s2, x = (_aligned(t, width) for t in (s1, u, s2, x))
+    g, i1, i2 = (_aligned(t.contiguous(), width) for t in (g, i1, i2))
+    lead = g.shape[:-1]
+    if i1.shape != g.shape or i2.shape != g.shape:
+        raise ValueError(
+            f"residuals {tuple(i1.shape)}, {tuple(i2.shape)} for a cotangent {tuple(g.shape)}"
+        )
+    rows = math.prod(lead)
+    n_runs = rows // _sums_run(rows, group, D)
+    geom = _geometry(lead, (x, s1, u, s2))
+    dx = torch.empty_like(g) if want_dx else None
+    part = torch.empty(3, n_runs, D, dtype=g.dtype, device=g.device)
+    lib = load_library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    counter = _counter("fused_bwd_sums", precision, g.dtype)
+    with torch.cuda.device(g.device), span(KERNEL_SPANS[counter]):
+        err = lib.whvi_bwd_sums_f32(
+            g.data_ptr(), x.data_ptr(), s1.data_ptr(), u.data_ptr(), s2.data_ptr(),
+            i1.data_ptr(), i2.data_ptr(), None if dx is None else dx.data_ptr(), part.data_ptr(),
+            n_runs, rows // n_runs, int(precision == "bf16"), int(math.log2(D)),
+            ctypes.byref(geom), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"whvi_bwd_sums_f32 launch failed: cudaError_t {err}")
+    LAUNCHES[counter] += 1
+
+    def finish():
+        ds1, du, ds2 = (torch.empty(t.shape, dtype=g.dtype, device=g.device) for t in (s1, u, s2))
+        with torch.cuda.device(g.device):
+            err = lib.whvi_sum_runs_f32(
+                part.data_ptr(), ds1.data_ptr(), du.data_ptr(), ds2.data_ptr(), n_runs,
+                rows // group, int(math.log2(D)), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"whvi_sum_runs_f32 launch failed: cudaError_t {err}")
+        return ds1, du, ds2
+
+    return dx, finish
+
+
+def fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, want_dx: bool, precision: str = "fp32"):
+    """``(dx, ds1, du, ds2)`` of :func:`fused_bwd_sums_plain`, no autograd:
+    K3's reduce mode and its second pass, one counted launch, on CUDA
+    tensors whose shapes :func:`sums_group` takes (else ``ValueError``);
+    the plain version on CPU tensors."""
+    dtype = _storage(s1, u, s2, x, g, i1, i2)
+    check_precision(g.shape[-1], precision, dtype)
+    if _on_cpu(s1, u, s2, x, g, i1, i2):
+        return fused_bwd_sums_plain(s1, u, s2, x, g, i1, i2, want_dx, precision)
+    group = sums_group(s1, u, s2, x)
+    if group is None:
+        raise ValueError(
+            f"K3's reduce mode takes fp32 storage, D <= {SUMS_MAX_D}, (D,) diagonals s1 and s2 "
+            f"and a u shared or one a sample; got s1 {tuple(s1.shape)}, u {tuple(u.shape)}, "
+            f"s2 {tuple(s2.shape)}, x {tuple(x.shape)} of {dtype}"
+        )
+    dx, finish = _launch_bwd_sums(s1, u, s2, x, g, i1, i2, want_dx, precision, group)
+    return (dx, *finish())
+
+
 def fwht_raw(x):
     """FWHT along the last axis, no autograd. K4 on a CUDA tensor (which
     must be contiguous; copied first if it starts off the kernel's vector
@@ -754,7 +902,9 @@ class WhviMulFunction(torch.autograd.Function):
     batch reductions ``du = sum(w1*i1)``, ``ds1 = sum(g*i2)``,
     ``ds2 = sum(x*t2)`` and ``dx`` summed back to each operand's shape.
     ``x`` usually broadcasts over the stack axis, so its gradient is summed
-    over it too.
+    over it too. On a card, where :func:`sums_group` takes the operands,
+    K3's reduce mode sums the three reductions itself (``fused_bwd_sums``);
+    on the CPU the plain versions run.
     """
 
     @staticmethod
@@ -767,11 +917,24 @@ class WhviMulFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        need = ctx.needs_input_grad
         with span("whvi.op.whvi_mul_bwd"):
             s1, u, s2, x, i1, i2 = ctx.saved_tensors
-            dx, w1, t2 = fused_bwd_raw(s1, u, s2, g.contiguous(), ctx.precision)
+            g = g.contiguous()
+            group = None if g.device.type == "cpu" else sums_group(s1, u, s2, x)
+            if group is None:
+                dx, w1, t2 = fused_bwd_raw(s1, u, s2, g, ctx.precision)
+            else:
+                dx, finish = _launch_bwd_sums(
+                    s1, u, s2, x, g, i1, i2, need[3], ctx.precision, group
+                )
         with span("whvi.op.input_grads"):
-            grads = _input_grads(ctx.needs_input_grad, s1, u, s2, x, g, i1, i2, dx, w1, t2)
+            if group is None:
+                grads = _input_grads(need, s1, u, s2, x, g, i1, i2, dx, w1, t2)
+            else:
+                sums = finish()
+                grads = (*(t if n else None for t, n in zip(sums, need)),
+                         dx.sum_to_size(x.shape) if need[3] else None)
         return (*grads, None)
 
 
