@@ -208,6 +208,25 @@ Phases, each of which raises on failure:
    no-KL net's, K1-K4 launched. No part may copy an operand for
    alignment. The parts are timed.
 
+13. The grouped WHVI product (whvi_tpu_torch/ops/grouped.py, the expert
+   layer's) at the routed shape of the DeepSeek-V2 cell
+   (dsv2lite-whvi.train-t1024): D=2048, 8 experts held x 4 samples (32
+   segments, one empty), 13764 routed rows of 98304 top-6 choices over
+   16384 (token, sample) rows, x gathered (gate and up) and not (down), in
+   both precisions: K1 and K2 against grouped_plain (fp32 y, i1, i2 bit for
+   bit over the routed rows, y 0 past them), K3 with its sums against
+   grouped_bwd_plain (1e-5 of the largest element; fp32 dx bit for bit where
+   x is not gathered), the bf16 mode within fwht_cuda.bf16_tol. Each
+   kernel timed at the gathered shape beside the plain loop, with its bound
+   (each routed row read and written once, y's 98304 rows written, s1 and
+   s2 an expert, u a segment). Then a small DeepSeek-V2 WHVI net (hidden 64,
+   a dense and two MoE layers, g_mu drawn N(0, 0.5^2)) takes
+   Trainer.train_step on the card under set_sync_debug_mode("error")
+   against a CPU copy (loss, mnll, kl within 1e-5, every gradient within
+   1e-4), then in the bf16 precision (loss and mnll within 2^-7 of the
+   CPU's), and Trainer.predict in each; every grouped kernel must have
+   been launched there.
+
 Before the last line it prints one JSON object of the kernels (each with
 its launches on the main path, or for fwht_bf16s, which the bf16 scaling
 path launches no more, on phase 10's fwht_sweep run, the counts set to 0
@@ -215,8 +234,9 @@ just before it; max abs error, ms, plain_ms, bound_ms,
 bound_by and library_ms; the error and the times both at the scaling
 path's shapes for K1-K4 in both storages and the column kernel's modes
 (times at the column head (8,1,4096)), at D=16384, B=512, TB=4 for the
-large-D kernels) and the nvidia-smi line; the last line is {"ok": true,
-"device": {...}}.
+large-D kernels, at phase 13's routed shape for the grouped kernels, their
+launches phase 13's net's) and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -248,6 +268,7 @@ SLICE_GRAD_TOL = 1e-4
 _FUSED = "whvi_tpu_torch/csrc/whvi_fused.cu"
 _BF16S = "whvi_tpu_torch/csrc/whvi_bf16s.cu"  # K1-K3 on bf16 storage
 _COLUMN = "whvi_tpu_torch/csrc/whvi_column.cu"  # the column head on bf16 storage
+_GROUPED = "whvi_tpu_torch/csrc/whvi_grouped.cu"  # the grouped product (the expert layer's)
 KERNELS = {
     # counter (fwht_cuda.LAUNCHES): (source, the TPU kernel it replaces)
     "fused_y": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
@@ -266,6 +287,14 @@ KERNELS = {
     "column_y_bf16s": (_COLUMN, "whvi_tpu/ops/fwht_pallas.py:191"),
     "column_res_bf16s": (_COLUMN, "whvi_tpu/ops/fwht_pallas.py:191"),
     "column_bwd_bf16s": (_COLUMN, "whvi_tpu/ops/fwht_pallas.py:191"),
+    # the grouped product (a WHVI matrix a segment of rows; the JAX package has no such
+    # product): the fused bodies it runs a segment at a time
+    "fused_grouped_y": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:124"),
+    "fused_grouped_res": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:113"),
+    "fused_grouped_bwd_sums": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:403"),
+    "fused_grouped_y_bf16": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:124"),
+    "fused_grouped_res_bf16": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:113"),
+    "fused_grouped_bwd_sums_bf16": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:403"),
 }
 FLAGSHIP_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")  # phases 3-4
 BF16_KERNELS = ("fused_y_bf16", "fused_res_bf16", "fused_bwd_bf16")  # phase 6
@@ -2574,6 +2603,224 @@ def run_checks_path(fc, dev, seed, tmp) -> None:
     check(not fails, "phase 12: " + "; ".join(fails))
 
 
+# ------------------------------------------------------------------ 13. the grouped product
+
+
+GROUPED_KERNELS = ("fused_grouped_y", "fused_grouped_res", "fused_grouped_bwd_sums")
+# the DeepSeek-V2 cell's routed shape: D=2048, 8 experts held x 4 samples,
+# 98304 top-6 choices of 16384 (token, sample) rows, 13764 routed here
+# unevenly, one segment empty
+GROUPED_D, GROUPED_E, GROUPED_P = 2048, 8, 4
+GROUPED_COUNTS = (480, 0, 310, 402, 390, 377, 351, 402, *(380 + 7 * i for i in range(24)))
+GROUPED_ROWS, GROUPED_CHOICES = 16384, 98304
+DSV2_SMOKE = {  # hidden 64, a dense layer and two MoE layers of 4 of 8 experts, top 2
+    "hidden_size": 64, "num_hidden_layers": 3, "first_k_dense_replace": 1, "moe_layer_freq": 1,
+    "intermediate_size": 96, "moe_intermediate_size": 48, "n_routed_experts": 4,
+    "first_expert": 0, "published": {"n_routed_experts": 8}, "num_experts_per_tok": 2,
+    "n_shared_experts": 1, "routed_scaling_factor": 1, "scoring_func": "softmax",
+    "norm_topk_prob": False, "num_attention_heads": 4, "qk_nope_head_dim": 16,
+    "qk_rope_head_dim": 8, "v_head_dim": 16, "kv_lora_rank": 32, "q_lora_rank": None,
+    "rms_norm_eps": 1e-6, "rope_theta": 10000,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+                     "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "vocab_size": 256, "lambda": 1.0, "s_init": "auto",
+}
+
+
+def _grouped_operands(dev, gen, gather: bool):
+    """``(s1, u, s2, x, offsets, index, g)`` at the routed shape; ``x`` the
+    hidden rows with ``index`` the choices' rows where ``gather``, else one
+    row a choice."""
+    D, E, P, M = GROUPED_D, GROUPED_E, GROUPED_P, GROUPED_CHOICES
+    offsets = torch.tensor((0, *np.cumsum(GROUPED_COUNTS)), dtype=torch.int64, device=dev)
+    s1, s2 = (torch.randn(E, D, device=dev, generator=gen) * D**-0.5 for _ in range(2))
+    u = torch.randn(E * P, D, device=dev, generator=gen)
+    if gather:
+        x = torch.randn(GROUPED_ROWS, D, device=dev, generator=gen)
+        index = torch.randint(0, GROUPED_ROWS, (M,), device=dev, generator=gen)
+    else:
+        x, index = torch.randn(M, D, device=dev, generator=gen), None
+    return s1, u, s2, x, offsets, index, torch.randn(M, D, device=dev, generator=gen)
+
+
+def grouped_vs_plain(fc, dev, seed) -> dict:
+    """Phase 13 (a): the grouped K1, K2 and K3 with its sums against their
+    plain versions at the routed shape, x gathered and not, in both
+    precisions. Returns the max abs errors by counter."""
+    from whvi_tpu_torch.ops import grouped as gr
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    count, abs_errs = sum(GROUPED_COUNTS), {}
+    log(f"grouped product vs plain at D={GROUPED_D}, {len(GROUPED_COUNTS)} segments, {count} "
+        f"routed rows of {GROUPED_CHOICES} (fp32 forward bit for bit, sums <= {KERNEL_TOL}):")
+    for precision in ("fp32", "bf16"):
+        suffix = "" if precision == "fp32" else "_bf16"
+        for gather in (True, False):
+            s1, u, s2, x, offsets, index, g = _grouped_operands(dev, gen, gather)
+            host = offsets.cpu()  # the plain loop's bounds
+            label = f"{precision} {'gathered' if gather else 'rows'}"
+            y1 = gr.grouped_raw(s1, u, s2, x, offsets, index, False, precision)[0]
+            res = gr.grouped_raw(s1, u, s2, x, offsets, index, True, precision)
+            want = gr.grouped_plain(s1, u, s2, x, host, index, True, precision)
+            check(torch.equal(y1, res[0]), f"fused_grouped_y{suffix} ({label}) is not K2's y")
+            check(bool(torch.all(res[0][count:] == 0)), f"fused_grouped_res{suffix} ({label}): "
+                  "y is not 0 past the routed rows")
+            bwd = gr.grouped_bwd_raw(s1, u, s2, x, offsets, index, g, res[1], res[2], precision)
+            bwd_ref = gr.grouped_bwd_plain(s1, u, s2, x, host, index, g, res[1], res[2], precision)
+            if precision == "fp32" and not gather:
+                check(torch.equal(bwd[0], bwd_ref[0]), f"fused_grouped_bwd_sums ({label}): dx is "
+                      "not the plain dx bit for bit")
+            errs = {}
+            # (name, outputs, plain outputs, each output's transforms after its last rounding)
+            for name, got, ref, ks in (
+                ("fused_grouped_y", (y1,), want[:1], (2,)),
+                ("fused_grouped_res", res, want, (2, 1, 2)),
+                ("fused_grouped_bwd_sums", bwd, bwd_ref, (2, 2, 1, 2)),
+            ):
+                pairs = list(zip(got, ref))
+                if name != "fused_grouped_bwd_sums":  # the routed rows; the sums another order
+                    pairs = [(a[:count], b[:count]) for a, b in pairs]
+                    if precision == "fp32":
+                        check(all(torch.equal(a, b) for a, b in pairs),
+                              f"{name} ({label}) is not the plain version bit for bit")
+                errs[name] = 0.0
+                for (a, b), k in zip(pairs, ks):
+                    err, tol = rel_err(a, b), (KERNEL_TOL if precision == "fp32"
+                                               else fc.bf16_tol(GROUPED_D, k))
+                    check(err <= tol, f"{name}{suffix} ({label}): {err:.3e} > {tol}")
+                    errs[name] = max(errs[name], err)
+                abs_errs[name + suffix] = max(abs_errs.get(name + suffix, 0.0),
+                                              *((a - b).abs().max().item() for a, b in pairs))
+            torch.cuda.synchronize()
+            log(f"  {label:<14} " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    return abs_errs
+
+
+def grouped_times(fc, dev, seed) -> dict:
+    """Phase 13 (b): the grouped kernels at the gathered routed shape (gate
+    and up's), each beside the plain loop of fused_plain over the segments,
+    with its bound: the routed rows' x (and g, i1, i2) read once, y's rows
+    all written (0 past the routed rows), i1, i2 and dx at the routed rows
+    (dx at x's rows, zeroed), s1 and s2 an expert and u a segment."""
+    from whvi_tpu_torch.ops import grouped as gr
+    from whvi_tpu_torch.utils.profiling import H100_HBM_GBPS
+    from whvi_tpu_torch.utils.profiling import H100_PEAK_FP32_FLOPS as PEAK
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s1, u, s2, x, offsets, index, g = _grouped_operands(dev, gen, True)
+    host = offsets.cpu()
+    D, M, count = GROUPED_D, GROUPED_CHOICES, sum(GROUPED_COUNTS)
+    row = 4 * D
+    diag = row * (2 * GROUPED_E + len(GROUPED_COUNTS)) + 8 * count  # s1, s2, u; the index
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / (H100_HBM_GBPS * 1e9) * 1e3, ops / PEAK * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    times = {}
+    log(f"grouped times at D={D}, {count} routed rows of {M}, x gathered from "
+        f"{GROUPED_ROWS} (device ms per call, 20 calls in a CUDA graph, median of 5 replays):")
+    for precision in ("fp32", "bf16"):
+        _, i1, i2 = gr.grouped_raw(s1, u, s2, x, offsets, index, True, precision)
+        for name, kernel, plain, nbytes, ops in (
+            ("fused_grouped_y",
+             lambda: gr.grouped_raw(s1, u, s2, x, offsets, index, False, precision),
+             lambda: gr.grouped_plain(s1, u, s2, x, host, index, False, precision),
+             diag + row * (count + M), fused_ops(D, count)),
+            ("fused_grouped_res",
+             lambda: gr.grouped_raw(s1, u, s2, x, offsets, index, True, precision),
+             lambda: gr.grouped_plain(s1, u, s2, x, host, index, True, precision),
+             diag + row * (3 * count + M), fused_ops(D, count)),
+            ("fused_grouped_bwd_sums",
+             lambda: gr.grouped_bwd_raw(s1, u, s2, x, offsets, index, g, i1, i2, precision),
+             lambda: gr.grouped_bwd_plain(s1, u, s2, x, host, index, g, i1, i2, precision),
+             diag + row * (4 * count + GROUPED_ROWS + 3 * len(GROUPED_COUNTS)),
+             fused_ops(D, count) + 6 * D * count),
+        ):
+            t = _timed(kernel, plain, bound(nbytes, ops))
+            key = name if precision == "fp32" else name + "_bf16"
+            _log_time(f"{precision} {name.removeprefix('fused_')}", t)
+            times[key] = t
+    return times
+
+
+def run_grouped_net_path(fc, dev, seed) -> dict:
+    """Phase 13 (c): a small DeepSeek-V2 WHVI net's Trainer.train_step on the
+    card against the same step on a CPU copy (the plain versions), in fp32
+    and in the bf16 precision, and Trainer.predict in each. Returns the grouped
+    kernels' launches there."""
+    from whvi_tpu_torch.models.deepseek_v2 import DeepseekV2WHVI
+    from whvi_tpu_torch.ops import set_whvi_mul_precision
+    from whvi_tpu_torch.ops.kron_cuda import BF16_TOL
+    from whvi_tpu_torch.train import TrainConfig, Trainer
+
+    S, B, T, V = 2, 2, 16, DSV2_SMOKE["vocab_size"]
+    seq = torch.randint(0, V, (B, T + 1), generator=torch.Generator().manual_seed(seed))
+    torch.manual_seed(seed + 1)
+    first = DeepseekV2WHVI(DSV2_SMOKE, train_samples=S, eval_samples=S)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():  # g_mu ~ N(0, 0.5^2): the products carry signal, not only noise
+        for name, p in first.named_parameters():
+            if name.endswith("g_mu"):
+                p.normal_(generator=gen).mul_(0.5)
+    start = first.state_dict()
+    fc.reset_launches()
+    for precision in ("fp32", "bf16"):
+        set_whvi_mul_precision(precision)
+        try:
+            out = {}
+            for device in ("cpu", dev):
+                net = DeepseekV2WHVI(DSV2_SMOKE, train_samples=S, eval_samples=S)
+                trainer = Trainer(net, TrainConfig(lr0=1e-2), device=device)
+                state = trainer.init(seed + 2)
+                net.load_state_dict(start)
+                eps = [e.to(device) for e in
+                       net.draw_noise((S, B * T), torch.Generator().manual_seed(seed + 3))]
+                x, y = seq[:, :-1].to(device), seq[:, 1:].to(device)
+                if device == dev:
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    metrics = trainer.train_step(state, x, y, B * T, True, eps=eps)
+                finally:
+                    if device == dev:
+                        torch.cuda.set_sync_debug_mode("default")
+                out[str(device)] = ({k: float(metrics[k]) for k in ("loss", "mnll", "kl")},
+                                    {k: p.grad.cpu() for k, p in net.named_parameters()})
+                if device == dev:  # K1's grouped instance: the expert layer's predictive path
+                    logits = trainer.predict(x.float(), torch.Generator(device=dev).manual_seed(seed))
+                    check(tuple(logits.shape) == (S, B * T, V)
+                          and bool(torch.isfinite(logits).all()),
+                          f"dsv2 predict: logits {tuple(logits.shape)} not finite")
+            (card, card_grads), (plain, plain_grads) = out[str(dev)], out["cpu"]
+            errs = {k: abs(card[k] - plain[k]) / abs(plain[k]) for k in card}
+            if precision == "fp32":
+                errs["grads"] = max(rel_err(card_grads[k], g) for k, g in plain_grads.items()
+                                    if g.abs().max() > 0)
+                check(max(errs[k] for k in card) <= SLICE_TOL, f"dsv2 step fp32: {errs}")
+                check(errs["grads"] <= SLICE_GRAD_TOL, f"dsv2 step fp32 gradients: {errs}")
+            else:
+                check(max(errs["loss"], errs["mnll"]) <= BF16_TOL, f"dsv2 step bf16: {errs}")
+            log(f"  dsv2 net step {precision} card vs cpu: loss {card['loss']:.6f} "
+                f"mnll {card['mnll']:.6f}, "
+                + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+        finally:
+            set_whvi_mul_precision("fp32")
+    launches = {n: fc.LAUNCHES[n] for n in KERNELS if n.startswith("fused_grouped")}
+    log(f"  dsv2 net launches: {launches}; realigned: {fc.REALIGNED}")
+    for name, n in launches.items():
+        check(n > 0, f"the dsv2 net launched no {name}")
+    return launches
+
+
+def run_grouped_path(fc, dev, seed) -> tuple[dict, dict, dict]:
+    """Phase 13: ``(max_abs, times, launches)`` of the grouped kernels."""
+    max_abs = grouped_vs_plain(fc, dev, seed)
+    times = grouped_times(fc, dev, seed)
+    return max_abs, times, run_grouped_net_path(fc, dev, seed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2642,6 +2889,12 @@ def main() -> int:
         run_checks_path(fc, dev, args.seed, tmp)
     t_g = time.perf_counter()
     log(f"phase 12: {t_g - t_f:.1f} s; the smoke: {t_g - t_start:.1f} s")
+    log("phase 13: the grouped product (the expert layer's)")
+    grouped = run_grouped_path(fc, dev, args.seed)
+    for part, found in zip((max_abs, times, launches), grouped):
+        part.update(found)
+    t_h = time.perf_counter()
+    log(f"phase 13: {t_h - t_g:.1f} s; the smoke: {t_h - t_start:.1f} s")
 
     kernels = [
         {

@@ -27,6 +27,11 @@ launch counter           wrapper                               replaces (whvi_tp
 ``column_bwd_bf16s``     ``column_bwd_raw``                    ``_kernel_1f_t`` / ``_kernel_2f_t``
 =======================  ====================================  ==================================
 
+The grouped product (:mod:`whvi_tpu_torch.ops.grouped`, ``whvi_grouped.cu``:
+a WHVI matrix a segment of rows, the expert layer's) counts here too:
+``fused_grouped_y``, ``fused_grouped_res`` and ``fused_grouped_bwd_sums``
+(K1, K2 and K3 with its sums), ``_bf16`` after each in the bf16 mode.
+
 K3's reduce mode (``fused_bwd_sums``) is the backward of a square product
 whose ``s1`` and ``s2`` are one ``(D,)`` row and whose ``u`` is one row, or
 one a sample (:func:`sums_group`): it sums ``ds1``, ``du`` and ``ds2`` from
@@ -161,9 +166,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = (
     "whvi_fused.cu", "whvi_bf16s.cu", "fwht.cu", "whvi_column.cu", "whvi_kron.cu", "whvi_full.cu",
-    "whvi_pipe.cu", "copy_floor.cu",
+    "whvi_pipe.cu", "copy_floor.cu", "whvi_grouped.cu",
 )
-_HEADERS = ("fwht_core.cuh", "kron_core.cuh", "tma.cuh", "wgmma.cuh")
+_HEADERS = ("fwht_core.cuh", "whvi_fused.cuh", "kron_core.cuh", "tma.cuh", "wgmma.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "whvi_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libwhvi_kernels.so")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -177,6 +182,8 @@ LAUNCHES = {
     "fused_y_bf16": 0, "fused_res_bf16": 0, "fused_bwd_bf16": 0, "fused_bwd_sums_bf16": 0,
     "fused_y_bf16s": 0, "fused_res_bf16s": 0, "fused_bwd_bf16s": 0, "fwht_bf16s": 0,
     "column_y_bf16s": 0, "column_res_bf16s": 0, "column_bwd_bf16s": 0,
+    "fused_grouped_y": 0, "fused_grouped_res": 0, "fused_grouped_bwd_sums": 0,
+    "fused_grouped_y_bf16": 0, "fused_grouped_res_bf16": 0, "fused_grouped_bwd_sums_bf16": 0,
 }
 # The Kernel layer's span of each launch: ``whvi.kernel.<counter>``.
 KERNEL_SPANS = {name: "whvi.kernel." + name for name in LAUNCHES}
@@ -307,6 +314,10 @@ def load_library() -> ctypes.CDLL:
                 lib.column_nop.argtypes = [i64, i32, vp]
                 for name in ("column_bf16s", "column_nop"):
                     getattr(lib, name).restype = ctypes.c_int
+            if hasattr(lib, "whvi_grouped_f32"):  # not in a build of older sources (a parent's)
+                from whvi_tpu_torch.ops.grouped import _argtypes
+
+                _argtypes(lib)
             # the kernels of ops/kron_cuda.py
             for name, args in (
                 ("kron_stage_f32", [vp] * 5 + [i64, i32, i32, i32, i32, vp]),

@@ -24,6 +24,7 @@ from whvi_tpu_torch.ops.fwht_cuda import (
     WhviMulFunction,
     fused_raw,
 )
+from whvi_tpu_torch.ops.grouped import WhviMulGroupedFunction, grouped_raw
 from whvi_tpu_torch.ops.hadamard import build_H, is_pow_of_2
 from whvi_tpu_torch.utils.profiling import span
 
@@ -34,6 +35,7 @@ __all__ = [
     "whvi_dense",
     "whvi_mul",
     "whvi_mul_dense_oracle",
+    "whvi_mul_grouped",
 ]
 
 # The operand precision of every whvi_mul that does not pass its own,
@@ -141,6 +143,29 @@ def whvi_mul(
         ):
             return WhviMulFunction.apply(s1, u, s2, x, precision)
         return fused_raw(s1, u, s2, x, False, precision)[0]
+
+
+def whvi_mul_grouped(s1, u, s2, x, offsets, index=None, precision: str | None = None):
+    """The grouped product: row ``r`` of segment ``g`` (``offsets[g] <= r <
+    offsets[g + 1]``) is ``x[src] @ W_bar(u[g])^T`` of matrix ``e = g //
+    (G // E)``, ``s1[e] * H(u[g] * H(s2[e] * x[src]))``, ``src = index[r]``
+    (a gather of ``x``'s rows) or ``r``; rows at or past ``offsets[G]`` give
+    0 (:mod:`whvi_tpu_torch.ops.grouped`).
+
+    ``s1, s2 (E, D)``, ``u (G, D)`` with ``G`` a multiple of ``E``, ``x
+    (rows, D)``, ``offsets`` int64 ``(G + 1,)`` on ``x``'s device (read
+    there by the kernels, never by the host), ``index`` int64 ``(M,)`` or
+    None; returns ``(M, D)``, ``M`` the length of ``index`` or ``x``'s rows.
+    Each segment's rows share one ``u``, so under ``"bf16"`` (``precision``
+    None: :func:`get_whvi_mul_precision`) every grouped product rounds as
+    the bf16 kernels do. The Op layer's span ``whvi.op.whvi_mul_grouped``
+    covers the call, ``whvi.op.whvi_mul_grouped_bwd`` its backward."""
+    with span("whvi.op.whvi_mul_grouped"):
+        if precision is None:
+            precision = _PRECISION
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (s1, u, s2, x)):
+            return WhviMulGroupedFunction.apply(s1, u, s2, x, offsets, index, precision)
+        return grouped_raw(s1, u, s2, x, offsets, index, False, precision)[0]
 
 
 def whvi_dense(s1, u, s2):

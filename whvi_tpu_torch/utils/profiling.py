@@ -408,11 +408,16 @@ def _counters() -> dict:
     are loaded (a module not loaded has counted nothing): kernel launches by
     name (``fwht_cuda.LAUNCHES``, ``kron_cuda.LAUNCHES``), operands
     realigned (``fwht_cuda.REALIGNED``), collectives by kind
-    (``parallel.mesh.COLLECTIVES``)."""
-    out = {"launches": {}, "realigned": 0, "collectives": {}}
+    (``parallel.mesh.COLLECTIVES``), and copies of the MoE layers' device
+    tallies of rows a held expert (``models.deepseek_v2.ROUTED_ROWS``;
+    copied on the device, not read)."""
+    out = {"launches": {}, "realigned": 0, "collectives": {}, "moe": {}}
     fwht = sys.modules.get("whvi_tpu_torch.ops.fwht_cuda")
     kron = sys.modules.get("whvi_tpu_torch.ops.kron_cuda")
     mesh = sys.modules.get("whvi_tpu_torch.parallel.mesh")
+    model = sys.modules.get("whvi_tpu_torch.models.deepseek_v2")
+    if model is not None:
+        out["moe"] = {name: rows.clone() for name, rows in model.ROUTED_ROWS.items()}
     for module in (kron, fwht):
         if module is not None:
             out["launches"].update(module.LAUNCHES)
@@ -466,6 +471,22 @@ def _delta(end: dict, start: dict) -> dict:
     return {k: v - start.get(k, 0) for k, v in end.items() if v - start.get(k, 0)}
 
 
+def _moe(end: dict, start: dict) -> dict:
+    """``{"ROUTED_ROWS": {layer: rows a held expert}, "MAX_OVER_MEAN"}`` of
+    the tallies' change (a tally made inside the interval counts whole):
+    the most rows an expert took over its layer's mean, the worst layer's
+    (None where no row was routed)."""
+    rows = {}
+    for name, now in end.items():
+        before = start.get(name)
+        same = before is not None and before.device == now.device and before.shape == now.shape
+        changed = (now - before if same else now).tolist()
+        if any(changed):
+            rows[name] = changed
+    worst = max((max(r) * len(r) / sum(r) for r in rows.values()), default=None)
+    return {"ROUTED_ROWS": rows, "MAX_OVER_MEAN": worst}
+
+
 def span_summary() -> dict:
     """The newest session's spans (the open one, or the last to end: a
     ``torch.profiler`` session, or the outermost :func:`recording` block)
@@ -476,20 +497,26 @@ def span_summary() -> dict:
     - ``launches``: kernel launches by counter name, ``realigned``:
       operands the kernels' wrappers copied to an aligned allocation, and
       ``collectives``: the mesh's collectives by kind, each the change of
-      the port's counter (only those that changed)."""
+      the port's counter (only those that changed);
+    - ``moe``: ``ROUTED_ROWS``, the rows routed to each expert held here by
+      MoE layer, and ``MAX_OVER_MEAN``, the worst layer's most loaded
+      expert over its mean, from the layers' device tallies (read here, on
+      the host, and nowhere in a step)."""
     with _LOCK:
         spans = {
             name: {"count": c, "total_s": t, "self_s": s} for name, (c, t, s) in _TOTALS.items()
         }
         start, end = _COUNTS
     if start is None:
-        return {"spans": spans, "launches": {}, "realigned": 0, "collectives": {}}
+        return {"spans": spans, "launches": {}, "realigned": 0, "collectives": {},
+                "moe": _moe({}, {})}
     end = end or _counters()
     return {
         "spans": spans,
         "launches": _delta(end["launches"], start["launches"]),
         "realigned": end["realigned"] - start["realigned"],
         "collectives": _delta(end["collectives"], start["collectives"]),
+        "moe": _moe(end["moe"], start["moe"]),
     }
 
 
