@@ -225,7 +225,20 @@ Phases, each of which raises on failure:
    against a CPU copy (loss, mnll, kl within 1e-5, every gradient within
    1e-4), then in the bf16 precision (loss and mnll within 2^-7 of the
    CPU's), and Trainer.predict in each; every grouped kernel must have
-   been launched there.
+   been launched there, and, every map having D <= 8192, no K3 with PyTorch's
+   sums (fused_bwd, fused_bwd_bf16): each backward took a reduce mode.
+14. The stacked form of K3's reduce mode (fused_bwd_sums_stacked) at the
+   DeepSeek-V2 cell's stacked maps (q_proj, kv_a_proj_with_mqa, kv_b_proj,
+   the shared down map, the dense gate/up, lm_head; u one of 4 samples, x
+   broadcast over the stack axis) at N = 256 rows a sample: dx equal to
+   K3's bit for bit, ds1, du and ds2 within 1e-5 of the plain version's,
+   two launches and the launch without dx bit for bit, the bf16 precision
+   refused (no product with (stack, D) diagonals runs in it). Then checked
+   the same way and timed at the cell's N = 4096 for lm_head, q_proj and
+   kv_b_proj beside its bound (g, i1, i2 and x read
+   once, dx written once, over 3.35 TB/s), the plain version and K3 with
+   PyTorch's reductions (the backward the stacked maps ran before), and
+   ptxas's registers and spills of its instances at those widths.
 
 Before the last line it prints one JSON object of the kernels (each with
 its launches on the main path, or for fwht_bf16s, which the bf16 scaling
@@ -235,7 +248,8 @@ bound_by and library_ms; the error and the times both at the scaling
 path's shapes for K1-K4 in both storages and the column kernel's modes
 (times at the column head (8,1,4096)), at D=16384, B=512, TB=4 for the
 large-D kernels, at phase 13's routed shape for the grouped kernels, their
-launches phase 13's net's) and the nvidia-smi line; the last line is
+launches phase 13's net's, and at phase 14's lm_head for the stacked reduce
+mode, its launches phase 13's net's) and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -266,6 +280,7 @@ SLICE_TOL = 1e-5  # loss and predictions, card (kernels) vs CPU (plain)
 SLICE_GRAD_TOL = 1e-4
 
 _FUSED = "whvi_tpu_torch/csrc/whvi_fused.cu"
+_SUMS = "whvi_tpu_torch/csrc/whvi_bwd_sums.cu"  # K3's reduce mode, square and stacked
 _BF16S = "whvi_tpu_torch/csrc/whvi_bf16s.cu"  # K1-K3 on bf16 storage
 _COLUMN = "whvi_tpu_torch/csrc/whvi_column.cu"  # the column head on bf16 storage
 _GROUPED = "whvi_tpu_torch/csrc/whvi_grouped.cu"  # the grouped product (the expert layer's)
@@ -274,12 +289,12 @@ KERNELS = {
     "fused_y": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_res": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
-    "fused_bwd_sums": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),  # _bwd: K3 and its sums
+    "fused_bwd_sums": (_SUMS, "whvi_tpu/ops/fwht_pallas.py:403"),  # _bwd: K3 and its sums
     "fwht": ("whvi_tpu_torch/csrc/fwht.cu", "whvi_tpu/ops/fwht_pallas.py:191"),
     "fused_y_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_res_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
-    "fused_bwd_sums_bf16": (_FUSED, "whvi_tpu/ops/fwht_pallas.py:403"),
+    "fused_bwd_sums_bf16": (_SUMS, "whvi_tpu/ops/fwht_pallas.py:403"),
     "fused_y_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_res_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_bwd_bf16s": (_BF16S, "whvi_tpu/ops/fwht_pallas.py:403"),
@@ -295,16 +310,18 @@ KERNELS = {
     "fused_grouped_y_bf16": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:124"),
     "fused_grouped_res_bf16": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:113"),
     "fused_grouped_bwd_sums_bf16": (_GROUPED, "whvi_tpu/ops/fwht_pallas.py:403"),
+    # K3's reduce mode for stacked (stack, D) diagonals, a block at a time
+    "fused_bwd_sums_stacked": (_SUMS, "whvi_tpu/ops/fwht_pallas.py:403"),
 }
 FLAGSHIP_KERNELS = ("fused_y", "fused_res", "fused_bwd", "fwht")  # phases 3-4
 BF16_KERNELS = ("fused_y_bf16", "fused_res_bf16", "fused_bwd_bf16")  # phase 6
 COLUMN_KERNELS = ("column_y_bf16s", "column_res_bf16s", "column_bwd_bf16s")  # by mode
 # phase 10's path; the bare fwht_bf16s runs there no more (its launches are fwht_sweep's)
 BF16S_KERNELS = ("fused_y_bf16s", "fused_res_bf16s", "fused_bwd_bf16s", *COLUMN_KERNELS)
-# A backward counts K3 under one of two counters, by the product's shape
-# (fwht_cuda.sums_group): K3 with PyTorch's batch reductions after it, or
-# its reduce mode, which sums them itself.
-K3_COUNTERS = {"fused_bwd": ("fused_bwd", "fused_bwd_sums"),
+# A backward counts K3 under one of these counters, by the product's shape
+# (fwht_cuda.bwd_counter): K3 with PyTorch's batch reductions after it, or
+# its reduce mode, square or (fp32 only) stacked, which sums them itself.
+K3_COUNTERS = {"fused_bwd": ("fused_bwd", "fused_bwd_sums", "fused_bwd_sums_stacked"),
                "fused_bwd_bf16": ("fused_bwd_bf16", "fused_bwd_sums_bf16")}
 
 
@@ -371,7 +388,8 @@ def probe() -> str:
 # ------------------------------------------------------------------ 2. build
 
 
-def build(fc) -> float:
+def build(fc) -> str:
+    """Build the kernels' library and log nvcc's report; returns the report."""
     t0 = time.perf_counter()
     report = fc.build_kernels()
     fc.load_library()
@@ -383,7 +401,7 @@ def build(fc) -> float:
     for line in report.splitlines():
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
-    return seconds
+    return report
 
 
 # -------------------------------------------------------- 3. kernel vs plain
@@ -402,8 +420,9 @@ def compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead, samples=None) 
     when samples is given. The forward (y, and y, i1, i2 with residuals)
     and K3's outputs must equal the plain version bit for bit. The
     gradients through WhviMulFunction count under the counter its backward
-    takes: K3's reduce mode (fused_bwd_sums) where fc.sums_group takes the
-    shape, which is then checked against its plain version too."""
+    takes: K3's reduce mode (fused_bwd_sums, or fused_bwd_sums_stacked) where
+    fc.sums_group (fc.sums_stacked) takes the shape, which is then checked
+    against its plain version too."""
     s1, u, s2, x0 = _operands(dev, gen, D, s_lead, u_lead, x_lead)
     x = x0 if samples is None else x0.expand(samples, *x0.shape)
     errs, abs_errs = {}, {}
@@ -433,14 +452,14 @@ def compare_fused(fc, dev, gen, label, D, s_lead, u_lead, x_lead, samples=None) 
     ref = torch.autograd.grad(fc.fused_plain(*ref_inputs, False)[0], ref_leaves, g)
     errs["fused_bwd"] = max(rel_err(a, b) for a, b in zip(k3, k3_ref))
     abs_errs["fused_bwd"] = max((a - b).abs().max().item() for a, b in zip(k3, k3_ref))
-    bwd = "fused_bwd" if fc.sums_group(s1, u, s2, x) is None else "fused_bwd_sums"
+    bwd = fc.bwd_counter(s1, u, s2, x)
     errs[bwd] = max(errs.get(bwd, 0.0), *(rel_err(a, b) for a, b in zip(grads, ref)))
     abs_errs[bwd] = max(abs_errs.get(bwd, 0.0), *((a - b).abs().max().item()
                                                  for a, b in zip(grads, ref)))
-    if bwd == "fused_bwd_sums":  # the reduce mode itself: K3's dx, the plain sums
+    if bwd != "fused_bwd":  # the reduce mode itself: K3's dx, the plain sums
         got = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1_ref, i2_ref, True)
         want = fc.fused_bwd_sums_plain(s1, u, s2, x, g, i1_ref, i2_ref, True)
-        check(torch.equal(got[0], k3[0]), f"fused_bwd_sums at {label} D={D}: dx is not K3's")
+        check(torch.equal(got[0], k3[0]), f"{bwd} at {label} D={D}: dx is not K3's")
         errs[bwd] = max(errs[bwd], *(rel_err(a, b) for a, b in zip(got[1:], want[1:])))
         abs_errs[bwd] = max(abs_errs[bwd], *((a - b).abs().max().item()
                                             for a, b in zip(got[1:], want[1:])))
@@ -881,8 +900,7 @@ def compare_bf16(fc, kc, dev, gen, label, D, u_lead, x_rows, samples=None) -> di
     grads = torch.autograd.grad(out, leaves, g)
     ref = [r.sum_to_size(a.shape) for r, a in zip(fc.vjp_plain(s1, u, s2, x, g, "bf16"), grads)]
     # the gradients under the counter the backward takes (K3's reduce mode where it can)
-    bwd = "fused_bwd_bf16" if fc.sums_group(s1, u, s2, x) is None else "fused_bwd_sums_bf16"
-    record(bwd, zip(grads, ref, (tol2, tol1, tol2, tol2)))
+    record(fc.bwd_counter(s1, u, s2, x, "bf16"), zip(grads, ref, (tol2, tol1, tol2, tol2)))
     e32 = rel_err(y, fc.fused_plain(s1, u, s2, x, False)[0])
     check(e32 <= kc.BF16_TOL, f"bf16 y at {label} D={D} vs the fp32 product: {e32:.3e}")
     torch.cuda.synchronize()
@@ -2808,10 +2826,17 @@ def run_grouped_net_path(fc, dev, seed) -> dict:
         finally:
             set_whvi_mul_precision("fp32")
     launches = {n: fc.LAUNCHES[n] for n in KERNELS if n.startswith("fused_grouped")}
-    log(f"  dsv2 net launches: {launches}; realigned: {fc.REALIGNED}")
+    log(f"  dsv2 net launches: {launches}; K3: "
+        + ", ".join(f"{n} {fc.LAUNCHES[n]}" for names in K3_COUNTERS.values() for n in names)
+        + f"; realigned: {fc.REALIGNED}")
     for name, n in launches.items():
         check(n > 0, f"the dsv2 net launched no {name}")
-    return launches
+    # every map has D <= 8192: each backward takes a reduce mode, the stacked
+    # maps its stacked form (they compute fp32 in the bf16 precision too)
+    check(fc.LAUNCHES["fused_bwd"] == fc.LAUNCHES["fused_bwd_bf16"] == 0,
+          "the dsv2 net launched K3 with PyTorch's sums")
+    check(fc.LAUNCHES["fused_bwd_sums_stacked"] > 0, "the dsv2 net launched no stacked reduce mode")
+    return {**launches, STACKED_KERNEL: fc.LAUNCHES[STACKED_KERNEL]}
 
 
 def run_grouped_path(fc, dev, seed) -> tuple[dict, dict, dict]:
@@ -2819,6 +2844,133 @@ def run_grouped_path(fc, dev, seed) -> tuple[dict, dict, dict]:
     max_abs = grouped_vs_plain(fc, dev, seed)
     times = grouped_times(fc, dev, seed)
     return max_abs, times, run_grouped_net_path(fc, dev, seed)
+
+
+# ------------------------------------------------------------------ 14. the stacked reduce mode
+
+
+STACKED_KERNEL = "fused_bwd_sums_stacked"  # fp32 only: no bf16 product has (stack, D) diagonals
+# the DeepSeek-V2 cell's stacked maps, (D, stack): u one of STACKED_S samples
+# (S, 1, stack, D), x (S, N, 1, D) broadcast over the stack axis
+STACKED_MAPS = {
+    "q_proj": (2048, 2), "kv_a_proj_with_mqa": (2048, 1), "kv_b_proj": (512, 8),
+    "shared_down": (4096, 1), "dense_gate_up": (2048, 6), "lm_head": (2048, 7),
+}
+STACKED_S, STACKED_N, STACKED_CELL_N = 4, 256, 4096
+STACKED_TIMED = ("lm_head", "q_proj", "kv_b_proj")  # at the cell's N; lm_head's in the JSON
+
+
+def _stacked_operands(fc, dev, gen, D, stack, N):
+    """``(s1, u, s2, x, g, i1, i2)`` of a stacked map's backward at N rows a sample."""
+    s1, s2 = (torch.randn(stack, D, device=dev, generator=gen) * D**-0.5 for _ in range(2))
+    u = torch.randn(STACKED_S, 1, stack, D, device=dev, generator=gen)
+    x = torch.randn(STACKED_S, N, 1, D, device=dev, generator=gen)
+    _, i1, i2 = fc.fused_raw(s1, u, s2, x, True)
+    return s1, u, s2, x, torch.randn(i1.shape, device=dev, generator=gen), i1, i2
+
+
+def check_stacked(fc, name, ops) -> float:
+    """The stacked form at one map's operands against its plain version:
+    taken by the stacked rule (and refused in the bf16 precision), one
+    launch a call, dx equal to K3's bit for bit, ds1, du and ds2 within
+    KERNEL_TOL, two launches and the launch without dx bit for bit. Logs the
+    errors and returns the largest absolute one."""
+    s1, u, s2, x, g, i1, i2 = ops
+    D, stack, N = x.shape[-1], s1.shape[0], x.shape[1]
+    where = f"{STACKED_KERNEL} at {name} N={N}"
+    check(fc.sums_group(s1, u, s2, x) is None and fc.sums_stacked(s1, u, s2, x) == (N, stack)
+          and fc._reduce_mode(s1, u, s2, x, "bf16") is None,
+          f"{name}: the stacked rule does not take ({stack}, {D}) at N={N} in fp32 alone")
+    fc.reset_launches()
+    got = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True)
+    again = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True)
+    no_dx = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, False)
+    check(fc.LAUNCHES[STACKED_KERNEL] == 3 and sum(fc.LAUNCHES.values()) == 3,
+          f"{where}: launches {fc.LAUNCHES}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{where}: two launches differ")
+    check(no_dx[0] is None and all(torch.equal(a, b) for a, b in zip(got[1:], no_dx[1:])),
+          f"{where}: the sums without dx differ")
+    del again, no_dx
+    check(torch.equal(got[0], fc.fused_bwd_raw(s1, u, s2, g)[0]), f"{where}: dx is not K3's")
+    want = fc.fused_bwd_sums_plain(s1, u, s2, x, g, i1, i2, True)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    for what, err in zip(("dx", "ds1", "du", "ds2"), errs):
+        check(err <= KERNEL_TOL, f"{where}: {what} {err:.3e} > {KERNEL_TOL}")
+    log(f"  {name:<20} ({stack},{D}) N={N:<5} dx={errs[0]:.2e} ds1={errs[1]:.2e} "
+        f"du={errs[2]:.2e} ds2={errs[3]:.2e}")
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def stacked_vs_plain(fc, dev, seed) -> dict:
+    """Phase 14 (a): the stacked form against its plain version
+    (:func:`check_stacked`) at each stacked map's shape, N = 256. Returns
+    the max abs error by counter."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log(f"stacked reduce mode vs plain at u ({STACKED_S},1,stack,D), x ({STACKED_S},N,1,D) "
+        f"(sums <= {KERNEL_TOL}; dx K3's bit for bit):")
+    return {STACKED_KERNEL: max(
+        check_stacked(fc, name, _stacked_operands(fc, dev, gen, D, stack, STACKED_N))
+        for name, (D, stack) in STACKED_MAPS.items()
+    )}
+
+
+def stacked_times(fc, dev, seed, report: str | None) -> tuple[dict, dict]:
+    """Phase 14 (b): the stacked form at the cell's N = 4096 for lm_head,
+    q_proj and kv_b_proj, each checked against its plain version there
+    (:func:`check_stacked`), then timed, dx stored, beside its bound, the
+    plain version and K3 with PyTorch's reductions; (c) ptxas's registers
+    and spills of its instances at those widths (``report``: nvcc's, None
+    to skip). Returns the max abs error and the kernels line's times
+    (lm_head's), by counter."""
+    from whvi_tpu_torch.bench.common import bound_ms, time_us
+    from whvi_tpu_torch.bench.kernel_sass import _instance, ptxas
+    from whvi_tpu_torch.utils.profiling import H100_PEAK_FP32_FLOPS as PEAK
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    abs_err, times = 0.0, {}
+    log(f"stacked reduce mode at u ({STACKED_S},1,stack,D), x ({STACKED_S},{STACKED_CELL_N},1,D): "
+        "checked as above, then timed, dx stored (device ms per call, 20 calls in a CUDA graph, "
+        "median of 5 replays; K3 + PyTorch: K3 then _input_grads and dx's stack sum):")
+    for name in STACKED_TIMED:
+        D, stack = STACKED_MAPS[name]
+        ops = _stacked_operands(fc, dev, gen, D, stack, STACKED_CELL_N)
+        abs_err = max(abs_err, check_stacked(fc, name, ops))
+        torch.cuda.empty_cache()
+        s1, u, s2, x, g, i1, i2 = ops
+        rows = g.numel() // D
+
+        def old(a=ops):
+            dx, w1, t2 = fc.fused_bwd_raw(*a[:3], a[4])
+            return fc._input_grads((True,) * 4, *a, dx, w1, t2)
+
+        t = _timed(lambda: fc.fused_bwd_sums_raw(*ops, True),
+                   lambda: fc.fused_bwd_sums_plain(*ops, True),
+                   bound_ms((g, i1, i2, x, u, s1, s2), (g,),
+                            fused_ops(D, rows) + 6 * D * rows, PEAK))
+        t["k3_torch_ms"] = time_us(old, 20) / 1e3
+        _log_time(name, t)
+        log(f"  {'':<18} K3 + PyTorch {t['k3_torch_ms']:.4f} "
+            f"({t['k3_torch_ms'] / t['ms']:.2f}x the stacked form)")
+        if name == "lm_head":
+            times[STACKED_KERNEL] = t
+        del ops, s1, u, s2, x, g, i1, i2, old
+        torch.cuda.empty_cache()
+    if report is not None:
+        widths = {int(math.log2(D)) for D, _ in (STACKED_MAPS[n] for n in STACKED_TIMED)}
+        for symbol, row in sorted(ptxas(report).items()):
+            inst = _instance(symbol)
+            if inst and inst["kernel"] == "whvi_bwd_sums" and inst["L"] in widths:
+                log(f"  ptxas {'stacked' if inst.get('stacked') else 'square '} L={inst['L']} "
+                    f"bf16={int(inst['bf16'])}: {row.get('registers')} registers, "
+                    f"{row.get('spill_stores')} B spill stores, {row.get('spill_loads')} B loads")
+    return {STACKED_KERNEL: abs_err}, times
+
+
+def run_stacked_path(fc, dev, seed, report: str | None) -> tuple[dict, dict]:
+    """Phase 14: ``(max_abs, times)`` of the stacked reduce mode."""
+    max_abs = stacked_vs_plain(fc, dev, seed)
+    at_cell, times = stacked_times(fc, dev, seed, report)
+    return {STACKED_KERNEL: max(max_abs[STACKED_KERNEL], at_cell[STACKED_KERNEL])}, times
 
 
 def main() -> int:
@@ -2832,7 +2984,7 @@ def main() -> int:
     from whvi_tpu_torch.ops import kron_cuda as kc
 
     dev = torch.device("cuda", 0)
-    build(fc)
+    report = build(fc)
     max_abs = kernels_vs_plain(fc, dev, args.seed)
     kernel_times(fc, dev, args.seed)
     launches = run_slice(fc, dev, args.seed)
@@ -2895,6 +3047,11 @@ def main() -> int:
         part.update(found)
     t_h = time.perf_counter()
     log(f"phase 13: {t_h - t_g:.1f} s; the smoke: {t_h - t_start:.1f} s")
+    log("phase 14: the stacked reduce mode (the language model's stacked maps)")
+    for part, found in zip((max_abs, times), run_stacked_path(fc, dev, args.seed, report)):
+        part.update(found)
+    t_i = time.perf_counter()
+    log(f"phase 14: {t_i - t_h:.1f} s; the smoke: {t_i - t_start:.1f} s")
 
     kernels = [
         {

@@ -105,9 +105,20 @@ def test_kernel_instances_are_named_from_their_symbols():
     ("_ZN4whvi20whvi_bwd_sums_kernelILi4ELb1EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_liNS_8GeometryE",
      {"kernel": "whvi_bwd_sums", "L": 4, "storage": "fp32", "bf16": True}),
     ("_ZN4whvi20whvi_sum_runs_kernelEPKfPfS2_S2_lli", {"kernel": "whvi_sum_runs"}),
+    # the square and stacked forms as template flags
+    ("_ZN4whvi20whvi_bwd_sums_kernelILi13ELb0ELb0EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_liNS_8GeometryEi",
+     {"kernel": "whvi_bwd_sums", "L": 13, "storage": "fp32", "bf16": False}),
+    ("_ZN4whvi20whvi_bwd_sums_kernelILi11ELb0ELb1EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_liNS_8GeometryEi",
+     {"kernel": "whvi_bwd_sums", "L": 11, "storage": "fp32", "bf16": False, "stacked": True}),
+    ("_ZN4whvi20whvi_bwd_sums_kernelILi9ELb1ELb0EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_liNS_8GeometryEi",
+     {"kernel": "whvi_bwd_sums", "L": 9, "storage": "fp32", "bf16": True}),
+    ("_ZN4whvi20whvi_sum_runs_kernelILb0EEEvPKfPfS3_S3_llii", {"kernel": "whvi_sum_runs"}),
+    ("_ZN4whvi20whvi_sum_runs_kernelILb1EEEvPKfPfS3_S3_llii",
+     {"kernel": "whvi_sum_runs", "stacked": True}),
 ])
 def test_reduce_mode_instances_are_named_from_their_symbols(symbol, instance):
     assert kernel_sass._instance(symbol) == instance
+    assert (kernel_variants._held(symbol) is None) == ("stacked" in instance)
 
 
 def test_ptxas_report_is_read_per_kernel():

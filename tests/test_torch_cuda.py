@@ -16,6 +16,7 @@ storage every forward and the backward are held bit for bit.
 """
 
 import ctypes
+import os
 
 import pytest
 import torch
@@ -55,13 +56,6 @@ def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def _k3(ops, precision="fp32"):
-    """The counter of the backward's K3 launch on the operands: its reduce
-    mode where ``sums_group`` takes them, else K3 with PyTorch's sums."""
-    name = "fused_bwd" if fc.sums_group(*ops) is None else "fused_bwd_sums"
-    return name if precision == "fp32" else name + "_bf16"
-
-
 def _operands(dev, D, s_lead, u_lead, x_lead, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [
@@ -94,7 +88,7 @@ def test_whvi_mul_backward_matches_plain_autograd(dev, shape):
     y = whvi_mul(*mine)
     g = torch.randn_like(y)
     y.backward(g)
-    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res": 1, _k3(ops): 1}
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res": 1, fc.bwd_counter(*ops): 1}
     fc.fused_plain(*ref, False)[0].backward(g)
     for a, b in zip(mine, ref):
         assert a.grad.shape == b.shape
@@ -162,7 +156,8 @@ def test_reduce_mode_matches_plain_and_k3(dev, shape, precision):
     fc.reset_launches()
     got = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True, precision)
     again = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True, precision)
-    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {_k3((s1, u, s2, x), precision): 2}
+    counter = fc.bwd_counter(s1, u, s2, x, precision)
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {counter: 2}
     assert torch.equal(got[0], fc.fused_bwd_raw(s1, u, s2, g, precision)[0])  # K3's dx
     D = shape[0]
     tols = (TOL,) * 3 if precision == "fp32" else (fc.bf16_tol(D), fc.bf16_tol(D, 1), fc.bf16_tol(D))
@@ -203,6 +198,170 @@ def test_reduce_mode_keeps_w1_and_t2_out_of_memory(dev, monkeypatch):
     old = peak()
     assert fc.LAUNCHES["fused_bwd"] == 1
     assert old - new >= 2 * g.numel() * g.element_size()
+
+
+# ------------------------------------------ the stacked form of the reduce mode
+#
+# (D, stack): the DeepSeek-V2-Lite cell's stacked maps (q_proj 2, kv_a_proj
+# and the router 1, kv_b_proj 8 at D = 512, the shared down map 1 at 4096,
+# the dense gate/up 6, lm_head 7), then the flagship's first layer and the
+# widest D, at N = 256 rows of each of 4 samples: u (4, 1, stack, D) or one
+# (stack, D) row, x (4, N, 1, D) broadcast over the stack axis.
+STACKED_SHAPES = [(2048, 2), (2048, 1), (512, 8), (4096, 1), (2048, 6), (2048, 7), (16, 8),
+                  (8192, 2)]
+
+
+def _stacked_case(dev, D, stack, u_shared=False, N=256, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s1, s2 = (torch.randn(stack, D, device=dev, generator=gen) for _ in range(2))
+    u = torch.randn(*(() if u_shared else (4, 1)), stack, D, device=dev, generator=gen)
+    x = torch.randn(4, N, 1, D, device=dev, generator=gen)
+    _, i1, i2 = fc.fused_raw(s1, u, s2, x, True)
+    g = torch.randn(i1.shape, device=dev, generator=gen)
+    return s1, u, s2, x, g, i1, i2
+
+
+def _check_stacked(dev, D, stack, u_shared, N):
+    """The reduce mode at a stacked product: its stacked form (or the square
+    one at a shared stack of 1, a (D,) row in all but name) within TOL of
+    its plain version, dx K3's, three launches and no other, bit for bit."""
+    s1, u, s2, x, g, i1, i2 = _stacked_case(dev, D, stack, u_shared, N)
+    mode = fc._reduce_mode(s1, u, s2, x)
+    assert mode == ((4 * N, stack) if u_shared else (N, stack)) or (
+        stack == 1 and u_shared and mode == (4 * N, None))
+    counter = fc.bwd_counter(s1, u, s2, x)
+    fc.reset_launches()
+    got = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True)
+    again = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True)
+    no_dx = fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, False)
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {counter: 3}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bit for bit
+    assert no_dx[0] is None and all(torch.equal(a, b) for a, b in zip(got[1:], no_dx[1:]))
+    del again, no_dx
+    assert torch.equal(got[0], fc.fused_bwd_raw(s1, u, s2, g)[0])  # K3's dx
+    want = fc.fused_bwd_sums_plain(s1, u, s2, x, g, i1, i2, True)
+    for a, b in zip(got[1:], want[1:]):
+        assert a.shape == b.shape
+        assert rel_err(a, b) <= TOL
+
+
+@pytest.mark.parametrize("u_shared", [False, True], ids=["u-per-sample", "u-shared"])
+@pytest.mark.parametrize("shape", STACKED_SHAPES, ids=lambda s: f"D{s[0]}-stack{s[1]}")
+def test_stacked_reduce_mode_matches_plain_and_k3(dev, shape, u_shared):
+    _check_stacked(dev, *shape, u_shared, N=256)
+
+
+@pytest.mark.parametrize("shape", [(2048, 7), (2048, 2), (512, 8)],
+                         ids=["lm_head", "q_proj", "kv_b_proj"])
+def test_stacked_reduce_mode_at_the_cells_rows(dev, shape):
+    """The cell's own N = 4096 rows a sample, where a run walks 16 times the
+    rows it walks at N = 256 (lm_head: 128 against 8)."""
+    D, stack = shape
+    assert fc._sums_run(4 * 4096 * stack, 4096, D) > fc._sums_run(4 * 256 * stack, 256, D)
+    _check_stacked(dev, D, stack, False, N=4096)
+
+
+@pytest.mark.parametrize("shape", [(2048, 2), (512, 8), (16, 8)], ids=lambda s: f"D{s[0]}-stack{s[1]}")
+def test_stacked_backward_through_whvi_mul(dev, shape):
+    """A StackedMatrix's product through autograd: K2, then the stacked form
+    (one launch), its gradients within TOL of the plain version's autograd;
+    x's gradient summed over the stack axis."""
+    D, stack = shape
+    ops = _stacked_case(dev, D, stack, seed=1)[:4]
+    mine, ref = ([a.clone().requires_grad_() for a in ops] for _ in range(2))
+    fc.reset_launches()
+    y = whvi_mul(*mine)
+    g = torch.randn_like(y)
+    y.backward(g)
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res": 1,
+                                                           "fused_bwd_sums_stacked": 1}
+    fc.fused_plain(*ref, False)[0].backward(g)
+    for a, b in zip(mine, ref):
+        assert a.grad.shape == b.shape
+        assert rel_err(a.grad, b.grad) <= TOL
+
+
+def test_stacked_reduce_mode_keeps_w1_and_t2_out_of_memory(dev, monkeypatch):
+    """One backward at lm_head's (stack 7, D 2048) product: its peak
+    allocation lies below the old path's (K3, then PyTorch's products) by at
+    least w1's and t2's bytes, which the stacked form never stores."""
+    s1, u, s2, x, g, _, _ = _stacked_case(dev, 2048, 7)
+
+    def peak():
+        leaves = [t.clone().requires_grad_() for t in (s1, u, s2, x)]
+        y = whvi_mul(*leaves)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y.backward(g)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    fc.reset_launches()
+    new = peak()
+    assert fc.LAUNCHES["fused_bwd_sums_stacked"] == 1 and fc.LAUNCHES["fused_bwd"] == 0
+    monkeypatch.setattr(fc, "_reduce_mode", lambda *a: None)
+    old = peak()
+    assert fc.LAUNCHES["fused_bwd"] == 1
+    assert old - new >= 2 * g.numel() * g.element_size()
+
+
+def test_stacked_reduce_mode_refuses_what_it_does_not_take(dev):
+    """Per-row u, the bf16 precision and D = 16384 keep K3 with PyTorch's
+    sums."""
+    s1, u, s2, x, g, i1, i2 = _stacked_case(dev, 512, 8)
+    with pytest.raises(ValueError, match="reduce mode"):
+        fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True, "bf16")
+    leaves = [t.clone().requires_grad_() for t in (s1, u, s2, x)]
+    fc.reset_launches()
+    fc.WhviMulFunction.apply(*leaves, "bf16").backward(g)
+    assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res_bf16": 1,
+                                                           "fused_bwd_bf16": 1}
+    u = torch.randn(4, 256, 8, 512, device=dev)
+    with pytest.raises(ValueError, match="reduce mode"):
+        fc.fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, True)
+    big = [torch.randn(*lead, 16384, device=dev) for lead in ((1,), (4, 1, 1), (1,), (4, 2, 1))]
+    assert fc._reduce_mode(*big) is None
+
+
+def test_dsv2_net_step_takes_a_reduce_mode_for_every_map(dev):
+    """A small DeepSeek-V2 WHVI net's Trainer.train_step (every map D <=
+    8192): no K3 with PyTorch's sums, the stacked maps in the stacked form;
+    loss and gradients within chip_smoke's card-against-CPU tolerances."""
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke as smoke
+    finally:
+        sys.path.remove(root)
+    from whvi_tpu_torch.models.deepseek_v2 import DeepseekV2WHVI
+    from whvi_tpu_torch.train import TrainConfig, Trainer
+
+    S, B, T = 2, 2, 16
+    seq = torch.randint(0, smoke.DSV2_SMOKE["vocab_size"], (B, T + 1),
+                        generator=torch.Generator().manual_seed(0))
+    torch.manual_seed(1)
+    start = DeepseekV2WHVI(smoke.DSV2_SMOKE, train_samples=S, eval_samples=S).state_dict()
+    out = {}
+    for device in ("cpu", dev):
+        net = DeepseekV2WHVI(smoke.DSV2_SMOKE, train_samples=S, eval_samples=S)
+        trainer = Trainer(net, TrainConfig(lr0=1e-2), device=device)
+        state = trainer.init(2)
+        net.load_state_dict(start)
+        eps = [e.to(device) for e in net.draw_noise((S, B * T), torch.Generator().manual_seed(3))]
+        fc.reset_launches()
+        metrics = trainer.train_step(state, seq[:, :-1].to(device), seq[:, 1:].to(device), B * T,
+                                     True, eps=eps)
+        out[str(device)] = (float(metrics["loss"]),
+                            {k: p.grad.cpu() for k, p in net.named_parameters()})
+    assert fc.LAUNCHES["fused_bwd"] == 0 and fc.LAUNCHES["fused_bwd_sums_stacked"] > 0
+    (card, card_grads), (plain, plain_grads) = out[str(dev)], out["cpu"]
+    assert abs(card - plain) / abs(plain) <= smoke.SLICE_TOL
+    for k, want in plain_grads.items():
+        if want.abs().max() > 0:
+            assert rel_err(card_grads[k], want) <= smoke.SLICE_GRAD_TOL, k
 
 
 def test_no_grad_product_is_the_y_only_launch(dev):
@@ -310,7 +469,7 @@ def test_bf16_backward_matches_plain(dev, shape):
     y = whvi_mul(*leaves[:3], _expand(leaves[3], samples), precision="bf16")
     g = torch.randn_like(y)
     y.backward(g)
-    k3 = _k3((*ops[:3], _expand(ops[3], samples)), "bf16")
+    k3 = fc.bwd_counter(*ops[:3], _expand(ops[3], samples), "bf16")
     assert fc.LAUNCHES == dict.fromkeys(fc.LAUNCHES, 0) | {"fused_res_bf16": 1, k3: 1}
     s1, u, s2, x0 = ops
     ref = fc.vjp_plain(s1, u, s2, _expand(x0, samples), g, "bf16")

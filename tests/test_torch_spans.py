@@ -14,6 +14,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import sys
 import threading
 import time
@@ -368,6 +369,28 @@ def test_bwd_sums_share_reads_the_launch_counters(root, monkeypatch, launches, s
         monkeypatch.setattr(profiling, "span_summary", lambda: summary)
     cell = harness.Cell(root, "c5-largeD.train")
     assert cell.reader("bwd_sums_share.train")({"units": 3}) == share
+
+
+@pytest.mark.parametrize("launches,share", [
+    # the parent: only the 5 square o_proj maps take the reduce mode; the
+    # routed experts' grouped K3 counts as neither
+    ({"fused_bwd_sums": 5, "fused_bwd": 35, "fused_grouped_bwd_sums": 12}, 12.5),
+    # the stacked form: all but the D = 16384 dense down map
+    ({"fused_bwd_sums": 5, "fused_bwd_sums_stacked": 34, "fused_bwd": 1,
+      "fused_grouped_bwd_sums": 12}, 97.5),
+    ({"fused_bwd_sums_bf16": 3, "fused_bwd_bf16": 1}, 75.0),
+    ({"fused_grouped_bwd_sums": 12}, None),  # no K3 launched
+    (None, None),  # a port without span_summary
+], ids=["parent", "stacked", "bf16", "no-k3", "no-summary"])
+def test_bwd_sums_share_lm_train_reads_the_launch_counters(monkeypatch, launches, share):
+    if launches is None:
+        monkeypatch.delattr(profiling, "span_summary")
+    else:
+        summary = {"spans": {}, "launches": launches, "realigned": 0, "collectives": {}}
+        monkeypatch.setattr(profiling, "span_summary", lambda: summary)
+    cell = harness.Cell(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "dsv2lite-whvi.train-t1024")
+    assert cell.reader("bwd_sums_share.lm_train")({"units": 10}) == share
 
 
 def test_span_cost_rows_on_the_cpu(root):

@@ -21,16 +21,19 @@ bf16 precision within ``fwht_cuda.bf16_tol``).
 JSON rows: first the card and its power limit; then per variant the
 ptxas report of the fused kernels and of the column kernel at D = 4096,
 8192, 16384 (registers and spill bytes, fp32 and bf16, with residuals and
-without, in both storages; the column kernel's three modes), and whether
-the instances a design change of the column kernel must leave as they are
-(K1-K3 in both storages and precisions, K4 in both storages; every D)
-have the ptxas report and the SASS (``cuobjdump``) of ``base``'s; then
+without, in both storages; the column kernel's three modes; K3's reduce
+mode, square and stacked), and whether the instances a design change
+elsewhere must leave as they are (K1-K3 in both storages and precisions,
+K4 in both storages, the square form of K3's reduce mode and its second
+pass; every D) have the ptxas report and the SASS (``cuobjdump``) of
+``base``'s; then
 per variant and kernel the device ms
 a call (``time_us``: 20 calls in a CUDA graph, median of 5 replays) of
 K1-K3 in both precisions and on bf16 storage at the scaling path's shape
 (u (8,1,D), x (256,D) expanded to 2048 rows) at D = 4096 and 8192, of K3's
 reduce mode at (64,256,8192) and (8,256,4096) with x shared across the
-samples and with x its own (dx stored), of K1
+samples and with x its own (dx stored), of its stacked form at
+(4,1024,7,2048) and (4,1024,8,512), of K1
 at D=16384, B=512 in every mode, and of K4 at (2048, 4096) and at the
 column head (8,1,1,4096) in both storages, and of the column kernel's
 three modes at the column head (8,1,D), D = 4096 and 8192, and at the
@@ -261,6 +264,17 @@ def cases(dev):
             out += [("fused_bwd_sums", f"({S},{B},{D}) {'dx' if want_dx else 'x shared'}",
                      lambda a=(s1, u, s2, x, g, i1, i2, want_dx): fc.fused_bwd_sums_raw(*a),
                      (g, i1, i2, x, u, s1, s2), (g,) if want_dx else ())]
+    # its stacked form at the DeepSeek-V2-Lite cell's lm_head and kv_b_proj
+    # (u one a sample, x broadcast over the stack axis, dx stored), N = 1024
+    for D, stack in ((2048, 7), (512, 8)):
+        s1, s2 = (torch.randn(stack, D, device=dev, generator=gen) for _ in range(2))
+        u = torch.randn(4, 1, stack, D, device=dev, generator=gen)
+        x = torch.randn(4, 1024, 1, D, device=dev, generator=gen)
+        _, i1, i2 = fc.fused_raw(s1, u, s2, x, True)
+        g = torch.randn(i1.shape, device=dev, generator=gen)
+        out.append(("fused_bwd_sums_stacked", f"(4,1024,{stack},{D}) dx",
+                    lambda a=(s1, u, s2, x, g, i1, i2, True): fc.fused_bwd_sums_raw(*a),
+                    (g, i1, i2, x, u, s1, s2), (g,)))
     D = 4096
     d1, du, d2 = (torch.randn(16384, device=dev, generator=gen) for _ in range(3))
     xl = torch.randn(512, 16384, device=dev, generator=gen)
@@ -312,11 +326,12 @@ def cases(dev):
 
 
 def _held(symbol: str):
-    """The instance key of a kernel a design change of the column kernel
-    must leave as it is (K1-K3 in both storages and precisions, K4 in both
-    storages), else None."""
+    """The instance key of a kernel a design change elsewhere must leave as
+    it is (K1-K3 in both storages and precisions, K4 in both storages, the
+    square form of K3's reduce mode and its second pass), else None."""
     inst = _instance(symbol)
-    if inst and inst["kernel"] in ("fwht", "whvi_fused"):
+    if inst and (inst["kernel"] in ("fwht", "whvi_fused")
+                 or inst["kernel"] in ("whvi_bwd_sums", "whvi_sum_runs") and "stacked" not in inst):
         return tuple(sorted(inst.items()))
     return None
 
@@ -380,9 +395,11 @@ def main(argv=None) -> None:
             check(name, dev)
         has_column = hasattr(fc.load_library(), "column_bf16s")
         has_sums = hasattr(fc.load_library(), "whvi_bwd_sums_f32")
+        has_stacked = hasattr(fc.load_library(), "whvi_bwd_sums_stacked_f32")
         for kernel, label, call, ins, outs in runs:
             if (kernel.startswith("column") and not has_column) or (
-                    kernel == "fused_bwd_sums" and not has_sums):
+                    kernel == "fused_bwd_sums" and not has_sums) or (
+                    kernel == "fused_bwd_sums_stacked" and not has_stacked):
                 continue
             ms = time_us(call, 20) / 1e3
             bound, _ = bound_ms(ins, outs, 0.0, 1.0)

@@ -7,8 +7,9 @@ and disassembles it with ``cuobjdump -sass``. One JSON row per instance of
 ``whvi_fused_kernel`` and ``whvi_bf16s_kernel`` (K1-K3 in fp32 and bf16
 storage, both named ``whvi_fused``: ``L`` = log2 D, ``storage``,
 ``residuals``, ``bf16`` the operand precision), ``whvi_bwd_sums_kernel``
-(K3's reduce mode, ``whvi_bwd_sums``: ``L`` and ``bf16``) and its second
-pass ``whvi_sum_runs_kernel`` (``whvi_sum_runs``), ``fwht_kernel`` (K4, with
+(K3's reduce mode, ``whvi_bwd_sums``: ``L`` and ``bf16``; ``"stacked":
+true`` on its stacked form) and its second pass ``whvi_sum_runs_kernel``
+(``whvi_sum_runs``, the same), ``fwht_kernel`` (K4, with
 its ``storage``), ``column_kernel`` (the bf16-storage column head,
 ``column``: ``L`` and ``mode``, 0 y, 1 y and t, 2 the backward),
 ``kron_swap_kernel`` (``k_swap``) and
@@ -65,8 +66,11 @@ _KERNEL = re.compile(
     rf"_ZN4whvi(?:17whvi_fused_kernelILi(\d+)ELb(\d)ELb(\d)E(f|{_BF16})?E"
     rf"|11fwht_kernelILi(\d+)E(f|{_BF16})E|17whvi_bf16s_kernelILi(\d+)ELb(\d)EE)"
 )
-# whvi_bwd_sums_kernel<L, bf16> (K3's reduce mode) and its second pass
-_SUMS = re.compile(r"_ZN4whvi(?:20whvi_bwd_sums_kernelILi(\d+)ELb(\d)EE|20whvi_sum_runs_kernelE)")
+# whvi_bwd_sums_kernel<L, bf16, stacked> (K3's reduce mode; builds before
+# its stacked form have no third flag) and its second pass
+# whvi_sum_runs_kernel<stacked> (no flag before)
+_SUMS = re.compile(r"_ZN4whvi(?:20whvi_bwd_sums_kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?E"
+                   r"|20whvi_sum_runs_kernel(?:ILb(\d)EE)?)")
 # column_kernel<L, mode> (the column head on bf16 storage)
 _COLUMN = re.compile(r"_ZN4whvi13column_kernelILi(\d+)ELi(\d)EE")
 # kron_kernel<stage> of the copy (0) and the scale (1); kron_full_kernel<n>
@@ -84,14 +88,15 @@ def _instance(symbol: str) -> dict | None:
     """``{"kernel", "L", "storage", "residuals", "bf16"}`` of a K1-K4 symbol,
     ``{"kernel", "L", "mode"}`` of the column kernel, ``{"kernel", "L",
     "storage", "bf16"}`` of K3's reduce mode (``{"kernel"}`` of its second
-    pass),
+    pass; each with ``"stacked": True`` in the stacked form),
     ``{"kernel", "L"}`` of ``k_swap`` or ``k_cur``, ``{"kernel"}`` (the
     wrapper's name) of a large-D copy or scale, else None."""
     if m := _SUMS.search(symbol):
+        stacked = {"stacked": True} if "1" in (m.group(3), m.group(4)) else {}
         if m.group(1) is None:
-            return {"kernel": "whvi_sum_runs"}
+            return {"kernel": "whvi_sum_runs", **stacked}
         return {"kernel": "whvi_bwd_sums", "L": int(m.group(1)), "storage": "fp32",
-                "bf16": m.group(2) == "1"}
+                "bf16": m.group(2) == "1", **stacked}
     if m := _COLUMN.search(symbol):
         return {"kernel": "column", "L": int(m.group(1)), "mode": int(m.group(2))}
     if m := _ROW.search(symbol):

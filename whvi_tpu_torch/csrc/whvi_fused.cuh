@@ -1,8 +1,9 @@
 // The fused WHVI product's shared device code: the two transforms of
 // y = s1 * H(u * H(s2 * x)) over a register row (fwht_core.cuh), in both
 // operand precisions, and the rounded products the kernels scale and sum
-// with. whvi_fused.cu (K1-K3 and K3's reduce mode) and whvi_grouped.cu (the
-// grouped product, a segment of rows a WHVI matrix) inline the same code.
+// with. whvi_fused.cu (K1-K3), whvi_bwd_sums.cu (K3's reduce mode) and
+// whvi_grouped.cu (the grouped product, a segment of rows a WHVI matrix)
+// inline the same code.
 #pragma once
 
 #include "fwht_core.cuh"

@@ -2,7 +2,8 @@
 
 Counterpart of :mod:`whvi_tpu.ops.fwht_pallas`. Four kernels live in
 ``whvi_tpu_torch/csrc/`` (the fused product in fp32 storage,
-``whvi_fused.cu``, and in bf16 storage, ``whvi_bf16s.cu``; the bare
+``whvi_fused.cu``, its backward with the batch reductions in
+``whvi_bwd_sums.cu``, and in bf16 storage, ``whvi_bf16s.cu``; the bare
 transform, ``fwht.cu``; the column head in bf16 storage,
 ``whvi_column.cu``) and are used sixteen ways:
 
@@ -35,9 +36,13 @@ a WHVI matrix a segment of rows, the expert layer's) counts here too:
 K3's reduce mode (``fused_bwd_sums``) is the backward of a square product
 whose ``s1`` and ``s2`` are one ``(D,)`` row and whose ``u`` is one row, or
 one a sample (:func:`sums_group`): it sums ``ds1``, ``du`` and ``ds2`` from
-its registers and stores neither ``w1``, ``t2`` nor any product.
-:class:`WhviMulFunction` takes it for such operands on a card, and K3 with
-PyTorch's reductions for every other product.
+its registers and stores neither ``w1``, ``t2`` nor any product. Its
+stacked form (``fused_bwd_sums_stacked``, fp32 precision only) does the
+same for a stacked product, ``s1`` and ``s2`` of ``(stack, D)`` over
+outputs ``(.., stack, D)`` (:func:`sums_stacked`), a block at a time.
+:class:`WhviMulFunction` takes either for such operands on a card, and K3
+with PyTorch's reductions for every other product (:func:`bwd_counter`
+names the counter a backward's K3 launch counts under).
 
 Precision. The Pallas product takes ``precision="fp32" | "bf16"``, and
 ``"bf16"`` is its default (``_fused_raw``, ``whvi_mul_pallas``) and the
@@ -130,6 +135,7 @@ __all__ = [
     "WhviMulFunction",
     "bf16_tol",
     "build_kernels",
+    "bwd_counter",
     "check_kernel_args",
     "check_precision",
     "check_storage",
@@ -150,6 +156,7 @@ __all__ = [
     "load_library",
     "reset_launches",
     "sums_group",
+    "sums_stacked",
     "vector_aligned",
     "vector_bytes",
     "vjp_plain",
@@ -159,14 +166,14 @@ MAX_D = 16384
 MIN_D_BF16 = 4  # pallas_supported: 4 <= D <= 16384
 LANE = 128  # H_128, the last Kronecker factor of the two-factor bodies
 ONE_FACTOR_MAX = 1024  # D <= 1024: one factor H_D (_factor_pair)
-SUMS_MAX_D = 8192  # K3's reduce mode (csrc/whvi_fused.cu, kSumsMaxLog2D)
+SUMS_MAX_D = 8192  # K3's reduce mode (csrc/whvi_bwd_sums.cu, kSumsMaxLog2D)
 SUMS_BLOCKS = 256  # the reduce mode's least grid: about two blocks for each of 132 SMs
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = (
     "whvi_fused.cu", "whvi_bf16s.cu", "fwht.cu", "whvi_column.cu", "whvi_kron.cu", "whvi_full.cu",
-    "whvi_pipe.cu", "copy_floor.cu", "whvi_grouped.cu",
+    "whvi_pipe.cu", "copy_floor.cu", "whvi_grouped.cu", "whvi_bwd_sums.cu",
 )
 _HEADERS = ("fwht_core.cuh", "whvi_fused.cuh", "kron_core.cuh", "tma.cuh", "wgmma.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "whvi_tpu_torch")
@@ -184,6 +191,7 @@ LAUNCHES = {
     "column_y_bf16s": 0, "column_res_bf16s": 0, "column_bwd_bf16s": 0,
     "fused_grouped_y": 0, "fused_grouped_res": 0, "fused_grouped_bwd_sums": 0,
     "fused_grouped_y_bf16": 0, "fused_grouped_res_bf16": 0, "fused_grouped_bwd_sums_bf16": 0,
+    "fused_bwd_sums_stacked": 0,
 }
 # The Kernel layer's span of each launch: ``whvi.kernel.<counter>``.
 KERNEL_SPANS = {name: "whvi.kernel." + name for name in LAUNCHES}
@@ -303,6 +311,13 @@ def load_library() -> ctypes.CDLL:
                 ]
                 lib.whvi_sum_runs_f32.argtypes = [vp] * 4 + [i64, i64, i32, vp]
                 for name in ("whvi_bwd_sums_f32", "whvi_sum_runs_f32"):
+                    getattr(lib, name).restype = ctypes.c_int
+            if hasattr(lib, "whvi_bwd_sums_stacked_f32"):  # not in a build of older sources
+                lib.whvi_bwd_sums_stacked_f32.argtypes = [vp] * 9 + [
+                    i64, i32, i32, i32, ctypes.POINTER(_Geometry), vp,
+                ]
+                lib.whvi_sum_runs_stacked_f32.argtypes = [vp] * 4 + [i64, i64, i32, i32, vp]
+                for name in ("whvi_bwd_sums_stacked_f32", "whvi_sum_runs_stacked_f32"):
                     getattr(lib, name).restype = ctypes.c_int
             for name in ("fwht_f32", "fwht_bf16s"):
                 getattr(lib, name).argtypes = [vp, vp, i64, i32, vp]
@@ -694,19 +709,86 @@ def sums_group(s1, u, s2, x) -> int | None:
     return None
 
 
+def sums_stacked(s1, u, s2, x) -> tuple[int, int] | None:
+    """``(group, stack)`` where the stacked form of K3's reduce mode takes
+    the backward of ``y = s1*H(u*H(s2*x))``, else None: ``stack`` is the
+    outputs' last leading axis, and ``group`` the leading rows (outputs'
+    rows over ``stack``) that share one ``(stack, D)`` row of ``u``.
+
+    It takes fp32 storage, ``2 <= D <= SUMS_MAX_D``, ``s1`` and ``s2`` of
+    one ``(stack, D)`` row each (a ``StackedMatrix``'s, leading axes all 1;
+    ``stack = 1`` included), and a ``u`` of one ``(stack, D)`` row for all
+    outputs, or one for each row of the outputs' second-to-last leading
+    axis (``u (S, 1, stack, D)`` over outputs ``(S, N, stack, D)``, ``N >
+    1``): then every sum runs over one block's rows. Per-example ``u``
+    (``N = 1`` included), replicated diagonals, bf16 storage and ``D >
+    SUMS_MAX_D`` are refused, as by :func:`sums_group`, which the backward
+    asks first. Shapes alone decide."""
+    D = x.shape[-1]
+    if {t.dtype for t in (s1, u, s2, x)} != {torch.float32}:
+        return None
+    if not (is_pow_of_2(D) and 2 <= D <= SUMS_MAX_D):
+        return None
+    lead = torch.broadcast_shapes(x.shape[:-1], s1.shape[:-1], u.shape[:-1], s2.shape[:-1])
+    if not lead or math.prod(lead) == 0:
+        return None
+
+    def padded(t):
+        return (1,) * (len(lead) - t.dim() + 1) + tuple(t.shape[:-1])
+
+    stack, ones = lead[-1], (1,) * (len(lead) - 1)
+    if padded(s1) != ones + (stack,) or padded(s2) != ones + (stack,):
+        return None
+    u_lead = padded(u)
+    if u_lead[-1] != stack:
+        return None
+    if all(n == 1 for n in u_lead[:-1]):
+        return math.prod(lead[:-1]), stack
+    if len(lead) > 1 and lead[-2] > 1 and u_lead[-2] == 1 and u_lead[:-2] == tuple(lead[:-2]):
+        return lead[-2], stack
+    return None
+
+
+def _reduce_mode(s1, u, s2, x, precision: str = "fp32") -> tuple[int, int | None] | None:
+    """``(group, stack)`` of K3's reduce mode on these operands in
+    ``precision``: the square form (:func:`sums_group`, ``stack`` None) or
+    the stacked one (:func:`sums_stacked`, fp32 only: ``whvi_mul`` runs no
+    product with ``(stack, D)`` diagonals in the bf16 precision,
+    :func:`whvi_op.bf16_eligible`), else None."""
+    group = sums_group(s1, u, s2, x)
+    if group is not None:
+        return group, None
+    return sums_stacked(s1, u, s2, x) if precision == "fp32" else None
+
+
+def bwd_counter(s1, u, s2, x, precision: str = "fp32") -> str:
+    """The :data:`LAUNCHES` counter of the K3 launch in a card's backward of
+    the product: its reduce mode's, square or stacked, where
+    :func:`_reduce_mode` takes the operands, else K3's."""
+    mode = _reduce_mode(s1, u, s2, x, precision)
+    name = ("fused_bwd" if mode is None else "fused_bwd_sums" if mode[1] is None
+            else "fused_bwd_sums_stacked")
+    return _counter(name, precision, x.dtype)
+
+
 def _sums_run(rows: int, group: int, D: int) -> int:
     """The rows a thread of K3's reduce mode sums before it stores its
     partial sums: the largest divisor of ``group`` that still leaves
     :data:`SUMS_BLOCKS` blocks of ``csrc/fwht_core.cuh``'s row shape (one
-    row slot a thread group, 256 threads or one row a block), or 1."""
+    row slot a thread group, 256 threads or one row a block), or 1. In the
+    stacked form ``group`` counts leading rows, each of ``stack`` output
+    rows, and a run one block of each."""
     L = int(math.log2(D))
     tpr = 1 << (L - (L if L <= 4 else 4 if L < 13 else 5))
     most = max(1, rows // (max(tpr, 256) // tpr * SUMS_BLOCKS))
     return max(r for r in range(1, min(group, most) + 1) if group % r == 0)
 
 
-def _launch_bwd_sums(s1, u, s2, x, g, i1, i2, want_dx: bool, precision: str, group: int):
-    """K3's reduce mode on CUDA tensors (``group`` from :func:`sums_group`):
+def _launch_bwd_sums(s1, u, s2, x, g, i1, i2, want_dx: bool, precision: str, group: int,
+                     stack: int | None = None):
+    """K3's reduce mode on CUDA tensors (``group`` and ``stack`` from
+    :func:`_reduce_mode`: the stacked form, fp32 only, where ``stack`` is
+    not None):
     ``(dx, finish)``, ``dx`` of ``g``'s shape or None, ``finish()`` the
     second pass, which returns ``(ds1, du, ds2)`` of the operands' shapes.
 
@@ -728,33 +810,39 @@ def _launch_bwd_sums(s1, u, s2, x, g, i1, i2, want_dx: bool, precision: str, gro
             f"residuals {tuple(i1.shape)}, {tuple(i2.shape)} for a cotangent {tuple(g.shape)}"
         )
     rows = math.prod(lead)
-    n_runs = rows // _sums_run(rows, group, D)
+    run = _sums_run(rows, group, D)
+    n_runs, n_groups = rows // run, rows // (group * (stack or 1))
     geom = _geometry(lead, (x, s1, u, s2))
     dx = torch.empty_like(g) if want_dx else None
     part = torch.empty(3, n_runs, D, dtype=g.dtype, device=g.device)
     lib = load_library()
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    counter = _counter("fused_bwd_sums", precision, g.dtype)
+    log2d = int(math.log2(D))
+    # the square form's entries, which take the precision after the run, or
+    # the stacked form's, which take the stack there
+    form, arg = ("", int(precision == "bf16")) if stack is None else ("_stacked", stack)
+    counter = _counter("fused_bwd_sums" + form, precision, g.dtype)
+    entry = f"whvi_bwd_sums{form}_f32"
     with torch.cuda.device(g.device), span(KERNEL_SPANS[counter]):
-        err = lib.whvi_bwd_sums_f32(
+        err = getattr(lib, entry)(
             g.data_ptr(), x.data_ptr(), s1.data_ptr(), u.data_ptr(), s2.data_ptr(),
             i1.data_ptr(), i2.data_ptr(), None if dx is None else dx.data_ptr(), part.data_ptr(),
-            n_runs, rows // n_runs, int(precision == "bf16"), int(math.log2(D)),
-            ctypes.byref(geom), stream,
+            n_runs, run, arg, log2d, ctypes.byref(geom), stream,
         )
     if err != 0:
-        raise RuntimeError(f"whvi_bwd_sums_f32 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
     LAUNCHES[counter] += 1
 
     def finish():
         ds1, du, ds2 = (torch.empty(t.shape, dtype=g.dtype, device=g.device) for t in (s1, u, s2))
+        second = f"whvi_sum_runs{form}_f32"
         with torch.cuda.device(g.device):
-            err = lib.whvi_sum_runs_f32(
-                part.data_ptr(), ds1.data_ptr(), du.data_ptr(), ds2.data_ptr(), n_runs,
-                rows // group, int(math.log2(D)), stream,
+            err = getattr(lib, second)(
+                part.data_ptr(), ds1.data_ptr(), du.data_ptr(), ds2.data_ptr(), n_runs, n_groups,
+                *(() if stack is None else (stack,)), log2d, stream,
             )
         if err != 0:
-            raise RuntimeError(f"whvi_sum_runs_f32 launch failed: cudaError_t {err}")
+            raise RuntimeError(f"{second} launch failed: cudaError_t {err}")
         return ds1, du, ds2
 
     return dx, finish
@@ -762,21 +850,22 @@ def _launch_bwd_sums(s1, u, s2, x, g, i1, i2, want_dx: bool, precision: str, gro
 
 def fused_bwd_sums_raw(s1, u, s2, x, g, i1, i2, want_dx: bool, precision: str = "fp32"):
     """``(dx, ds1, du, ds2)`` of :func:`fused_bwd_sums_plain`, no autograd:
-    K3's reduce mode and its second pass, one counted launch, on CUDA
-    tensors whose shapes :func:`sums_group` takes (else ``ValueError``);
-    the plain version on CPU tensors."""
+    K3's reduce mode (square or stacked) and its second pass, one counted
+    launch, on CUDA tensors that :func:`_reduce_mode` takes in ``precision``
+    (else ``ValueError``); the plain version on CPU tensors."""
     dtype = _storage(s1, u, s2, x, g, i1, i2)
     check_precision(g.shape[-1], precision, dtype)
     if _on_cpu(s1, u, s2, x, g, i1, i2):
         return fused_bwd_sums_plain(s1, u, s2, x, g, i1, i2, want_dx, precision)
-    group = sums_group(s1, u, s2, x)
-    if group is None:
+    mode = _reduce_mode(s1, u, s2, x, precision)
+    if mode is None:
         raise ValueError(
-            f"K3's reduce mode takes fp32 storage, D <= {SUMS_MAX_D}, (D,) diagonals s1 and s2 "
-            f"and a u shared or one a sample; got s1 {tuple(s1.shape)}, u {tuple(u.shape)}, "
-            f"s2 {tuple(s2.shape)}, x {tuple(x.shape)} of {dtype}"
+            f"K3's reduce mode takes fp32 storage, D <= {SUMS_MAX_D}, (D,) diagonals s1 and s2, "
+            f"or (stack, D) ones in the fp32 precision, and a u shared or one a sample; got s1 "
+            f"{tuple(s1.shape)}, u {tuple(u.shape)}, s2 {tuple(s2.shape)}, x {tuple(x.shape)} "
+            f"of {dtype} in {precision}"
         )
-    dx, finish = _launch_bwd_sums(s1, u, s2, x, g, i1, i2, want_dx, precision, group)
+    dx, finish = _launch_bwd_sums(s1, u, s2, x, g, i1, i2, want_dx, precision, *mode)
     return (dx, *finish())
 
 
@@ -913,9 +1002,10 @@ class WhviMulFunction(torch.autograd.Function):
     batch reductions ``du = sum(w1*i1)``, ``ds1 = sum(g*i2)``,
     ``ds2 = sum(x*t2)`` and ``dx`` summed back to each operand's shape.
     ``x`` usually broadcasts over the stack axis, so its gradient is summed
-    over it too. On a card, where :func:`sums_group` takes the operands,
-    K3's reduce mode sums the three reductions itself (``fused_bwd_sums``);
-    on the CPU the plain versions run.
+    over it too. On a card, where :func:`sums_group` or :func:`sums_stacked`
+    takes the operands, K3's reduce mode sums the three reductions itself
+    (``fused_bwd_sums``, ``fused_bwd_sums_stacked``); on the CPU the plain
+    versions run.
     """
 
     @staticmethod
@@ -932,15 +1022,15 @@ class WhviMulFunction(torch.autograd.Function):
         with span("whvi.op.whvi_mul_bwd"):
             s1, u, s2, x, i1, i2 = ctx.saved_tensors
             g = g.contiguous()
-            group = None if g.device.type == "cpu" else sums_group(s1, u, s2, x)
-            if group is None:
+            mode = None if g.device.type == "cpu" else _reduce_mode(s1, u, s2, x, ctx.precision)
+            if mode is None:
                 dx, w1, t2 = fused_bwd_raw(s1, u, s2, g, ctx.precision)
             else:
                 dx, finish = _launch_bwd_sums(
-                    s1, u, s2, x, g, i1, i2, need[3], ctx.precision, group
+                    s1, u, s2, x, g, i1, i2, need[3], ctx.precision, *mode
                 )
         with span("whvi.op.input_grads"):
-            if group is None:
+            if mode is None:
                 grads = _input_grads(need, s1, u, s2, x, g, i1, i2, dx, w1, t2)
             else:
                 sums = finish()
